@@ -1,0 +1,153 @@
+"""Neighbor retrieval (paper §4, Definitions 1-2) -- batched plane.
+
+Given vertex ``v``:
+  1. the ``<offset>`` index gives the edge-row range ``[lo, hi)``;
+  2. only the delta pages of the value column overlapping that range are
+     loaded and decoded (I/O metered);
+  3. decoded neighbor IDs are grouped into a :class:`PAC` over the *target
+     vertex table's* pages, each collection a bitmap.
+
+The unit of work is a **batch of vertices**: ``retrieve_neighbors_batch``
+performs one vectorized offsets gather, one page-deduplicated multi-range
+decode, and returns a merged (unioned) PAC.
+
+The decode step has three engines:
+  * ``numpy`` -- the storage-plane oracle (encoding.py),
+  * ``torch`` -- the kernels' plain PyTorch versions, on the CPU,
+  * ``cuda``  -- the hand-written CUDA kernels, on ``cuda:0`` (default).
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from .edge import AdjacencyTable
+from .pac import PAC
+from .table import DeltaIntColumn
+
+
+def _kernel_column(adj: AdjacencyTable):
+    col = adj.table[adj.value_col]
+    if not isinstance(col, DeltaIntColumn):
+        raise TypeError("kernel engines require a delta-encoded column")
+    # the JAX package routes REPRO_PARTITIONS > 1 through its partition
+    # plane; that plane is not ported, and ignoring the setting would
+    # silently serve another route
+    if int(os.environ.get("REPRO_PARTITIONS", "0") or 0) > 1:
+        raise NotImplementedError(
+            "the partition plane (REPRO_PARTITIONS > 1) is not ported")
+    return col.encoded
+
+
+def _require_write_once(adj: AdjacencyTable) -> None:
+    if adj.delta is not None:
+        raise NotImplementedError(
+            "the mutable plane (pending delta edges) is not ported")
+
+
+def decode_edge_ranges(adj: AdjacencyTable, los, his, meter=None,
+                       engine: str = "cuda", qual=None) -> np.ndarray:
+    """Concatenated neighbor IDs over many edge-row ranges (multiplicity
+    preserved), decoding the deduplicated page set once.
+
+    ``qual`` -- a predicate's half-open qualifying ``[lo, hi)`` id hull
+    -- enables page-granular statistics pushdown: pages whose zone map
+    cannot intersect it are neither decoded nor charged, and their rows
+    (all of which fail the predicate) are dropped from the output.  Only
+    callers that go on to filter by that predicate may pass it.
+    """
+    from repro_torch.kernels.pac_decode import ops as pac_ops
+    if engine == "numpy" and (qual is None or not isinstance(
+            adj.table[adj.value_col], DeltaIntColumn)):
+        return np.asarray(
+            adj.table[adj.value_col].read_rows_concat(los, his, meter),
+            np.int64)
+    return pac_ops.decode_row_ranges(_kernel_column(adj), los, his,
+                                     meter=meter, engine=engine, qual=qual)
+
+
+def neighbor_ids_batch(adj: AdjacencyTable, vs, meter=None,
+                       engine: str = "cuda",
+                       unique: bool = True, qual=None) -> np.ndarray:
+    """Neighbor IDs of a whole batch of vertices.
+
+    One vectorized offsets gather + one multi-range decode; duplicate
+    vertices in ``vs`` and empty adjacencies cost nothing extra.  With
+    ``unique`` the result is the sorted union; otherwise the concatenation
+    in ``vs`` order (multiplicity preserved).  ``qual`` (unique mode only)
+    pushes a predicate's qualifying hull down for statistics pruning.
+    """
+    _require_write_once(adj)
+    los, his = adj.edge_ranges_batch(vs, meter)
+    ids = decode_edge_ranges(adj, los, his, meter, engine,
+                             qual=qual if unique else None)
+    return np.unique(ids) if unique else ids
+
+
+def retrieve_neighbors_batch(adj: AdjacencyTable, vs,
+                             target_page_size: int,
+                             meter=None,
+                             engine: str = "cuda",
+                             fused: bool | None = None,
+                             filter=None,
+                             resident: bool | None = None) -> PAC:
+    """Batched Definition 2: merged PAC of the neighbors of every ``v`` in
+    ``vs`` (equal to the union of the per-vertex PACs).
+
+    On the kernel engines the merged PAC comes straight from the fused
+    decode->bitmap kernel whenever the adjacency knows its value-side
+    vertex count and the batch has at least ``FUSED_MIN_RANGES`` vertices;
+    ``fused=False`` forces the decode + ``PAC.from_ids`` host path.
+
+    ``filter`` -- a :class:`repro_torch.core.labels.LabelFilter` over the
+    value-side vertex table -- pushes a label predicate down: "neighbors
+    of batch B having label L".  On the fused path the predicate plane is
+    ANDed inside the same dispatch; the host path intersects with the
+    filter's PAC.  The filter's label-metadata I/O is charged here, once,
+    identically for every engine and path.
+
+    ``resident`` is accepted for the JAX package's signature; only the
+    device-resident route is ported, and ``resident=False`` raises."""
+    vs = np.asarray(vs, np.int64)
+    if engine == "numpy" and fused:
+        raise ValueError("fused path requires a kernel engine (torch/cuda)")
+    _require_write_once(adj)
+    if vs.size == 0:
+        return PAC(target_page_size)
+    if filter is not None:
+        filter.charge(meter)
+    los, his = adj.edge_ranges_batch(vs, meter)
+    if engine == "numpy":
+        qual = filter.qual_range() if filter is not None else None
+        ids = decode_edge_ranges(adj, los, his, meter, engine, qual=qual)
+        pac = PAC.from_ids(np.unique(ids), target_page_size) \
+            if ids.size else PAC(target_page_size)
+        if filter is not None:
+            pac = pac.intersect(filter.pac(target_page_size))
+        return pac
+    from repro_torch.kernels.pac_decode import ops as pac_ops
+    return pac_ops.retrieve_pac_batch(_kernel_column(adj), los, his,
+                                      target_page_size, meter, engine=engine,
+                                      num_targets=adj.num_value_vertices,
+                                      fused=fused, label_filter=filter,
+                                      resident=resident)
+
+
+def retrieve_neighbors(adj: AdjacencyTable, v: int,
+                       target_page_size: int,
+                       meter=None,
+                       engine: str = "cuda") -> PAC:
+    """Definition 2: PAC of the neighbor IDs of ``v``."""
+    _require_write_once(adj)
+    lo, hi = adj.edge_range(v, meter)
+    if hi <= lo:
+        return PAC(target_page_size)
+    if engine == "numpy":
+        ids = np.asarray(
+            adj.table[adj.value_col].read_range(lo, hi, meter), np.int64)
+        return PAC.from_ids(ids, target_page_size)
+    from repro_torch.kernels.pac_decode import ops as pac_ops
+    return pac_ops.retrieve_pac_batch(_kernel_column(adj), np.array([lo]),
+                                      np.array([hi]), target_page_size,
+                                      meter, engine=engine)
