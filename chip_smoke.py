@@ -17,7 +17,24 @@ Phases, each of which exits non-zero when it fails:
      ``(L0 & L1) | ~L2``, with no page cache and with a 4096-page LRU
      (cold, then warm); every run is held against the ``numpy`` engine
      (PAC, IOMeter and LRU counters equal) and every kernel must have
-     launched.
+     launched;
+  5. traversal: the ``TraversalPlan`` built on the card (timed), then
+     ``k_hop(engine="cuda")`` from 1, 8 and 64 seeds at 2 and 3 hops,
+     unfiltered, filtered and with the per-hop list ``[None, filt, ...]``:
+     meterless runs timed (host ms, median of 3, one device round trip
+     each), runs with a meter (no cache, then a 4096-page LRU cold and
+     warm) held against the host-loop oracle; ``two_hop_pac`` from one
+     seed against the staged numpy path, and ``frontier_edge_counts``
+     over ``L0``'s intervals against a numpy bincount; the traversal
+     kernels, ``gather_decode`` (the plan build) and ``cond_bitmap`` (the
+     predicate plane) must have launched;
+  6. traversal kernels: ``khop_scan``, ``two_hop`` and ``count_hop``
+     against their plain versions on the card, bit for bit, at the
+     traversal path's shapes and with padding keys, sentinel seeds and
+     intervals, overlapping intervals and an end equal to ``n_key``; timed
+     against the plain version and against the bound.
+Every launch count is set to 0 just before phases 4 and 5 and read just
+after; a kernel's ``launches`` is the sum over the two.
 The card's name and power limit, then the kernel table as JSON, come on
 the lines before the last; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -43,6 +60,14 @@ CACHE_PAGES = 4096
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 INT32_OPS_PER_S = 67e12         # H100 SXM 32-bit non-tensor peak
 REPS = 3
+SEED_COUNTS = (1, 8, 64)
+#: kernels launched by the retrieval slice (phase 4) and by the traversal
+#: path (phase 5: the plan build decodes through gather_decode, and each
+#: filter's predicate plane comes from cond_bitmap)
+RETRIEVAL_KERNELS = ("gather_decode", "fused_gather_decode_bitmap_batch",
+                     "cond_bitmap", "fused_gather_decode_filter_bitmap_batch")
+TRAVERSAL_KERNELS = ("gather_decode", "cond_bitmap", "khop_scan", "two_hop",
+                     "count_hop")
 #: where the kernel phase runs and which engine the slice drives
 DEVICE = "cuda:0"
 ENGINE = "cuda"
@@ -70,6 +95,23 @@ def cuda_ms(torch, fn, reps: int) -> float:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise SystemExit(f"FAILED: {msg}")
+
+
+def kernel_row(name, source, replaces, err, ms, plain_ms, nbytes, nops=0):
+    """One entry of the ``kernels`` line; its launches are filled in from
+    the slice phases."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / INT32_OPS_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def max_err(a, b):
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
 
 def build_graph():
@@ -136,18 +178,8 @@ def kernel_phase(torch, adj, vt, batches):
     n_words = -(-adj.num_value_vertices // 32)
     rows = []
 
-    def entry(name, source, replaces, err, ms, plain_ms, nbytes, nops=0):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / INT32_OPS_PER_S * 1e3
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": 0,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops
-                     else "operations", "library_ms": None})
-
-    def max_err(a, b):
-        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+    def entry(*args, **kwargs):
+        rows.append(kernel_row(*args, **kwargs))
 
     # -- gather_decode: the non-fused path's page list for batch 8, plus
     #    a 16384-vertex page list and out-of-range padding (clamped)
@@ -318,6 +350,317 @@ def slice_phase(torch, adj, vt, batches, card):
     return results
 
 
+def traversal_slice_phase(torch, adj, vt, card):
+    """The traversal entry points on the card: ``k_hop`` (timed meterless,
+    held against the host-loop oracle with a meter, with no cache and a
+    cold then warm LRU), ``two_hop_pac`` against the staged numpy path
+    and ``frontier_edge_counts`` against a numpy bincount."""
+    import numpy as np
+    import repro_torch.core as TC
+    from repro_torch.core.page_cache import DecodedPageCache
+    from repro_torch.kernels.traversal import ops as TO
+    enc = adj.table["<dst>"].encoded
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    plan = TO.traversal_plan(adj, ENGINE)
+    plan.device(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"traversal: plan built and uploaded in {build_s:.1f} s "
+        f"({plan.rows} rows, {len(plan.key_sorted)} padded, "
+        f"{plan.n_value} segments)")
+    # a fresh filter: its predicate plane is built on this path
+    filt = TC.LabelFilter(vt, (TC.L("L0") & TC.L("L1")) | ~TC.L("L2"))
+    rng = np.random.default_rng(3)
+    seeds_of = {s: rng.integers(0, N_VERTICES, s) for s in SEED_COUNTS}
+    results = {"plan_build_s": build_s, "k_hop": []}
+    log(f"traversal: k_hop host ms on {card}, each metered run equal to "
+        f"the host-loop oracle")
+    for n_seeds, seeds in seeds_of.items():
+        for hops in (2, 3):
+            for kind in ("none", "filter", "per_hop"):
+                f = {"none": None, "filter": filt,
+                     "per_hop": [None] + [filt] * (hops - 1)}[kind]
+                ids = TC.k_hop(adj, seeds, hops, engine=ENGINE, filter=f)
+                times = []
+                for _ in range(REPS):
+                    r0 = plan.device_roundtrips
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    TC.k_hop(adj, seeds, hops, engine=ENGINE, filter=f)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    require(plan.device_roundtrips == r0 + 1,
+                            "a meterless k_hop made more than one round "
+                            "trip")
+                sizes = plan.last_frontier_sizes.tolist()
+                caches = {ENGINE: DecodedPageCache(CACHE_PAGES),
+                          "numpy": DecodedPageCache(CACHE_PAGES)}
+                io = {}
+                for mode in ("none", "cold", "warm"):
+                    outs = {}
+                    for engine, fused in ((ENGINE, None), ("numpy", False)):
+                        cache = None if mode == "none" else caches[engine]
+                        enc.page_cache = cache
+                        meter = TC.IOMeter()
+                        got = TC.k_hop(adj, seeds, hops, meter,
+                                       engine=engine, filter=f, fused=fused)
+                        outs[engine] = (got.tobytes(), meter.nbytes,
+                                        meter.nrequests,
+                                        None if cache is None else
+                                        (cache.hits, cache.misses,
+                                         cache.evictions))
+                    enc.page_cache = None
+                    require(outs[ENGINE] == outs["numpy"]
+                            and outs[ENGINE][0] == ids.tobytes(),
+                            f"k_hop seeds={n_seeds} hops={hops} {kind} "
+                            f"{mode}: cuda differs from the oracle")
+                    io[mode] = outs[ENGINE][1:]
+                res = {"seeds": n_seeds, "hops": hops, "filter": kind,
+                       "median_ms": statistics.median(times), "runs": times,
+                       "ids": len(ids), "frontier_sizes": sizes, "io": io}
+                results["k_hop"].append(res)
+                log(f"traversal: k_hop seeds {n_seeds:2d} hops {hops} "
+                    f"{kind:7s} median {res['median_ms']:.3f} ms, "
+                    f"{len(ids)} ids, sizes {sizes}, io/lru {io}")
+
+    f = [None, filt, filt]
+    wall, busy = profile_ms(torch, lambda: TC.k_hop(
+        adj, seeds_of[64], 3, engine=ENGINE, filter=f))
+    results["k_hop_profile"] = {"wall_ms": wall, "device_ms": busy}
+    log(f"traversal: k_hop profile (64 seeds, 3 hops, per-hop filter): "
+        f"{wall:.3f} ms per call under the profiler, device busy "
+        + (f"{sum(busy.values()):.3f} ms (idle share "
+           f"{1 - sum(busy.values()) / wall:.3f}): " + ", ".join(
+               f"{k[:40]} {v:.3f}" for k, v in sorted(
+                   busy.items(), key=lambda kv: -kv[1]))
+           if busy else "not measured (the profiler saw no device time)"))
+
+    seed = int(seeds_of[1][0])
+    m_k, m_o = TC.IOMeter(), TC.IOMeter()
+    pac = TO.two_hop_pac(adj, adj, [seed], PAGE_SIZE, filt, m_k, ENGINE)
+    created = TC.neighbor_ids_batch(adj, [seed], m_o, engine="numpy")
+    want = TC.retrieve_neighbors_batch(adj, created, PAGE_SIZE, m_o,
+                                       "numpy", filter=filt)
+    require(pac_key(pac) == pac_key(want) and pac.count() > 0
+            and (m_k.nbytes, m_k.nrequests) == (m_o.nbytes, m_o.nrequests),
+            "two_hop_pac differs from the staged numpy path")
+    times = [host_ms(torch, lambda: TO.two_hop_pac(
+        adj, adj, [seed], PAGE_SIZE, filt, engine=ENGINE))
+        for _ in range(REPS)]
+    results["two_hop_pac"] = {"median_ms": statistics.median(times),
+                              "runs": times, "ids": pac.count()}
+    log(f"traversal: two_hop_pac from vertex {seed}: {pac.count()} ids, "
+        f"median {statistics.median(times):.3f} ms, equal to the staged "
+        f"numpy path (PAC, io {m_k.nbytes} B / {m_k.nrequests} req)")
+
+    starts, ends = TC.LabelFilter(vt, TC.L("L0")).intervals("numpy")
+    off = np.asarray(adj.offsets["<offset>"].values, np.int64)
+    los, his = off[starts], off[ends]
+    m_k, m_o = TC.IOMeter(), TC.IOMeter()
+    counts = TO.frontier_edge_counts(adj, starts, ends, los, his, m_k,
+                                     ENGINE)
+    rows = TC.decode_edge_ranges(adj, los, his, m_o, "numpy")
+    require(np.array_equal(counts, np.bincount(rows, minlength=N_VERTICES))
+            and (m_k.nbytes, m_k.nrequests) == (m_o.nbytes, m_o.nrequests),
+            "frontier_edge_counts differs from the numpy bincount")
+    times = [host_ms(torch, lambda: TO.frontier_edge_counts(
+        adj, starts, ends, los, his, engine=ENGINE)) for _ in range(REPS)]
+    results["frontier_edge_counts"] = {
+        "median_ms": statistics.median(times), "runs": times,
+        "intervals": len(starts), "edges": int(counts.sum())}
+    log(f"traversal: frontier_edge_counts over L0's {len(starts)} "
+        f"intervals: {int(counts.sum())} edges, median "
+        f"{statistics.median(times):.3f} ms, equal to the numpy bincount "
+        f"(io {m_k.nbytes} B / {m_k.nrequests} req)")
+    results["inputs"] = {"plan": plan, "filt": filt, "seeds": seeds_of,
+                         "intervals": (starts, ends)}
+    return results
+
+
+def profile_ms(torch, fn, reps: int = 5):
+    """``torch.profiler`` over ``reps`` calls of ``fn``: host wall ms per
+    call, and device ms per call by kernel or copy name (empty when the
+    profiler sees no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    busy = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy[e.name] = (busy.get(e.name, 0.0)
+                            + e.time_range.elapsed_us() / 1e3 / reps)
+    return wall, busy
+
+
+def host_ms(torch, fn) -> float:
+    """Host wall milliseconds of one call, synchronised on both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def needed_rows(torch, ks, voff, frontier, active):
+    """Row mask of the ``key_sorted`` rows an expansion of ``frontier``
+    must read for the value ids marked ``active``: each segment up to its
+    first selected row, or whole where none is selected (the early exit
+    of kernels 5 and 6)."""
+    n = voff.numel() - 1
+    nk = frontier.numel()
+    rows = int(voff[-1])
+    ksl = ks[:rows].long()
+    sel = (ksl < nk) & (frontier[ksl.clamp(max=nk - 1)] != 0)
+    lens = (voff[1:] - voff[:-1]).long()
+    seg = torch.repeat_interleave(torch.arange(n, device=ks.device), lens)
+    r = torch.arange(rows, device=ks.device)
+    first = torch.full((n,), rows, dtype=torch.int64, device=ks.device)
+    first = first.scatter_reduce(0, seg[sel], r[sel], "amin")
+    return active[seg] & (r <= first[seg])
+
+
+def traversal_kernel_phase(torch, inputs):
+    """Kernels 5-7 against their plain versions on the card, bit for bit,
+    at the shapes the traversal slice gives them (and with padding keys,
+    sentinel seeds and intervals, overlapping intervals and an end equal
+    to ``n_key``), each timed beside its bound."""
+    import numpy as np
+    from repro_torch.kernels._pad import size_class
+    from repro_torch.kernels.traversal import kernel as TK
+    from repro_torch.kernels.traversal import ops as TO
+    from repro_torch.kernels.traversal import ref as TR
+    dev = torch.device(DEVICE)
+    plan, filt = inputs["plan"], inputs["filt"]
+    ks, voff = plan.device(dev)
+    n = plan.n_value
+    n_words = -(-n // 32)
+    rng = np.random.default_rng(4)
+    hit = torch.from_numpy(rng.choice(plan.rows, 4096, replace=False)) \
+        .to(dev)
+    ks_pad = ks.clone()
+    ks_pad[hit] = plan.n_key
+    fwords = filt.plan().device_bitmap(dev, n_words)
+    ones = torch.full((n_words,), -1, dtype=torch.int32, device=dev)
+    rows = []
+
+    def to_dev(a):
+        return torch.from_numpy(a).to(dev)
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def bits_of(words, count):
+        return TR._filter_bits(words, count).bool()
+
+    # -- 5: khop_scan at the 64-seed, 3-hop, per-hop-filter shape, and with
+    #    padding keys, duplicate and sentinel seeds
+    sv = to_dev(TO._seed_vector(np.unique(inputs["seeds"][64]), n))
+    sv_junk = sv.clone()
+    sv_junk[40:] = n
+    sv_junk[30:40] = sv[:10]
+    fw3 = torch.stack([ones, fwords, fwords])
+    want = TR.khop_scan(ks, voff, sv, fw3, n)
+    got = TK.khop_scan(ks, voff, sv, fw3, n)
+    require(equal(got, want), "khop_scan differs")
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    for k, s_ in ((ks_pad, sv), (ks, sv_junk), (ks_pad, sv_junk)):
+        require(equal(TK.khop_scan(k, voff, s_, fw3, n),
+                      TR.khop_scan(k, voff, s_, fw3, n)),
+                "khop_scan differs with padding keys or sentinel seeds")
+    visited, planes, _ = want
+    frontier = TR._seed_plane(sv, n)
+    seen = frontier.clone()
+    need = torch.zeros(int(voff[-1]), dtype=torch.bool, device=dev)
+    for h in range(fw3.shape[0]):
+        active = (seen == 0) & bits_of(fw3[h], n)
+        need |= needed_rows(torch, ks, voff, frontier, active)
+        frontier = planes[h]
+        seen = seen + frontier
+    nbytes = 4 * (int(need.sum()) + (n + 1) + sv.numel() + fw3.numel()
+                  + n + planes.numel() + fw3.shape[0])
+    rows.append(kernel_row(
+        "khop_scan", "src/repro_torch/kernels/csrc/traversal.cu",
+        "src/repro/kernels/traversal/kernel.py:42", err,
+        cuda_ms(torch, lambda: TK.khop_scan(ks, voff, sv, fw3, n), 10),
+        cuda_ms(torch, lambda: TR.khop_scan(ks, voff, sv, fw3, n), 2),
+        nbytes))
+    log(f"kernels: khop_scan equal at 3 hops, {plan.rows} rows, "
+        f"{int(sv.lt(n).sum())} seeds (and with {len(hit)} padding keys, "
+        f"duplicate and sentinel seeds); sizes {want[2].tolist()}, "
+        f"{int(need.sum())} rows needed")
+
+    # -- 6: two_hop at the one-seed IC-8 shape (63 sentinel seeds)
+    sv1 = to_dev(TO._seed_vector(inputs["seeds"][1][:1], n))
+    kw = dict(n_key=n, n_mid=n, n_out=n, n_words=n_words)
+    want = TR.two_hop(ks, voff, ks, voff, sv1, fwords, **kw)
+    got = TK.two_hop(ks, voff, ks, voff, sv1, fwords, **kw)
+    require(equal(got, want), "two_hop differs")
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    require(equal(TK.two_hop(ks_pad, voff, ks_pad, voff, sv_junk, fwords,
+                             **kw),
+                  TR.two_hop(ks_pad, voff, ks_pad, voff, sv_junk, fwords,
+                             **kw)),
+            "two_hop differs with padding keys or sentinel seeds")
+    all_v = torch.ones(n, dtype=torch.bool, device=dev)
+    need_a = needed_rows(torch, ks, voff, TR._seed_plane(sv1, n), all_v)
+    need_b = needed_rows(torch, ks, voff, want[0], all_v)
+    nbytes = 4 * (int(need_a.sum()) + int(need_b.sum()) + 2 * (n + 1)
+                  + sv1.numel() + 2 * n_words + n)
+    rows.append(kernel_row(
+        "two_hop", "src/repro_torch/kernels/csrc/traversal.cu",
+        "src/repro/kernels/traversal/kernel.py:74", err,
+        cuda_ms(torch, lambda: TK.two_hop(ks, voff, ks, voff, sv1, fwords,
+                                          **kw), 10),
+        cuda_ms(torch, lambda: TR.two_hop(ks, voff, ks, voff, sv1, fwords,
+                                          **kw), 2),
+        nbytes))
+    log(f"kernels: two_hop equal from 1 seed ({int(want[0].sum())} mid "
+        f"ids; and with padding keys, sentinel seeds)")
+
+    # -- 7: count_hop over L0's intervals padded with the sentinel, and
+    #    with overlapping intervals and an end equal to n_key
+    starts, ends = inputs["intervals"]
+
+    def bounds(st, en):
+        i_pad = size_class(len(st), TO.INTERVAL_CLASS_MIN)
+        s_ = np.full(i_pad, plan.n_key + 1, np.int32)
+        e_ = np.full(i_pad, plan.n_key + 1, np.int32)
+        s_[:len(st)] = st
+        e_[:len(en)] = en
+        return to_dev(s_), to_dev(e_)
+
+    s_, e_ = bounds(starts, ends)
+    kw = dict(n_key=plan.n_key, n_out=n)
+    want = TR.count_hop(ks, voff, s_, e_, **kw)
+    got = TK.count_hop(ks, voff, s_, e_, **kw)
+    require(torch.equal(got, want), "count_hop differs")
+    err = max_err(got, want)
+    s2, e2 = bounds(np.r_[starts, starts[:3], n - 1000],
+                    np.r_[ends, ends[:3] + 5000, n])
+    require(torch.equal(TK.count_hop(ks_pad, voff, s2, e2, **kw),
+                        TR.count_hop(ks_pad, voff, s2, e2, **kw)),
+            "count_hop differs with overlapping intervals or end == n_key")
+    nbytes = 4 * (int(voff[-1]) + (n + 1) + s_.numel() + e_.numel() + n)
+    rows.append(kernel_row(
+        "count_hop", "src/repro_torch/kernels/csrc/traversal.cu",
+        "src/repro/kernels/traversal/kernel.py:113", err,
+        cuda_ms(torch, lambda: TK.count_hop(ks, voff, s_, e_, **kw), 10),
+        cuda_ms(torch, lambda: TR.count_hop(ks, voff, s_, e_, **kw), 2),
+        nbytes))
+    log(f"kernels: count_hop equal over {len(starts)} intervals "
+        f"(i_pad {s_.numel()}; and overlapping, end == n_key), "
+        f"{int(want.sum())} edges")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -333,6 +676,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.label_filter import kernel as LK
     from repro_torch.kernels.pac_decode import kernel as PK
+    from repro_torch.kernels.traversal import kernel as TK
     t0 = time.perf_counter()
     lib = _build.library_path()
     _build.library()
@@ -346,26 +690,49 @@ def main() -> int:
     adj, vt, batches = build_graph()
     t0 = time.perf_counter()
     rows = kernel_phase(torch, adj, vt, batches)
-    log(f"3. kernels: all four equal to their plain versions "
-        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"3. kernels: the four retrieval kernels equal to their plain "
+        f"versions ({time.perf_counter() - t0:.1f} s)")
 
     wrappers = {"gather_decode": PK.gather_decode,
                 "fused_gather_decode_bitmap_batch":
                     PK.fused_gather_decode_bitmap_batch,
                 "cond_bitmap": LK.cond_bitmap,
                 "fused_gather_decode_filter_bitmap_batch":
-                    LK.fused_gather_decode_filter_bitmap_batch}
-    for w in wrappers.values():
-        w.launches = 0
+                    LK.fused_gather_decode_filter_bitmap_batch,
+                "khop_scan": TK.khop_scan, "two_hop": TK.two_hop,
+                "count_hop": TK.count_hop}
+
+    def drive(phase, *args):
+        """Run one slice phase with every launch count set to 0 just
+        before it; returns its result and the counts read just after."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = phase(*args)
+        return out, {n: w.launches for n, w in wrappers.items()}
+
     t0 = time.perf_counter()
-    results = slice_phase(torch, adj, vt, batches, card)
-    launches = {n: w.launches for n, w in wrappers.items()}
-    for r in rows:
-        r["launches"] = launches[r["name"]]
-    require(all(launches.values()), f"a kernel never launched: {launches}")
+    results, launches = drive(slice_phase, torch, adj, vt, batches, card)
+    require(all(launches[n] for n in RETRIEVAL_KERNELS),
+            f"a retrieval kernel never launched: {launches}")
     log(f"4. slice: {len(results)} configurations equal to the numpy "
         f"oracle, launches {launches} ({time.perf_counter() - t0:.1f} s) "
         f"on {card}")
+
+    t0 = time.perf_counter()
+    trav, t_launches = drive(traversal_slice_phase, torch, adj, vt, card)
+    require(all(t_launches[n] for n in TRAVERSAL_KERNELS),
+            f"a traversal-path kernel never launched: {t_launches}")
+    log(f"5. traversal: {len(trav['k_hop'])} k_hop configurations, "
+        f"two_hop_pac and frontier_edge_counts equal to their oracles, "
+        f"launches {t_launches} ({time.perf_counter() - t0:.1f} s) "
+        f"on {card}")
+
+    t0 = time.perf_counter()
+    rows += traversal_kernel_phase(torch, trav["inputs"])
+    log(f"6. traversal kernels: all three equal to their plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for r in rows:
+        r["launches"] = launches[r["name"]] + t_launches[r["name"]]
 
     print(card)
     print(json.dumps({"kernels": rows}))

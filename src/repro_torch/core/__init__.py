@@ -9,13 +9,15 @@ from .encoding import (DEFAULT_PAGE_SIZE, DeltaColumn, DeltaPage,
                        hull_intersects, pack_column, packed_from_arrays,
                        page_hulls, prune_page_list, rle_decode_bool,
                        rle_encode_bool)
+from .frontier import Frontier
 from .labels import (And, Cond, CondProgram, L, LabelFilter, Not, Or,
                      bitmap_to_intervals, charge_label_metadata,
                      compile_cond, eval_program, interval_hull,
                      intervals_to_bitmap, intervals_to_ids, intervals_to_pac,
                      program_filter_intervals)
-from .neighbor import (decode_edge_ranges, neighbor_ids_batch,
-                       retrieve_neighbors, retrieve_neighbors_batch)
+from .neighbor import (decode_edge_ranges, degrees_topk, k_hop,
+                       neighbor_ids_batch, retrieve_neighbors,
+                       retrieve_neighbors_batch)
 from .pac import (PAC, bitmap_to_ids, ids_to_bitmap,
                   words_per_page)
 from .page_cache import DecodedPageCache, attach_page_cache, live_cache

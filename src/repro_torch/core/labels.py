@@ -318,6 +318,13 @@ class LabelFilter:
             self._pacs[(page_size, engine)] = pac
         return pac
 
+    def mask_ids(self, ids: np.ndarray, engine: str = "numpy") -> np.ndarray:
+        """Boolean membership mask for internal ids (bitmap probe)."""
+        ids = np.asarray(ids, np.int64)
+        words = self.bitmap(engine)
+        return ((words[ids >> 5] >> (ids & 31).astype(np.uint32)) & 1) \
+            .astype(bool)
+
     def __repr__(self) -> str:
         return f"LabelFilter({self.vt.schema.name}, {self.cond})"
 

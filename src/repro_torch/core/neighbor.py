@@ -9,7 +9,8 @@ Given vertex ``v``:
 
 The unit of work is a **batch of vertices**: ``retrieve_neighbors_batch``
 performs one vectorized offsets gather, one page-deduplicated multi-range
-decode, and returns a merged (unioned) PAC.
+decode, and returns a merged (unioned) PAC; ``k_hop`` expands whole
+frontiers, fused on the device by default.
 
 The decode step has three engines:
   * ``numpy`` -- the storage-plane oracle (encoding.py),
@@ -151,3 +152,110 @@ def retrieve_neighbors(adj: AdjacencyTable, v: int,
     return pac_ops.retrieve_pac_batch(_kernel_column(adj), np.array([lo]),
                                       np.array([hi]), target_page_size,
                                       meter, engine=engine)
+
+
+def _per_hop_filters(filter, hops: int) -> list:
+    """Normalize ``filter=`` to one entry per hop: a single
+    ``LabelFilter`` applies to every hop; a sequence gives hop ``h`` its
+    own predicate (None entries leave that hop unfiltered)."""
+    if filter is None:
+        return [None] * hops
+    if isinstance(filter, (list, tuple)):
+        if len(filter) != hops:
+            raise ValueError(f"filter sequence has {len(filter)} entries "
+                             f"for {hops} hops")
+        return list(filter)
+    return [filter] * hops
+
+
+def k_hop(adj: AdjacencyTable, seeds: np.ndarray, hops: int,
+          meter=None, engine: str = "cuda",
+          include_seeds: bool = True,
+          filter=None,
+          fused: bool | None = None,
+          resident: bool | None = None,
+          partitions: int | None = None) -> np.ndarray:
+    """Multi-hop expansion (IC-8-style traversals). Returns unique IDs.
+
+    On the kernel engines the k hops run **fused** over the
+    device-resident frontier plane (:mod:`repro_torch.kernels.traversal`):
+    the frontier is expanded, predicate-ANDed and visited-ANDNOTed on the
+    device every hop, queued with no host round trip between hops.
+    ``fused=False`` (and the numpy engine) keeps the **host-loop
+    oracle**: each hop one batched retrieval over the current frontier
+    with a boolean visited mask over the id space -- bit-identical ids and
+    IOMeter to the fused path.
+
+    ``include_seeds`` keeps the seed ids in the result;
+    ``include_seeds=False`` returns only discovered vertices.  ``filter``
+    -- a :class:`~repro_torch.core.labels.LabelFilter` over the value-side
+    table, or a per-hop sequence of them -- drops non-qualifying ids from
+    each hop's frontier (filtered ids stay unvisited and remain reachable
+    via a later hop).  ``resident`` and ``partitions`` are accepted for
+    the JAX package's signature: ``resident=False`` and ``partitions > 1``
+    are not ported and raise."""
+    if resident is False:
+        raise NotImplementedError(
+            "resident=False (the per-dispatch pack path) is not ported")
+    if partitions is not None and partitions > 1:
+        raise NotImplementedError(
+            "the partition plane (partitions > 1) is not ported")
+    if engine == "numpy" and fused:
+        raise ValueError("fused path requires a kernel engine (torch/cuda)")
+    _require_write_once(adj)
+    filts = _per_hop_filters(filter, hops)
+    if fused is None:
+        from repro_torch.kernels.traversal.ops import plan_supported
+        fused = (engine != "numpy" and plan_supported(adj)
+                 and adj.num_key_vertices == adj.num_value_vertices)
+    if fused:
+        from repro_torch.kernels.traversal.ops import k_hop_fused
+        return k_hop_fused(adj, seeds, hops, filts, meter, engine,
+                           include_seeds)
+    seeds = np.unique(np.asarray(seeds, np.int64))
+    if adj.num_value_vertices is None or adj.num_key_vertices is None:
+        # no known id space: set-based bookkeeping
+        frontier, seen = seeds, seeds
+        for h in range(hops):
+            if frontier.size == 0:
+                break
+            if filts[h] is not None:
+                filts[h].charge(meter)
+            nbrs = neighbor_ids_batch(
+                adj, frontier, meter, engine=engine,
+                qual=filts[h].qual_range() if filts[h] is not None else None)
+            if filts[h] is not None and nbrs.size:
+                nbrs = nbrs[filts[h].mask_ids(nbrs, engine)]
+            frontier = np.setdiff1d(nbrs, seen, assume_unique=True)
+            seen = np.union1d(seen, frontier)
+        return seen if include_seeds \
+            else seen[~np.isin(seen, seeds, assume_unique=True)]
+    # host oracle: boolean visited mask over the id space -- O(ids) per
+    # hop instead of the O(n log n) setdiff1d/union1d re-sorts
+    m = max(int(adj.num_key_vertices), int(adj.num_value_vertices))
+    visited = np.zeros(m, bool)
+    visited[seeds] = True
+    frontier = seeds
+    for h in range(hops):
+        if frontier.size == 0:
+            break
+        if filts[h] is not None:
+            filts[h].charge(meter)
+        nbrs = neighbor_ids_batch(
+            adj, frontier, meter, engine=engine,
+            qual=filts[h].qual_range() if filts[h] is not None else None)
+        if filts[h] is not None and nbrs.size:
+            nbrs = nbrs[filts[h].mask_ids(nbrs, engine)]
+        frontier = nbrs[~visited[nbrs]]
+        visited[frontier] = True
+    if not include_seeds:
+        visited[seeds] = False
+    return np.flatnonzero(visited).astype(np.int64)
+
+
+def degrees_topk(adj: AdjacencyTable, k: int = 1) -> np.ndarray:
+    """Vertices with the largest degree (paper §6.2.2 queries these)."""
+    deg = adj.degrees()
+    if k == 1:
+        return np.array([int(np.argmax(deg))])
+    return np.argsort(deg)[::-1][:k].astype(np.int64)

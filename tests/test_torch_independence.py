@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import repro_torch.core as TC
+from repro_torch.kernels.traversal import ops as trav
 
 torch.set_num_threads(1)
 
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 import repro_torch.core as TC
 from repro_torch.data.synthetic import clustered_labels, powerlaw_graph
+from repro_torch.kernels.traversal.ops import frontier_edge_counts
 torch.set_num_threads(1)
 n = 600
 src, dst = powerlaw_graph(n, 5, seed=1)
@@ -39,6 +41,13 @@ for batch in (5, 40):
     pac = TC.retrieve_neighbors_batch(adj, np.arange(batch), 256,
                                       engine="torch", filter=filt)
     assert pac.count() > 0
+ids = TC.k_hop(adj, [1, 2], 2, engine="torch", filter=filt)
+assert ids.size > 2
+starts, ends = filt.intervals("numpy")
+off = np.asarray(adj.offsets["<offset>"].values, np.int64)
+counts = frontier_edge_counts(adj, starts, ends, off[starts], off[ends],
+                              engine="torch")
+assert counts.sum() > 0
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print("LOADED", bad)
@@ -78,3 +87,11 @@ def test_cuda_engine_without_a_card_raises(monkeypatch):
             TC.retrieve_neighbors_batch(adj, np.arange(batch), 128, meter)
     with pytest.raises(RuntimeError, match="CUDA device"):
         TC.neighbor_ids_batch(adj, np.arange(4), engine="cuda")
+    meter = TC.IOMeter()
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        TC.k_hop(adj, np.arange(4), 2, meter)          # fused by default
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        trav.two_hop_pac(adj, adj, np.arange(4), 128, meter=meter)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        trav.frontier_edge_counts(adj, [0], [9], [0], [9], meter)
+    assert meter.nbytes == 0 and not hasattr(adj, "_traversal_plans")
