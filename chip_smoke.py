@@ -33,8 +33,28 @@ Phases, each of which exits non-zero when it fails:
      traversal path's shapes and with padding keys, sentinel seeds and
      intervals, overlapping intervals and an end equal to ``n_key``; timed
      against the plain version and against the bound.
-Every launch count is set to 0 just before phases 4 and 5 and read just
-after; a kernel's ``launches`` is the sum over the two.
+  7. per-dispatch: the configurations of phase 4 again, on the
+     per-dispatch pack route (``pac_decode.ops.DEVICE_RESIDENT`` off for
+     the phase: pages shipped packed with every dispatch), each run held
+     against phase 4's numpy results; ``delta_decode`` and both
+     ``fused_decode*_bitmap_batch`` kernels must have launched;
+  8. ldbc: ``ldbc_like(scale=40)`` (400,000 persons, 3,200,000 messages)
+     built with ``build_snb_graphar`` and ``build_snb_baseline``; IS-3,
+     IC-8 (with and without ``reply_label="TagClass1"``, and once for the
+     fused hop 2's (person, tag class) with the most labeled replies,
+     whose answer must not be empty) and BI-2 for each tag class, under
+     the resident route and then the per-dispatch one, each run held
+     against the numpy engine (result and IOMeter) and the acero baseline
+     (result), timed (host ms, median of 3) beside acero; each route's
+     kernels must have launched;
+  9. per-dispatch kernels: ``delta_decode``, ``fused_decode_bitmap_batch``
+     and ``fused_decode_filter_bitmap_batch`` against their plain versions
+     on the card, bit for bit, at phase 7's batch-16384 cold-LRU shapes,
+     warm (no miss page), with ``gidx`` rows past ``gcount`` and past the
+     matrix and under two programs; timed against the plain version and
+     the bound, the host pack and the copy to the card timed apart.
+Every launch count is set to 0 just before each of phases 4, 5, 7 and 8
+and read just after; a kernel's ``launches`` is the sum over the four.
 The card's name and power limit, then the kernel table as JSON, come on
 the lines before the last; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -68,6 +88,16 @@ RETRIEVAL_KERNELS = ("gather_decode", "fused_gather_decode_bitmap_batch",
                      "cond_bitmap", "fused_gather_decode_filter_bitmap_batch")
 TRAVERSAL_KERNELS = ("gather_decode", "cond_bitmap", "khop_scan", "two_hop",
                      "count_hop")
+#: kernels of the per-dispatch pack route (phase 7), and of the LDBC queries
+#: under the resident route and then the per-dispatch one (phase 8)
+PER_DISPATCH_KERNELS = ("delta_decode", "fused_decode_bitmap_batch",
+                        "fused_decode_filter_bitmap_batch")
+LDBC_KERNELS = {"resident": ("gather_decode", "cond_bitmap", "two_hop",
+                             "count_hop"),
+                "per-dispatch": ("cond_bitmap",) + PER_DISPATCH_KERNELS}
+#: ldbc_like(40): 400,000 persons and 3,200,000 messages, the order of
+#: LDBC SNB SF1's posts and comments
+LDBC_SCALE = 40
 #: where the kernel phase runs and which engine the slice drives
 DEVICE = "cuda:0"
 ENGINE = "cuda"
@@ -90,6 +120,20 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_each(torch, fn, reps: int) -> list:
+    """Device milliseconds of each of ``reps`` calls of ``fn`` (CUDA
+    events around each call, after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    marks[0].record()
+    for m in marks[1:]:
+        fn()
+        m.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
 
 
 def require(cond: bool, msg: str) -> None:
@@ -138,9 +182,9 @@ def build_graph():
 
 
 def staged_for(adj, vs, filt=None):
-    """The staged vector and p_pad the fused path ships for batch ``vs``
-    (the same steps as ``_retrieve_pac_batch_fused``, no cache)."""
-    import numpy as np
+    """What the resident fused route stages for batch ``vs`` with no
+    cache, from its own staging step: the staged vector, p_pad, the
+    number of real pages and the requested-row count."""
     from repro_torch.core.encoding import prune_page_list
     from repro_torch.kernels.pac_decode import ops
     col = adj.table["<dst>"].encoded
@@ -148,14 +192,7 @@ def staged_for(adj, vs, filt=None):
     pages, _ = ops.page_set_for_ranges(los, his, col.page_size)
     qual = filt.qual_range() if filt is not None else None
     pages, pmask = prune_page_list(col, pages, qual)
-    gidx, total = ops._gather_positions(pages, np.arange(len(pages)), los,
-                                        his, col.page_size,
-                                        pruned=pmask is not None)
-    p_pad = ops._page_class(len(pages), len(col.pages))
-    staged = np.zeros(p_pad + len(gidx) + 1, np.int32)
-    staged[:len(pages)] = pages
-    staged[p_pad:-1] = gidx
-    staged[-1] = total
+    staged, p_pad, total = ops.stage_resident(col, los, his, pages, pmask)
     return staged, p_pad, len(pages), total
 
 
@@ -172,14 +209,23 @@ def kernel_phase(torch, adj, vt, batches):
     col = adj.table["<dst>"].encoded
     plan = col.packed_cache.device_plan(dev)
     n_pages, d = plan[1].shape
-    max_words = plan[3].shape[1]
     ps = d + 1
-    row_bytes = 4 * (1 + 2 * d + max_words)
+    bit_widths = col.packed_cache.bit_widths
     n_words = -(-adj.num_value_vertices // 32)
     rows = []
 
     def entry(*args, **kwargs):
         rows.append(kernel_row(*args, **kwargs))
+
+    def plan_bytes(pages):
+        """Bytes of the resident plan a decode of ``pages`` must read:
+        ``first``, ``pos`` and ``mind`` whole, and of the packed words
+        only the sum of each page's bit widths (a miniblock of width bw
+        packs its 32 deltas into bw words; the zero words past them are
+        never read)."""
+        pages = np.asarray(pages, np.int64)
+        return 4 * (len(pages) * (1 + 2 * d)
+                    + int(bit_widths[pages].sum()))
 
     # -- gather_decode: the non-fused path's page list for batch 8, plus
     #    a 16384-vertex page list and out-of-range padding (clamped)
@@ -196,12 +242,12 @@ def kernel_phase(torch, adj, vt, batches):
         require(torch.equal(k, r), f"gather_decode differs at {len(idx)} "
                 f"rows ({max_err(k, r)})")
     err = max_err(PK.gather_decode(*plan, idx8), PR.gather_decode(*plan, idx8))
-    uniq = len(np.unique(np.clip(idx8.cpu().numpy(), 0, n_pages - 1)))
+    uniq = np.unique(np.clip(idx8.cpu().numpy(), 0, n_pages - 1))
     entry("gather_decode", "src/repro_torch/kernels/csrc/gather_decode.cu",
           "src/repro/kernels/pac_decode/kernel.py:453", err,
           cuda_ms(torch, lambda: PK.gather_decode(*plan, idx8), 50),
           cuda_ms(torch, lambda: PR.gather_decode(*plan, idx8), 10),
-          uniq * row_bytes + 4 * len(idx8) + 4 * len(idx8) * ps)
+          plan_bytes(uniq) + 4 * len(idx8) + 4 * len(idx8) * ps)
     # other page sizes: one pass of the block scan (256) and several (8192)
     rng = np.random.default_rng(2)
     for page_size in (256, 8192):
@@ -273,8 +319,8 @@ def kernel_phase(torch, adj, vt, batches):
         require(dups > 0 and len(staged) - p_pad - 1 > total
                 and p_pad > n_real,
                 f"{name}: the case lacks duplicates or padding")
-        nbytes = (n_real * row_bytes + 4 * len(staged) + 4 * n_words
-                  + (4 * n_words if fwords is not None else 0))
+        nbytes = (plan_bytes(staged[:n_real]) + 4 * len(staged)
+                  + 4 * n_words + (4 * n_words if fwords is not None else 0))
         entry(name, "src/repro_torch/kernels/csrc/bitmap_scatter.cu",
               "src/repro/kernels/pac_decode/kernel.py:540"
               if fwords is None else
@@ -291,14 +337,21 @@ def pac_key(pac):
     return [(p, pac.bitmaps[p].tobytes()) for p in sorted(pac.bitmaps)]
 
 
-def slice_phase(torch, adj, vt, batches, card):
+def retrieval_runs(torch, adj, vt, batches, card, oracle, tag):
+    """The 24 retrieval configurations on the card: batches of 8 / 16 /
+    1024 / 16384 vertices, unfiltered and filtered by ``(L0 & L1) | ~L2``,
+    with no page cache, then a 4096-page LRU cold (1 run) and warm (3
+    runs).  Each run is held against the numpy oracle's run of the same
+    batch, filter, cache state and repetition: computed here when
+    ``oracle`` is empty (phase 4), reused when it is filled (phase 7)."""
     import repro_torch.core as TC
     from repro_torch.core.page_cache import DecodedPageCache
     enc = adj.table["<dst>"].encoded
     cond = (TC.L("L0") & TC.L("L1")) | ~TC.L("L2")
     filt = TC.LabelFilter(vt, cond)
+    fill = not oracle
     results = []
-    log(f"slice: host ms per batch on {card}, each run equal to numpy")
+    log(f"{tag}: host ms per batch on {card}, each run equal to numpy")
 
     def run(engine, vs, f, cache):
         enc.page_cache = cache
@@ -308,7 +361,10 @@ def slice_phase(torch, adj, vt, batches, card):
         pac = TC.retrieve_neighbors_batch(adj, vs, PAGE_SIZE, meter,
                                           engine=engine, filter=f)
         torch.cuda.synchronize()
-        return pac, meter, (time.perf_counter() - t0) * 1e3
+        ms = (time.perf_counter() - t0) * 1e3
+        return (pac_key(pac), meter.nbytes, meter.nrequests,
+                None if cache is None else
+                (cache.hits, cache.misses, cache.evictions)), ms
 
     for b in BATCHES:
         vs = batches[b]
@@ -318,35 +374,47 @@ def slice_phase(torch, adj, vt, batches, card):
             caches = {ENGINE: DecodedPageCache(CACHE_PAGES),
                       "numpy": DecodedPageCache(CACHE_PAGES)}
             for mode in ("none", "cold", "warm"):
+                key = (b, f is not None, mode)
                 times = []
                 for rep in range(REPS if mode != "cold" else 1):
-                    outs = {}
-                    for engine in (ENGINE, "numpy"):
-                        cache = None if mode == "none" else caches[engine]
-                        pac, meter, ms = run(engine, vs, f, cache)
-                        outs[engine] = (pac_key(pac), meter.nbytes,
-                                        meter.nrequests,
-                                        None if cache is None else
-                                        (cache.hits, cache.misses,
-                                         cache.evictions))
-                        if engine == ENGINE:
-                            times.append(ms)
-                    require(outs[ENGINE] == outs["numpy"],
-                            f"batch {b} filter={f is not None} {mode}: "
-                            f"cuda differs from the numpy oracle")
+                    cache = None if mode == "none" else caches[ENGINE]
+                    got, ms = run(ENGINE, vs, f, cache)
+                    times.append(ms)
+                    if fill:
+                        cache = None if mode == "none" else caches["numpy"]
+                        oracle.setdefault(key, []).append(
+                            run("numpy", vs, f, cache)[0])
+                    require(got == oracle[key][rep],
+                            f"{tag}: batch {b} filter={f is not None} "
+                            f"{mode}: cuda differs from the numpy oracle")
                 res = {"batch": b, "filtered": f is not None, "cache": mode,
                        "median_ms": statistics.median(times), "runs": times,
-                       "pages": len(outs[ENGINE][0]),
-                       "io_bytes": outs[ENGINE][1],
-                       "io_requests": outs[ENGINE][2],
-                       "lru": outs[ENGINE][3]}
+                       "pages": len(got[0]), "io_bytes": got[1],
+                       "io_requests": got[2], "lru": got[3]}
                 results.append(res)
-                log(f"slice: batch {b:5d} filtered={f is not None!s:5} "
+                log(f"{tag}: batch {b:5d} filtered={f is not None!s:5} "
                     f"cache={mode:4s} median {res['median_ms']:.3f} ms "
                     f"({len(times)} runs), {res['pages']} PAC pages, "
                     f"io {res['io_bytes']} B / {res['io_requests']} req, "
                     f"lru {res['lru']}")
     enc.page_cache = None
+    return results
+
+
+def slice_phase(torch, adj, vt, batches, card, oracle):
+    """Phase 4: the resident route, filling the numpy oracle."""
+    return retrieval_runs(torch, adj, vt, batches, card, oracle, "slice")
+
+
+def per_dispatch_phase(torch, adj, vt, batches, card, oracle):
+    """Phase 7: the same configurations on the per-dispatch pack route
+    (the module switch off for the phase), against phase 4's oracle."""
+    from repro_torch.kernels.pac_decode import ops as pac_ops
+    require(pac_ops.DEVICE_RESIDENT, "the resident route is not the default")
+    pac_ops.DEVICE_RESIDENT = False
+    results = retrieval_runs(torch, adj, vt, batches, card, oracle,
+                             "per-dispatch")
+    pac_ops.DEVICE_RESIDENT = True
     return results
 
 
@@ -649,16 +717,353 @@ def traversal_kernel_phase(torch, inputs):
                         TR.count_hop(ks_pad, voff, s2, e2, **kw)),
             "count_hop differs with overlapping intervals or end == n_key")
     nbytes = 4 * (int(voff[-1]) + (n + 1) + s_.numel() + e_.numel() + n)
+    each = cuda_ms_each(torch, lambda: TK.count_hop(ks, voff, s_, e_, **kw),
+                        10)
     rows.append(kernel_row(
         "count_hop", "src/repro_torch/kernels/csrc/traversal.cu",
         "src/repro/kernels/traversal/kernel.py:113", err,
-        cuda_ms(torch, lambda: TK.count_hop(ks, voff, s_, e_, **kw), 10),
+        statistics.fmean(each),
         cuda_ms(torch, lambda: TR.count_hop(ks, voff, s_, e_, **kw), 2),
         nbytes))
     log(f"kernels: count_hop equal over {len(starts)} intervals "
         f"(i_pad {s_.numel()}; and overlapping, end == n_key), "
-        f"{int(want.sum())} edges")
+        f"{int(want.sum())} edges; ms per call "
+        + ", ".join(f"{t:.3f}" for t in each))
     return rows
+
+
+def ldbc_phase(torch, card, wrappers):
+    """Phase 8: IS-3, IC-8 and BI-2 over an LDBC-SNB-like graph of
+    ``ldbc_like(scale=LDBC_SCALE)``, each under the resident route and then
+    the per-dispatch route on the card, held against the numpy engine
+    (result and IOMeter) and the acero baseline (result); graphar on the
+    card and acero timed (host ms, median of 3)."""
+    import numpy as np
+    import repro_torch.core as TC
+    from repro_torch.core import query as Q
+    from repro_torch.data.synthetic import ldbc_like
+    from repro_torch.kernels.pac_decode import ops as pac_ops
+    t0 = time.perf_counter()
+    snb = ldbc_like(scale=LDBC_SCALE, seed=0)
+    g = Q.build_snb_graphar(snb, PAGE_SIZE)
+    base = Q.build_snb_baseline(snb, PAGE_SIZE)
+    build_s = time.perf_counter() - t0
+    knows = g.adjacency("person-knows-person", TC.BY_SRC)
+    msgs = np.bincount(snb.has_creator_person, minlength=snb.num_persons)
+    rng = np.random.default_rng(5)
+    persons = rng.integers(0, snb.num_persons, 4)
+    top_msgs = int(np.argmax(msgs))
+    require(msgs[top_msgs] >= pac_ops.FUSED_MIN_RANGES,
+            "no person has enough messages for the fused hop-2 retrieval")
+    log(f"ldbc: ldbc_like(scale={LDBC_SCALE}): {snb.num_persons} persons, "
+        f"{snb.num_messages} messages, {len(snb.knows_src)} knows, "
+        f"{len(snb.reply_of_src)} replyOf, {len(snb.has_tag_msg)} hasTag "
+        f"edges; graphar and acero tables built in {build_s:.1f} s "
+        f"(host); top knows degree {int(knows.degrees().max())}, top "
+        f"messages {int(msgs[top_msgs])}")
+    # the fused labeled hop 2 with a non-empty answer: of the persons with
+    # enough messages for the fused retrieval, the (person, tag class)
+    # with the most labeled replies
+    parent = snb.has_creator_person[snb.reply_of_dst]  # message i's creator
+    fusable = msgs[parent] >= pac_ops.FUSED_MIN_RANGES
+    labeled = np.stack([np.bincount(
+        parent[fusable & snb.message_labels[name][snb.reply_of_src]],
+        minlength=snb.num_persons) for name in snb.tagclass_names])
+    best_c, best_p = np.unravel_index(np.argmax(labeled), labeled.shape)
+    ic8_fused_label = ("IC-8", int(best_p), snb.tagclass_names[best_c])
+    require(labeled[best_c, best_p] > 0,
+            "no fused labeled IC-8 has a non-empty answer")
+    queries = [("IS-3", int(p), None) for p in
+               (int(np.argmax(knows.degrees())), *persons[:2])]
+    queries += [("IC-8", int(p), lab) for p in (top_msgs, *persons[2:])
+                for lab in (None, "TagClass1")]
+    queries += [ic8_fused_label]
+    queries += [("BI-2", name, None) for name in snb.tagclass_names]
+    log(f"ldbc: fused labeled IC-8: person {best_p} "
+        f"({int(msgs[best_p])} messages), {ic8_fused_label[2]}, "
+        f"{int(labeled[best_c, best_p])} labeled replies")
+
+    def graphar(q, engine, meter=None):
+        kind, arg, lab = q
+        if kind == "IS-3":
+            return Q.is3_graphar(g, arg, meter, engine)
+        if kind == "IC-8":
+            return Q.ic8_graphar(g, arg, meter=meter, engine=engine,
+                                 reply_label=lab)
+        return Q.bi2_graphar(g, arg, meter, engine)
+
+    def acero(q, meter=None):
+        kind, arg, lab = q
+        if kind == "IS-3":
+            return Q.is3_acero(base, arg, meter)
+        if kind == "IC-8":
+            return Q.ic8_acero(base, arg, meter=meter, reply_label=lab)
+        return Q.bi2_acero(base, arg, meter)
+
+    def same(kind, a, b):
+        if kind == "BI-2":
+            return a == b
+        if kind == "IS-3":     # friends in date order; ties in any order
+            return (np.array_equal(np.sort(a[0]), np.sort(b[0]))
+                    and np.array_equal(a[1], b[1]))
+        return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+    def size(kind, r):
+        return len(r) if kind == "BI-2" else len(r[0])
+
+    oracle = {}
+    results = {"build_s": build_s, "queries": []}
+    for q in queries:
+        m_n = TC.IOMeter()
+        want = graphar(q, "numpy", m_n)
+        refs, times = [], []
+        for _ in range(REPS):       # timed runs; each result checked
+            times.append(host_ms(torch, lambda: refs.append(acero(q))))
+        require(all(same(q[0], want, ref) for ref in refs),
+                f"{q}: the numpy engine differs from acero")
+        oracle[q] = (want, (m_n.nbytes, m_n.nrequests),
+                     statistics.median(times))
+    for resident in (True, False):
+        regime = "resident" if resident else "per-dispatch"
+        pac_ops.DEVICE_RESIDENT = resident
+        before = {n: w.launches for n, w in wrappers.items()}
+        mem0 = torch.cuda.memory_allocated()
+        for q in queries:
+            want, io, acero_ms = oracle[q]
+            m_k = TC.IOMeter()
+            got = graphar(q, ENGINE, m_k)
+            require(same(q[0], got, want)
+                    and (m_k.nbytes, m_k.nrequests) == io,
+                    f"{q} {regime}: cuda differs from the numpy engine")
+            times = [host_ms(torch, lambda: graphar(q, ENGINE))
+                     for _ in range(REPS)]
+            res = {"query": q[0], "arg": q[1], "label": q[2],
+                   "regime": regime, "median_ms": statistics.median(times),
+                   "runs": times, "acero_ms": acero_ms,
+                   "size": size(q[0], got), "io": list(io)}
+            results["queries"].append(res)
+            if q == ic8_fused_label:
+                require(res["size"] > 0, f"{q} {regime}: empty answer")
+            log(f"ldbc: {q[0]} {q[1]!s:9} label={q[2]!s:9} {regime:12s} "
+                f"cuda median {res['median_ms']:.3f} ms, acero "
+                f"{acero_ms:.3f} ms, {res['size']} rows, io {io[0]} B / "
+                f"{io[1]} req, equal to numpy and acero")
+        ran = {n: w.launches - before[n] for n, w in wrappers.items()}
+        results[f"{regime}_launches"] = ran
+        if resident:
+            results["resident_device_bytes"] = \
+                torch.cuda.memory_allocated() - mem0
+            log(f"ldbc: the resident pass left "
+                f"{results['resident_device_bytes']} B more allocated on "
+                f"the card (plans, predicate planes)")
+        log(f"ldbc: {regime} launches {ran}")
+    # where the time goes: the host's heaviest functions (cProfile, one
+    # call) and the device's busy share (torch.profiler, 3 calls)
+    is3, ic8_label = queries[0], ic8_fused_label  # top degree, fused hop 2
+    bi2 = ("BI-2", "TagClass3", None)
+    starts, _ = TC.LabelFilter(g.vertex("message"),
+                               TC.L(bi2[1])).intervals("numpy")
+    log(f"ldbc: {bi2[1]} labels {len(starts)} intervals of messages")
+    results["profiles"] = []
+    for resident, q in ((True, is3), (False, ic8_label), (True, bi2),
+                        (False, bi2)):
+        pac_ops.DEVICE_RESIDENT = resident
+        hot = host_profile(lambda: graphar(q, ENGINE))
+        wall, busy = profile_ms(torch, lambda: graphar(q, ENGINE), 3)
+        regime = "resident" if resident else "per-dispatch"
+        results["profiles"].append({"query": list(q), "regime": regime,
+                                    "host_top": hot, "wall_ms": wall,
+                                    "device_ms": busy})
+        top_dev = sorted(busy.items(), key=lambda kv: -kv[1])[:4]
+        log(f"ldbc: profile {q[0]} {q[1]} label={q[2]} {regime}: "
+            f"{wall:.3f} ms per call, device busy "
+            f"{sum(busy.values()):.3f} ms ("
+            + ", ".join(f"{k[:48]} {v:.3f}" for k, v in top_dev)
+            + "); host tottime: "
+            + ", ".join(f"{name} {ms:.1f} ms" for name, ms in hot))
+    pac_ops.DEVICE_RESIDENT = True
+    return results
+
+
+def host_profile(fn, top: int = 6):
+    """The ``top`` functions by own host time (cProfile over one call of
+    ``fn``): ``[(file:line(function), ms), ...]``."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((f"{Path(k[0]).name}:{k[1]}({k[2]})", v[2] * 1e3)
+                   for k, v in stats.items()), key=lambda r: -r[1])
+    return rows[:top]
+
+
+def per_dispatch_kernel_phase(torch, adj, vt, batches):
+    """Phase 9: kernels 8-10 against their plain versions on the card, bit
+    for bit, at the shapes of phase 7's 16384 batch with a cold LRU (every
+    page a miss, one zero cached row), and in a warm dispatch (no miss:
+    one zero page), with ``gidx`` rows past ``gcount`` and past the
+    matrix, and under two programs whose NOT is not the last op; timed
+    beside their byte bound, with the host pack and the host-to-device
+    copy timed apart."""
+    import numpy as np
+    import repro_torch.core as TC
+    from repro_torch.kernels.label_filter import kernel as LK
+    from repro_torch.kernels.label_filter import ref as LR
+    from repro_torch.kernels.pac_decode import kernel as PK
+    from repro_torch.kernels.pac_decode import ops
+    from repro_torch.kernels.pac_decode import ref as PR
+    from repro_torch.core.encoding import prune_page_list
+    dev = torch.device(DEVICE)
+    vs = batches[BATCHES[-1]]
+    n_words = -(-adj.num_value_vertices // 32)
+    col = adj.table["<dst>"].encoded
+    rows = []
+
+    def staged(filt=None):
+        """What the fused per-dispatch route ships for batch ``vs`` with
+        no page cache (every page a miss), from its own staging step;
+        with the number of real pages."""
+        los, his = adj.edge_ranges_batch(vs)
+        pages, _ = ops.page_set_for_ranges(los, his, col.page_size)
+        qual = filt.qual_range() if filt is not None else None
+        pages, pmask = prune_page_list(col, pages, qual)
+        return (*ops.stage_packed(col, los, his, pages, pmask, {},
+                                  [int(p) for p in pages]), len(pages))
+
+    def page_bytes(args, m):
+        """Bytes of the m real pages' arrays a decode must read: the
+        header arrays whole, and of the packed words only the sum of the
+        page's bit widths (a miniblock of width bw packs its 32 deltas
+        into bw words; the zero words past them are never read)."""
+        n_mini = args[1].shape[1]
+        return 4 * (m * (2 + 3 * n_mini) + int(args[2][:m].sum()))
+
+    t0 = time.perf_counter()
+    args, cached, gidx, total, m = staged()
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pages_t = ops.ship_pages(args, dev)
+    rest = [torch.from_numpy(a).to(dev) for a in
+            (cached, gidx, np.full((1, 1), total, np.int32))]
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) * 1e3
+    m_pad, ps = args[0].shape[0], cached.shape[1]
+    shipped_mb = sum(a.nbytes for a in args) / 1e6
+    log(f"kernels: per-dispatch batch {len(vs)}: {m} miss pages "
+        f"(m_pad {m_pad}), {total} rows (t {len(gidx)}): host pack "
+        f"{pack_ms:.3f} ms, host-to-device copy of {shipped_mb:.1f} MB "
+        f"{h2d_ms:.3f} ms")
+    page_in = page_bytes(args, m)
+
+    # -- 10: delta_decode over the miss pages
+    k = PK.delta_decode(*pages_t, page_size=ps)
+    r = PR.decode_pages(*pages_t, page_size=ps)
+    require(torch.equal(k, r), f"delta_decode differs ({max_err(k, r)})")
+    rows.append(kernel_row(
+        "delta_decode", "src/repro_torch/kernels/csrc/per_dispatch.cu",
+        "src/repro/kernels/pac_decode/kernel.py:110", max_err(k, r),
+        cuda_ms(torch, lambda: PK.delta_decode(*pages_t, page_size=ps), 10),
+        cuda_ms(torch, lambda: PR.decode_pages(*pages_t, page_size=ps), 2),
+        page_in + 4 * m * ps))
+    log(f"kernels: delta_decode equal over {m_pad} pages")
+    decoded = k
+
+    # -- 8: cold (no hits), then warm (no misses) with junk gidx rows
+    def fused(*a):
+        return PK.fused_decode_bitmap_batch(*a, n_words=n_words)
+
+    def fused_plain(*a):
+        return PR.fused_batch(*a, n_words=n_words)
+
+    def check(kern, plain, inputs, what):
+        kw, ki = kern(*inputs)
+        rw, ri = plain(*inputs)
+        require(torch.equal(kw, rw) and torch.equal(ki, ri),
+                f"{what} differs ({max_err(kw, rw)}, {max_err(ki, ri)})")
+        return max(max_err(kw, rw), max_err(ki, ri))
+
+    cold = (*pages_t, *rest)
+    err = check(fused, fused_plain, cold, "fused_decode_bitmap_batch cold")
+    junk = rest[1].clone()
+    end = (m_pad + 1) * ps
+    junk[:3] = torch.tensor([end + 5, -7, end - 1], dtype=torch.int32)
+    junk[total:] = torch.randint(-50, end + 50, junk[total:].shape,
+                                 dtype=torch.int32, device=dev)
+    check(fused, fused_plain, (*pages_t, rest[0], junk, rest[2]),
+          "fused_decode_bitmap_batch with junk gidx")
+    # warm: the first 4096 pages arrive decoded, nothing ships packed
+    hits = min(m, CACHE_PAGES)
+    counts = torch.from_numpy(args[5][:hits, 0].astype(np.int64)).to(dev)
+    lane = torch.arange(ps, device=dev)
+    warm_cached = torch.where(lane[None, :] < counts[:, None],
+                              decoded[:hits], torch.zeros_like(
+                                  decoded[:hits]))
+    zero_page = tuple(torch.zeros((1,) + t.shape[1:], dtype=torch.int32,
+                                  device=dev) for t in pages_t)
+    g_np = gidx[:total]
+    keep = g_np < hits * ps
+    warm_g = np.zeros(len(gidx), np.int32)
+    warm_g[:int(keep.sum())] = g_np[keep] + ps      # rows shift past m_pad=1
+    warm = (*zero_page, warm_cached.contiguous(),
+            torch.from_numpy(warm_g).to(dev),
+            torch.full((1, 1), int(keep.sum()), dtype=torch.int32,
+                       device=dev))
+    check(fused, fused_plain, warm, "fused_decode_bitmap_batch warm")
+    t = len(gidx)
+    rows.append(kernel_row(
+        "fused_decode_bitmap_batch",
+        "src/repro_torch/kernels/csrc/per_dispatch.cu",
+        "src/repro/kernels/pac_decode/kernel.py:321", err,
+        cuda_ms(torch, lambda: fused(*cold), 10),
+        cuda_ms(torch, lambda: fused_plain(*cold), 2),
+        page_in + 4 * m * ps + 4 * t + 4 + 4 * n_words))
+    log(f"kernels: fused_decode_bitmap_batch equal cold ({m_pad} pages, 1 "
+        f"zero cached row), with rows past gcount and past the matrix, "
+        f"and warm (1 zero page, {hits} cached rows)")
+
+    # -- 9: the phase's filter, and a NOT-first program, cold and warm
+    progs = [(TC.L("L0") & TC.L("L1")) | ~TC.L("L2"),
+             ~TC.L("L0") & TC.L("L1")]
+    for i, cond in enumerate(progs):
+        plan = TC.LabelFilter(vt, cond).plan()
+        fargs = (torch.from_numpy(plan.pos).to(dev),
+                 torch.from_numpy(plan.meta).to(dev), plan.program.ops)
+
+        def ffused(*a, fargs=fargs):
+            return LK.fused_decode_filter_bitmap_batch(*a, *fargs, n_words)
+
+        def fplain(*a, fargs=fargs):
+            return LR.fused_filter_batch(*a, *fargs, n_words)
+
+        if i == 0:
+            fa, fc, fg, ftotal, fm = staged(TC.LabelFilter(vt, cond))
+            fcold = (*ops.ship_pages(fa, dev), *[
+                torch.from_numpy(a).to(dev) for a in
+                (fc, fg, np.full((1, 1), ftotal, np.int32))])
+            err = check(ffused, fplain, fcold,
+                        "fused_decode_filter_bitmap_batch cold")
+            nbytes = (page_bytes(fa, fm) + 4 * fm * ps + 4 * len(fg) + 4
+                      + 4 * n_words + plan.pos.nbytes + plan.meta.nbytes)
+            row = kernel_row(
+                "fused_decode_filter_bitmap_batch",
+                "src/repro_torch/kernels/csrc/per_dispatch.cu",
+                "src/repro/kernels/label_filter/kernel.py:147", err,
+                cuda_ms(torch, lambda: ffused(*fcold), 10),
+                cuda_ms(torch, lambda: fplain(*fcold), 2), nbytes)
+        else:
+            check(ffused, fplain, cold,
+                  "fused_decode_filter_bitmap_batch NOT-first")
+        check(ffused, fplain, warm, "fused_decode_filter_bitmap_batch warm")
+    rows.append(row)
+    log(f"kernels: fused_decode_filter_bitmap_batch equal cold and warm "
+        f"under {len(progs)} programs")
+    return rows, {"pack_ms": pack_ms, "h2d_ms": h2d_ms,
+                  "shipped_mb": shipped_mb, "m": m, "m_pad": m_pad,
+                  "rows": total}
 
 
 def main() -> int:
@@ -700,7 +1105,11 @@ def main() -> int:
                 "fused_gather_decode_filter_bitmap_batch":
                     LK.fused_gather_decode_filter_bitmap_batch,
                 "khop_scan": TK.khop_scan, "two_hop": TK.two_hop,
-                "count_hop": TK.count_hop}
+                "count_hop": TK.count_hop,
+                "delta_decode": PK.delta_decode,
+                "fused_decode_bitmap_batch": PK.fused_decode_bitmap_batch,
+                "fused_decode_filter_bitmap_batch":
+                    LK.fused_decode_filter_bitmap_batch}
 
     def drive(phase, *args):
         """Run one slice phase with every launch count set to 0 just
@@ -710,8 +1119,10 @@ def main() -> int:
         out = phase(*args)
         return out, {n: w.launches for n, w in wrappers.items()}
 
+    oracle = {}
     t0 = time.perf_counter()
-    results, launches = drive(slice_phase, torch, adj, vt, batches, card)
+    results, launches = drive(slice_phase, torch, adj, vt, batches, card,
+                              oracle)
     require(all(launches[n] for n in RETRIEVAL_KERNELS),
             f"a retrieval kernel never launched: {launches}")
     log(f"4. slice: {len(results)} configurations equal to the numpy "
@@ -731,8 +1142,36 @@ def main() -> int:
     rows += traversal_kernel_phase(torch, trav["inputs"])
     log(f"6. traversal kernels: all three equal to their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    pd, p_launches = drive(per_dispatch_phase, torch, adj, vt, batches, card,
+                           oracle)
+    require(all(p_launches[n] for n in PER_DISPATCH_KERNELS),
+            f"a per-dispatch kernel never launched: {p_launches}")
+    log(f"7. per-dispatch: {len(pd)} configurations equal to phase 4's "
+        f"numpy oracle, launches {p_launches} "
+        f"({time.perf_counter() - t0:.1f} s) on {card}")
+
+    t0 = time.perf_counter()
+    ldbc, l_launches = drive(ldbc_phase, torch, card, wrappers)
+    for regime, names in LDBC_KERNELS.items():
+        ran = ldbc[f"{regime}_launches"]
+        require(all(ran[n] for n in names),
+                f"an LDBC kernel never launched under the {regime} "
+                f"route: {ran}")
+    log(f"8. ldbc: {len(ldbc['queries'])} query runs equal to the numpy "
+        f"engine and to acero, launches {l_launches} "
+        f"({time.perf_counter() - t0:.1f} s) on {card}")
+
+    t0 = time.perf_counter()
+    pd_rows, host = per_dispatch_kernel_phase(torch, adj, vt, batches)
+    rows += pd_rows
+    log(f"9. per-dispatch kernels: all three equal to their plain versions "
+        f"({time.perf_counter() - t0:.1f} s); host pack {host['pack_ms']:.3f}"
+        f" ms, host-to-device copy {host['h2d_ms']:.3f} ms")
     for r in rows:
-        r["launches"] = launches[r["name"]] + t_launches[r["name"]]
+        r["launches"] = sum(c[r["name"]] for c in
+                            (launches, t_launches, p_launches, l_launches))
 
     print(card)
     print(json.dumps({"kernels": rows}))

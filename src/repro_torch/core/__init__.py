@@ -12,12 +12,17 @@ from .encoding import (DEFAULT_PAGE_SIZE, DeltaColumn, DeltaPage,
 from .frontier import Frontier
 from .labels import (And, Cond, CondProgram, L, LabelFilter, Not, Or,
                      bitmap_to_intervals, charge_label_metadata,
-                     compile_cond, eval_program, interval_hull,
-                     intervals_to_bitmap, intervals_to_ids, intervals_to_pac,
-                     program_filter_intervals)
-from .neighbor import (decode_edge_ranges, degrees_topk, k_hop,
-                       neighbor_ids_batch, retrieve_neighbors,
-                       retrieve_neighbors_batch)
+                     compile_cond, complex_filter_intervals, eval_program,
+                     evaluate_filter_intervals, filter_binary_columns,
+                     filter_rle_interval, filter_string, interval_hull,
+                     intervals_count, intervals_to_bitmap, intervals_to_ids,
+                     intervals_to_pac, program_filter_intervals,
+                     simple_filter_intervals)
+from .neighbor import (decode_edge_ranges, degrees_topk, fetch_properties,
+                       fetch_properties_batch, k_hop, neighbor_ids_batch,
+                       neighbor_properties, neighbor_properties_batch,
+                       retrieve_neighbors, retrieve_neighbors_batch,
+                       retrieve_neighbors_scan)
 from .pac import (PAC, bitmap_to_ids, ids_to_bitmap,
                   words_per_page)
 from .page_cache import DecodedPageCache, attach_page_cache, live_cache

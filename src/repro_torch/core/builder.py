@@ -49,6 +49,15 @@ class Graph:
     def adjacency(self, edge_name: str, order: str = BY_SRC) -> AdjacencyTable:
         return self.edges[edge_name].adjacency(order)
 
+    def read_properties_batch(self, type_name: str, pac, names,
+                              meter=None) -> Dict[str, np.ndarray]:
+        """Batched multi-property gather over one vertex type: every named
+        column fetched for exactly the PAC's ids in a single deduplicated
+        pass over the PAC's page set (see
+        :meth:`repro_torch.core.vertex.VertexTable.read_properties_batch`)."""
+        return self.vertices[type_name].read_properties_batch(
+            pac, names, meter)
+
     def save(self, root: str) -> None:
         store = GraphStore(root)
         store.write_schema_yaml(self.schema)

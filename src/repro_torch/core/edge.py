@@ -66,6 +66,15 @@ class AdjacencyTable:
         pair = col.read_range(v, v + 2, meter)
         return int(pair[0]), int(pair[1])
 
+    def offsets_at(self, rows, meter=None) -> np.ndarray:
+        """Offset values at arbitrary rows, one page-deduplicated gather."""
+        if self.offsets is None:
+            raise ValueError("no <offset> table (plain layout)")
+        rows = np.asarray(rows, np.int64)
+        col = self.offsets["<offset>"]
+        return np.asarray(col.read_rows_concat(rows, rows + 1, meter),
+                          np.int64)
+
     def edge_ranges_batch(self, vs, meter=None
                           ) -> Tuple[np.ndarray, np.ndarray]:
         """Vectorized :meth:`edge_range` for a batch of key vertices.
@@ -90,10 +99,22 @@ class AdjacencyTable:
         return np.asarray(
             self.table[self.value_col].read_range(lo, hi, meter), np.int64)
 
+    def neighbor_ids_scan(self, v: int, meter=None) -> np.ndarray:
+        """Baseline 'plain': full scan of both columns, filter on key == v."""
+        keys = np.asarray(self.table[self.key_col].read_all(meter))
+        vals = np.asarray(self.table[self.value_col].read_all(meter))
+        return np.sort(vals[keys == v]).astype(np.int64)
+
     def degrees(self) -> np.ndarray:
         col: PlainColumn = self.offsets["<offset>"]  # type: ignore
         off = col.values
         return np.diff(off)
+
+    def topology_nbytes(self) -> int:
+        n = self.table["<src>"].nbytes() + self.table["<dst>"].nbytes()
+        if self.offsets is not None:
+            n += self.offsets["<offset>"].nbytes()
+        return n
 
 @dataclasses.dataclass
 class EdgeTable:

@@ -355,6 +355,18 @@ class PackedPages:
             self.device_transfers += 1
         return plan
 
+    def slice(self, p0: int, p1: int) -> Tuple[np.ndarray, ...]:
+        """Zero-copy views of pages [p0, p1)."""
+        return (self.first[p0:p1], self.min_deltas[p0:p1],
+                self.bit_widths[p0:p1], self.word_offsets[p0:p1],
+                self.packed[p0:p1], self.counts[p0:p1])
+
+    def gather(self, pages) -> Tuple[np.ndarray, ...]:
+        """Row-gathered copies for an arbitrary (sorted) page list."""
+        idx = np.asarray(pages, np.int64)
+        return (self.first[idx], self.min_deltas[idx], self.bit_widths[idx],
+                self.word_offsets[idx], self.packed[idx], self.counts[idx])
+
 def packed_from_arrays(first, min_deltas, bit_widths, word_offsets, packed,
                        counts, page_size: int) -> PackedPages:
     """A :class:`PackedPages` from the six batch arrays of the JAX

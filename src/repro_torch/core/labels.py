@@ -20,6 +20,12 @@ version), or as an opcode array inside the CUDA ``cond_bitmap`` kernel.
 :class:`LabelFilter` bundles a vertex table with a compiled predicate so
 retrieval paths can push the filter down into the fused decode->bitmap
 dispatch (see ``core/neighbor.py``).
+
+Baselines reproduced for the paper's figures:
+* ``filter_string``        -- decode concatenated label strings, match per vertex
+* ``filter_binary_plain``  -- per-vertex boolean column scan
+* ``filter_binary_rle``    -- RLE decode to per-vertex booleans, then scan
+* ``filter_rle_interval``  -- GraphAr: interval selection / merge (this module)
 """
 from __future__ import annotations
 
@@ -333,6 +339,11 @@ class LabelFilter:
 # GraphAr fast paths
 # --------------------------------------------------------------------------
 
+def simple_filter_intervals(rle: RleColumn, exists: bool = True) -> Intervals:
+    """Definition 3 via odd/even interval selection -- O(|P|)."""
+    return rle.interval_starts(exists)
+
+
 def merge_positions(rles: Sequence[RleColumn]) -> np.ndarray:
     """Merged breakpoint list P of k interval lists (sorted unique union)."""
     parts = [r.positions for r in rles]
@@ -363,6 +374,25 @@ def program_filter_intervals(vt: VertexTable,
     reps = merged[:-1]  # representative = interval start (Theorem 1)
     leaves = [label_values_at(r, reps) for r in rles]
     keep = np.asarray(eval_program(program.ops, leaves), bool)
+    return _coalesce(merged[:-1][keep], merged[1:][keep])
+
+
+def complex_filter_intervals(vt: VertexTable, cond: Cond) -> Intervals:
+    """Compiled merge-based complex filtering (compile + host engine)."""
+    return program_filter_intervals(vt, compile_cond(cond))
+
+
+def evaluate_filter_intervals(vt: VertexTable, cond: Cond) -> Intervals:
+    """Legacy per-node ``evaluate(env)`` recursion -- kept as the oracle
+    the compiled plane is validated against (tests/benchmarks only)."""
+    names = list(dict.fromkeys(cond.labels()))
+    rles = [vt.label_rle(n) for n in names]
+    merged = merge_positions(rles)
+    if merged.size < 2:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    reps = merged[:-1]
+    env = {n: label_values_at(r, reps) for n, r in zip(names, rles)}
+    keep = np.asarray(cond.evaluate(env), bool)
     return _coalesce(merged[:-1][keep], merged[1:][keep])
 
 
@@ -401,3 +431,58 @@ def intervals_to_ids(iv: Intervals) -> np.ndarray:
     within = np.arange(total, dtype=np.int64) \
         - np.repeat(np.cumsum(k) - k, k)
     return np.repeat(s, k) + within
+
+
+def intervals_count(iv: Intervals) -> int:
+    return int((iv[1] - iv[0]).sum())
+
+
+def filter_rle_interval(vt: VertexTable, cond: Cond, meter=None,
+                        engine: str = "cuda") -> Intervals:
+    """GraphAr entry point, engine-dispatched.
+
+    ``numpy`` keeps the host plane (simple conditions take the O(|P|)
+    odd/even path); the kernel engines evaluate the compiled program with
+    the ``cond_bitmap`` kernel via :mod:`repro_torch.kernels.label_filter`
+    -- identical IOMeter accounting (the referenced labels' RLE metadata)
+    either way."""
+    if engine != "numpy":
+        from repro_torch.kernels.label_filter import ops as lf_ops
+        return lf_ops.label_filter_intervals(vt, cond, meter, engine)
+    charge_label_metadata(vt, compile_cond(cond).labels, meter)
+    if isinstance(cond, L):
+        return simple_filter_intervals(vt.label_rle(cond.name), True)
+    if isinstance(cond, Not) and isinstance(cond.a, L):
+        return simple_filter_intervals(vt.label_rle(cond.a.name), False)
+    return complex_filter_intervals(vt, cond)
+
+
+# --------------------------------------------------------------------------
+# baselines (paper §6.3)
+# --------------------------------------------------------------------------
+
+def filter_string(vt: VertexTable, cond: Cond, meter=None) -> np.ndarray:
+    """'string' baseline: split each vertex's label string, then match."""
+    col = vt.table["<labels>"]
+    strings = col.read_all(meter)
+    names = list(dict.fromkeys(cond.labels()))
+    n = vt.num_vertices
+    env = {m: np.zeros(n, bool) for m in names}
+    for i, s in enumerate(strings):
+        if not s:
+            continue
+        present = s.split("|")
+        for m in names:
+            if m in present:
+                env[m][i] = True
+    return np.flatnonzero(cond.evaluate(env)).astype(np.int64)
+
+
+def filter_binary_columns(vt: VertexTable, cond: Cond,
+                          meter=None) -> np.ndarray:
+    """'binary (plain)' / 'binary (RLE)' baselines: decode per-vertex bools
+    for each referenced label column, evaluate per vertex."""
+    names = list(dict.fromkeys(cond.labels()))
+    env = {m: np.asarray(vt.label_column(m).read_all(meter), bool)
+           for m in names}
+    return np.flatnonzero(cond.evaluate(env)).astype(np.int64)

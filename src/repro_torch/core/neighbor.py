@@ -26,6 +26,7 @@ import numpy as np
 from .edge import AdjacencyTable
 from .pac import PAC
 from .table import DeltaIntColumn
+from .vertex import VertexTable
 
 
 def _kernel_column(adj: AdjacencyTable):
@@ -108,8 +109,11 @@ def retrieve_neighbors_batch(adj: AdjacencyTable, vs,
     filter's PAC.  The filter's label-metadata I/O is charged here, once,
     identically for every engine and path.
 
-    ``resident`` is accepted for the JAX package's signature; only the
-    device-resident route is ported, and ``resident=False`` raises."""
+    ``resident`` picks the fused path's transfer regime: the resident
+    unpack plan on the card, or the per-dispatch pack route that ships
+    the miss pages packed with every dispatch (``resident=False``);
+    None follows ``REPRO_DEVICE_RESIDENT``.  Ids, PAC and IOMeter are the
+    same either way."""
     vs = np.asarray(vs, np.int64)
     if engine == "numpy" and fused:
         raise ValueError("fused path requires a kernel engine (torch/cuda)")
@@ -149,9 +153,70 @@ def retrieve_neighbors(adj: AdjacencyTable, v: int,
             adj.table[adj.value_col].read_range(lo, hi, meter), np.int64)
         return PAC.from_ids(ids, target_page_size)
     from repro_torch.kernels.pac_decode import ops as pac_ops
-    return pac_ops.retrieve_pac_batch(_kernel_column(adj), np.array([lo]),
-                                      np.array([hi]), target_page_size,
-                                      meter, engine=engine)
+    return pac_ops.retrieve_pac(_kernel_column(adj), lo, hi,
+                                target_page_size, meter=meter, engine=engine)
+
+
+def retrieve_neighbors_scan(adj: AdjacencyTable, v: int,
+                            target_page_size: int, meter=None) -> PAC:
+    """Baseline 'plain': no offset index -- scan the whole edge table."""
+    ids = adj.neighbor_ids_scan(v, meter)
+    return PAC.from_ids(ids, target_page_size)
+
+
+def fetch_properties(pac: PAC, vt: VertexTable, prop: str,
+                     meter=None) -> np.ndarray:
+    """Selection pushdown: fetch ``prop`` for exactly the PAC's IDs.
+
+    Works unchanged over merged PACs: a page shared by many vertices of a
+    batch appears once in the page set and is fetched once.
+    """
+    pages = pac.pages()
+    page_vals = vt.read_property_pages(prop, pages, meter)
+    return pac.select(page_vals)
+
+
+def fetch_properties_batch(pac: PAC, vt: VertexTable, props,
+                           meter=None) -> dict:
+    """Batched multi-property selection pushdown: every column in
+    ``props`` fetched for exactly the PAC's ids in one deduplicated pass
+    over the PAC's page set.  Per-column results equal
+    :func:`fetch_properties`.
+    """
+    return vt.read_properties_batch(pac, props, meter)
+
+
+def neighbor_properties(adj: AdjacencyTable, v: int, vt: VertexTable,
+                        prop: str, meter=None,
+                        engine: str = "cuda") -> np.ndarray:
+    """End-to-end §4.1 workflow: ids -> PAC -> per-page pushdown fetch."""
+    pac = retrieve_neighbors(adj, v, vt.page_size, meter, engine)
+    return fetch_properties(pac, vt, prop, meter)
+
+
+def neighbor_properties_batch(adj: AdjacencyTable, vs, vt: VertexTable,
+                              prop: str, meter=None,
+                              engine: str = "cuda",
+                              filter=None,
+                              resident: bool | None = None,
+                              partitions: int | None = None) -> np.ndarray:
+    """Batched §4.1 workflow: one retrieval + one pushdown fetch for the
+    whole batch's merged PAC (values in ascending neighbor-id order).
+
+    ``filter`` and ``resident`` thread through to
+    :func:`retrieve_neighbors_batch`; ``partitions`` is accepted for the
+    JAX package's signature, and ``partitions > 1`` (the partition
+    plane, not ported) raises."""
+    _require_unpartitioned(partitions)
+    pac = retrieve_neighbors_batch(adj, vs, vt.page_size, meter, engine,
+                                   filter=filter, resident=resident)
+    return fetch_properties(pac, vt, prop, meter)
+
+
+def _require_unpartitioned(partitions: int | None) -> None:
+    if partitions is not None and partitions > 1:
+        raise NotImplementedError(
+            "the partition plane (partitions > 1) is not ported")
 
 
 def _per_hop_filters(filter, hops: int) -> list:
@@ -191,23 +256,22 @@ def k_hop(adj: AdjacencyTable, seeds: np.ndarray, hops: int,
     -- a :class:`~repro_torch.core.labels.LabelFilter` over the value-side
     table, or a per-hop sequence of them -- drops non-qualifying ids from
     each hop's frontier (filtered ids stay unvisited and remain reachable
-    via a later hop).  ``resident`` and ``partitions`` are accepted for
-    the JAX package's signature: ``resident=False`` and ``partitions > 1``
-    are not ported and raise."""
-    if resident is False:
-        raise NotImplementedError(
-            "resident=False (the per-dispatch pack path) is not ported")
-    if partitions is not None and partitions > 1:
-        raise NotImplementedError(
-            "the partition plane (partitions > 1) is not ported")
+    via a later hop).  ``resident=False`` (or ``REPRO_DEVICE_RESIDENT=0``
+    with ``resident`` None) takes the host loop, whose hops then run the
+    per-dispatch pack route; ``partitions`` is accepted for the JAX
+    package's signature, and ``partitions > 1`` raises."""
+    _require_unpartitioned(partitions)
     if engine == "numpy" and fused:
         raise ValueError("fused path requires a kernel engine (torch/cuda)")
     _require_write_once(adj)
     filts = _per_hop_filters(filter, hops)
     if fused is None:
+        from repro_torch.kernels.pac_decode.ops import DEVICE_RESIDENT
         from repro_torch.kernels.traversal.ops import plan_supported
         fused = (engine != "numpy" and plan_supported(adj)
-                 and adj.num_key_vertices == adj.num_value_vertices)
+                 and adj.num_key_vertices == adj.num_value_vertices
+                 and (resident if resident is not None
+                      else DEVICE_RESIDENT))
     if fused:
         from repro_torch.kernels.traversal.ops import k_hop_fused
         return k_hop_fused(adj, seeds, hops, filts, meter, engine,

@@ -145,6 +145,16 @@ class PAC:
                 out.bitmaps[p] = w
         return out
 
+    def union(self, other: "PAC") -> "PAC":
+        assert self.page_size == other.page_size
+        out = PAC(self.page_size)
+        for p in self.bitmaps.keys() | other.bitmaps.keys():
+            a = self.bitmaps.get(p)
+            b = other.bitmaps.get(p)
+            out.bitmaps[p] = (a | b) if (a is not None and b is not None) \
+                else (a if a is not None else b).copy()
+        return out
+
     # -- accessors ------------------------------------------------------------
     def pages(self) -> List[int]:
         return sorted(self.bitmaps)
@@ -156,6 +166,16 @@ class PAC:
         parts = [bitmap_to_ids(self.bitmaps[p], p * self.page_size)
                  for p in self.pages()]
         return (np.concatenate(parts) if parts else np.zeros(0, np.int64))
+
+    def select(self, page_values: Dict[int, np.ndarray]) -> np.ndarray:
+        """Selection pushdown: gather values whose bit is set, per page."""
+        out = []
+        for p in self.pages():
+            vals = page_values[p]
+            rel = bitmap_to_ids(self.bitmaps[p], 0)
+            rel = rel[rel < len(vals)]
+            out.append(np.asarray(vals)[rel])
+        return (np.concatenate(out) if out else np.zeros(0))
 
     def __len__(self) -> int:
         return len(self.bitmaps)

@@ -1,8 +1,8 @@
 """Parquet-like columnar container.
 
 A :class:`Table` is one logical row group: named column chunks, each split
-into fixed-size data pages (the paper's minimum I/O unit, Fig. 2).
-Encodings:
+into fixed-size data pages (the paper's minimum I/O unit, Fig. 2).  Column
+chunks carry page statistics for predicate pushdown.  Encodings:
 
 * ``PlainColumn``    -- PLAIN fixed-width values.
 * ``StringColumn``   -- PLAIN BYTE_ARRAY (offsets + utf-8 payload).
@@ -18,7 +18,7 @@ exactly as "pages fetched x page bytes" (paper §4.1).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -52,6 +52,40 @@ class Column:
     def _decode_pages(self, pages: Sequence[int], meter=None):
         """Decode a sorted page list, charging each page once."""
         raise NotImplementedError(type(self))
+
+    def read_row_ranges(self, los, his, meter=None) -> List[np.ndarray]:
+        """Batched range reads with page de-duplication.
+
+        Pages touched by several ranges are fetched/decoded/charged once;
+        requests are counted per contiguous page run (what a real reader
+        would send).  This is the vectorized access pattern of interval
+        queries (BI-2): intervals of sorted vertices map to contiguous edge
+        ranges sharing pages.
+        """
+        los = np.asarray(los, np.int64)
+        his = np.asarray(his, np.int64)
+        ps = self.page_size
+        pages = set()
+        for lo, hi in zip(los, his):
+            if hi > lo:
+                pages.update(range(int(lo) // ps, int(hi - 1) // ps + 1))
+        if not pages:
+            return [np.zeros(0, np.int64) for _ in los]
+        plist = sorted(pages)
+        decoded = self._decode_pages(plist, meter)
+        out = []
+        for lo, hi in zip(los, his):
+            if hi <= lo:
+                out.append(decoded[plist[0]][:0])
+                continue
+            parts = []
+            for p in range(int(lo) // ps, int(hi - 1) // ps + 1):
+                vals = decoded[p]
+                s = max(int(lo) - p * ps, 0)
+                e = min(int(hi) - p * ps, len(vals))
+                parts.append(vals[s:e])
+            out.append(np.concatenate(parts))
+        return out
 
     def read_rows_concat(self, los, his, meter=None) -> np.ndarray:
         """Concatenation of rows over many [lo, hi) ranges, fully
@@ -104,6 +138,12 @@ class Column:
             meter.record(nbytes, n_requests)
 
 
+@dataclasses.dataclass
+class PageStats:
+    vmin: float
+    vmax: float
+
+
 class PlainColumn(Column):
     def __init__(self, name: str, values: np.ndarray,
                  page_size: int = DEFAULT_PAGE_SIZE):
@@ -111,9 +151,20 @@ class PlainColumn(Column):
         self.values = np.ascontiguousarray(values)
         self.count = len(values)
         self.page_size = page_size
+        self._stats: Optional[List[PageStats]] = None
 
     def nbytes(self) -> int:
         return self.values.nbytes
+
+    def page_stats(self) -> List[PageStats]:
+        if self._stats is None:
+            ps = self.page_size
+            self._stats = [
+                PageStats(float(self.values[i:i + ps].min()),
+                          float(self.values[i:i + ps].max()))
+                for i in range(0, self.count, ps)
+            ]
+        return self._stats
 
     def read_all(self, meter=None) -> np.ndarray:
         self._charge(meter, self.nbytes())

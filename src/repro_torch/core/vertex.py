@@ -9,7 +9,7 @@ trailing "bubbles" is supported via ``partition_size``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -80,6 +80,9 @@ class VertexTable:
         return cls(schema, t, label_encoding)
 
     # -- access ---------------------------------------------------------------
+    def property_column(self, name: str) -> Column:
+        return self.table[name]
+
     def label_column(self, label: str) -> Column:
         if self.label_encoding == LABEL_ENC_STRING:
             return self.table["<labels>"]
@@ -91,3 +94,54 @@ class VertexTable:
             raise TypeError("label columns are not RLE-encoded")
         return col.encoded
 
+    def labels_nbytes(self) -> int:
+        if self.label_encoding == LABEL_ENC_STRING:
+            return self.table["<labels>"].nbytes()
+        return sum(self.table[label_col_name(l)].nbytes()
+                   for l in self.schema.labels)
+
+    def read_property_pages(self, name: str, pages: Sequence[int],
+                            meter=None) -> Dict[int, np.ndarray]:
+        col = self.table[name]
+        if isinstance(col, PlainColumn):
+            return col.read_pages(pages, meter)
+        out = {}
+        for p in pages:
+            s, e = self.table.page_bounds(p)
+            out[p] = col.read_range(s, e, meter)
+        return out
+
+    def read_properties_batch(self, pac, names: Sequence[str],
+                              meter=None) -> Dict[str, np.ndarray]:
+        """Batched multi-property gather (selection pushdown, paper §4.3).
+
+        Fetches every named property column for exactly the PAC's ids in
+        a **single deduplicated pass** over the PAC's page set: the page
+        list and the per-page selection indices are derived once -- one
+        ``unpackbits`` over the whole bitmap-plane stack -- and shared by
+        all columns, instead of re-deriving both per property as the
+        per-column ``fetch_properties`` loop does.  Delta-encoded columns
+        consult their decoded-page LRU page by page.  Values come back in
+        ascending internal-id order, identical per column to
+        :func:`repro_torch.core.neighbor.fetch_properties`.
+        """
+        pages = pac.pages()
+        if not pages:
+            return {name: np.zeros(0) for name in names}
+        planes = np.stack([pac.bitmaps[p] for p in pages])
+        bits_per_plane = planes.shape[1] * 32
+        flat = np.flatnonzero(
+            np.unpackbits(planes.view(np.uint8), bitorder="little"))
+        plane_of = flat // bits_per_plane
+        # per-page relative indices, computed once for every column
+        rel = np.split(flat % bits_per_plane,
+                       np.searchsorted(plane_of, np.arange(1, len(pages))))
+        out: Dict[str, np.ndarray] = {}
+        for name in names:
+            page_vals = self.read_property_pages(name, pages, meter)
+            parts = []
+            for p, r in zip(pages, rel):
+                vals = np.asarray(page_vals[p])
+                parts.append(vals[r[r < len(vals)]])
+            out[name] = np.concatenate(parts) if parts else np.zeros(0)
+        return out

@@ -42,6 +42,12 @@ SIGNATURES = {
     "rt_khop_hop": (_P, _P, _I, _P, _P, _P, _P, _P, _P),
     "rt_two_hop": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P),
     "rt_count_hop": (_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P),
+    "rt_delta_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "rt_fused_decode_bitmap_batch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _P, _I, _P, _I, _P, _P, _P, _I, _P),
+    "rt_fused_decode_filter_bitmap_batch": (_P, _P, _P, _P, _P, _P, _I, _I,
+                                            _I, _I, _P, _I, _P, _I, _P, _P,
+                                            _P, _I, _P, _P, _I, _P, _I, _P),
 }
 
 _LOCK = threading.Lock()

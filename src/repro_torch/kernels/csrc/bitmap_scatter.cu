@@ -15,8 +15,9 @@
 // powers of two (kernel.py:405-428); an atomic OR gives the same words with
 // no sort, whatever the order and multiplicity of the ids.
 //
-// Bound on the H100 (3.35 TB/s): one plan row per gathered page, 24,572 B
-// at page size 2048, plus 8,192 B per page of ids when they are written
+// Bound on the H100 (3.35 TB/s): one plan row per gathered page (as in
+// gather_decode.cu: 16,380 B at page size 2048 plus the page's
+// sum(bit_widths) packed words), plus 8,192 B per page of ids when written
 // (want_ids), plus the staged vector and 4 * n_words bytes of words (and as
 // many of fwords).  The atomics touch at most `total` words.
 //

@@ -19,17 +19,17 @@
 //
 // Design: one thread per bit lane and one warp per output word, so the 32
 // lanes of a word pack with a single __ballot_sync.  The program is data,
-// not generated source: each thread walks the opcode array with its stack
-// held as the bits of one 64-bit register (the wrapper refuses programs
-// deeper than 64).  Neighbouring lanes search the same run boundaries, so
-// the binary searches hit the same cache lines.
+// not generated source: each thread walks the opcode array with the
+// interpreter of cond.cuh (its stack one 64-bit register).  Neighbouring
+// lanes search the same run boundaries, so the binary searches hit the
+// same cache lines.
 #include <cuda_runtime.h>
+
+#include "cond.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kNot = -1;
-constexpr int kAnd = -2;
 
 __global__ void __launch_bounds__(kThreads)
 cond_bitmap_kernel(const int* __restrict__ pos, const int* __restrict__ meta,
@@ -38,33 +38,7 @@ cond_bitmap_kernel(const int* __restrict__ pos, const int* __restrict__ meta,
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const int word = lane >> 5;
   if (word >= n_words) return;  // whole warps leave together
-  unsigned long long stack = 0;
-  for (int o = 0; o < n_ops; ++o) {
-    const int op = ops[o];
-    if (op >= 0) {
-      const int* row = pos + static_cast<size_t>(op) * n_pos;
-      int lo = 0;
-      int hi = n_pos;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (row[mid] <= lane) {
-          lo = mid + 1;
-        } else {
-          hi = mid;
-        }
-      }
-      const int run = lo - 1;
-      const unsigned long long leaf = (meta[2 * op] ^ (run & 1)) == 1;
-      stack = (stack << 1) | leaf;
-    } else if (op == kNot) {
-      stack ^= 1ull;
-    } else {
-      const unsigned long long b = stack & 1ull;
-      const unsigned long long a = (stack >> 1) & 1ull;
-      stack = ((stack >> 2) << 1) | (op == kAnd ? (a & b) : (a | b));
-    }
-  }
-  const bool bit = (stack & 1ull) && lane < meta[1];
+  const bool bit = rt::eval_cond(pos, meta, n_pos, ops, n_ops, lane);
   const unsigned w = __ballot_sync(0xFFFFFFFFu, bit);
   if ((threadIdx.x & 31) == 0) words[word] = w;
 }

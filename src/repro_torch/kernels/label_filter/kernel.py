@@ -1,6 +1,6 @@
 """Wrappers of the label-filter CUDA kernels: ``cond_bitmap``
-(``csrc/cond_bitmap.cu``) and the filtered fused retrieval
-(``csrc/bitmap_scatter.cu``).
+(``csrc/cond_bitmap.cu``) and the filtered fused retrievals, resident
+(``csrc/bitmap_scatter.cu``) and per-dispatch (``csrc/per_dispatch.cu``).
 
 As in :mod:`repro_torch.kernels.pac_decode.kernel`: CUDA tensors launch
 the kernel, CPU tensors run the plain version, and each wrapper counts
@@ -51,14 +51,10 @@ def encode_program(ops: Sequence[Tuple]) -> List[int]:
     return codes
 
 
-def cond_bitmap(pos: torch.Tensor, meta: torch.Tensor, ops: Sequence[Tuple],
-                n_words: int) -> torch.Tensor:
-    """Evaluate the postfix program ``ops`` over the RLE position lists
-    -> int32[n_words] predicate words over ``[0, 32 * n_words)``."""
-    note_shape("cond_bitmap", tuple(pos.shape), n_words, tuple(ops))
-    codes = encode_program(ops)
-    if not B.on_cuda(pos):
-        return R.cond_bitmap(pos, meta, ops, n_words)
+def program_args(pos: torch.Tensor, meta: torch.Tensor, codes: List[int],
+                 n_words: int) -> torch.Tensor:
+    """Check the filter inputs of a launch; returns the opcodes on the
+    filter's device."""
     dev = pos.device
     B.check(pos, "pos", dev, 2)
     B.check(meta, "meta", dev, 2)
@@ -70,7 +66,19 @@ def cond_bitmap(pos: torch.Tensor, meta: torch.Tensor, ops: Sequence[Tuple],
                          f"{pos.shape[0]}")
     if 32 * n_words >= 1 << 31:
         raise ValueError(f"n_words={n_words} overflows int32 bit lanes")
-    opcodes = torch.tensor(codes, dtype=torch.int32).to(dev)
+    return torch.tensor(codes, dtype=torch.int32).to(dev)
+
+
+def cond_bitmap(pos: torch.Tensor, meta: torch.Tensor, ops: Sequence[Tuple],
+                n_words: int) -> torch.Tensor:
+    """Evaluate the postfix program ``ops`` over the RLE position lists
+    -> int32[n_words] predicate words over ``[0, 32 * n_words)``."""
+    note_shape("cond_bitmap", tuple(pos.shape), n_words, tuple(ops))
+    codes = encode_program(ops)
+    if not B.on_cuda(pos):
+        return R.cond_bitmap(pos, meta, ops, n_words)
+    dev = pos.device
+    opcodes = program_args(pos, meta, codes, n_words)
     out = torch.empty(n_words, dtype=torch.int32, device=dev)
     B.launch("rt_cond_bitmap", B.ptr(pos), B.ptr(meta), pos.shape[1],
              B.ptr(opcodes), len(codes), B.ptr(out), n_words, B.stream(dev))
@@ -101,3 +109,35 @@ def fused_gather_decode_filter_bitmap_batch(
 
 
 fused_gather_decode_filter_bitmap_batch.launches = 0
+
+
+def fused_decode_filter_bitmap_batch(
+        first, min_deltas, bit_widths, word_offsets, packed, counts, cached,
+        gidx, gcount, fpos: torch.Tensor, fmeta: torch.Tensor,
+        ops: Sequence[Tuple], n_words: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fused_decode_bitmap_batch`` with the label predicate ``ops`` over
+    the shipped RLE lists ``fpos``/``fmeta`` ANDed into the words.
+    Returns ``(words, ids)``."""
+    note_shape("fused_decode_filter_bitmap_batch", tuple(packed.shape),
+               tuple(cached.shape), gidx.shape[0], n_words,
+               tuple(fpos.shape), tuple(ops))
+    codes = encode_program(ops)
+    if not B.on_cuda(first):
+        return R.fused_filter_batch(first, min_deltas, bit_widths,
+                                    word_offsets, packed, counts, cached,
+                                    gidx, gcount, fpos, fmeta, ops, n_words)
+    if fpos.device != first.device:
+        raise ValueError(f"fpos is on {fpos.device}, expected "
+                         f"{first.device}")
+    opcodes = program_args(fpos, fmeta, codes, n_words)
+    out = PK.decode_launch("rt_fused_decode_filter_bitmap_batch", first,
+                           min_deltas, bit_widths, word_offsets, packed,
+                           counts, cached, gidx, gcount, n_words,
+                           B.ptr(fpos), B.ptr(fmeta), fpos.shape[1],
+                           B.ptr(opcodes), len(codes))
+    fused_decode_filter_bitmap_batch.launches += 1
+    return out
+
+
+fused_decode_filter_bitmap_batch.launches = 0

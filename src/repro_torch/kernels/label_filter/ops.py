@@ -20,10 +20,12 @@ from typing import Dict, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core.labels import (Cond, CondProgram, charge_label_metadata,
-                                     compile_cond, interval_hull,
-                                     intervals_to_bitmap,
+from repro_torch.core.labels import (Cond, CondProgram, Intervals,
+                                     bitmap_to_intervals,
+                                     charge_label_metadata, compile_cond,
+                                     interval_hull, intervals_to_bitmap,
                                      program_filter_intervals)
+from repro_torch.core.pac import PAC
 from repro_torch.core.vertex import VertexTable
 from repro_torch.kernels._pad import next_multiple
 from repro_torch.kernels.pac_decode.ops import engine_device
@@ -127,3 +129,27 @@ def label_filter_bitmap(vt: VertexTable, cond: Union[Cond, CondProgram],
     dev = engine_device(engine)
     words = K.cond_bitmap(*plan.device(dev), program.ops, plan.n_words)
     return words.cpu().numpy().view(np.uint32)
+
+
+def label_filter_intervals(vt: VertexTable, cond: Union[Cond, CondProgram],
+                           meter=None, engine: str = "cuda") -> Intervals:
+    """Qualifying half-open intervals; engine-dispatched, same accounting."""
+    program = compile_cond(cond)
+    if engine == "numpy":
+        charge_label_metadata(vt, program.labels, meter)
+        return program_filter_intervals(vt, program)
+    return bitmap_to_intervals(
+        label_filter_bitmap(vt, program, meter, engine), vt.num_vertices)
+
+
+def label_filter_pac(vt: VertexTable, cond: Union[Cond, CondProgram],
+                     page_size: int, meter=None,
+                     engine: str = "cuda") -> PAC:
+    """Qualifying ids as a PAC over ``page_size`` pages (bitmap planes on
+    the kernel engines).  One-shot wrapper around
+    :meth:`repro_torch.core.labels.LabelFilter.pac`, which owns the
+    plane-selection logic and the memoization for long-lived filters."""
+    from repro_torch.core.labels import LabelFilter
+    f = LabelFilter(vt, cond)
+    f.charge(meter)
+    return f.pac(page_size, engine)

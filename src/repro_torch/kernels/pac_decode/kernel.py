@@ -1,5 +1,6 @@
 """Wrappers of the pac_decode CUDA kernels (``csrc/gather_decode.cu``,
-``csrc/bitmap_scatter.cu``).
+``csrc/bitmap_scatter.cu``, and the per-dispatch pack route's
+``csrc/per_dispatch.cu``).
 
 A wrapper given CUDA tensors checks them, allocates its outputs with
 ``torch.empty`` and launches the kernel on the current stream; given CPU
@@ -116,3 +117,106 @@ def fused_launch(name: str, first, pos, mind, packed, staged, words,
              p_pad, t, B.ptr(ids), B.ptr(words), words.shape[0], *extra,
              B.stream(dev))
     return ids
+
+
+# --------------------------------------------------------------------------
+# per-dispatch pack route: pages shipped as raw miniblock arrays
+# --------------------------------------------------------------------------
+
+def check_pages(first, min_deltas, bit_widths, word_offsets, packed, counts,
+                device: torch.device) -> None:
+    """Validate a batch of shipped pages (the six arrays of
+    ``PackedPages.gather``, uint32 words as int32 bit patterns)."""
+    arrays = (("first", first), ("min_deltas", min_deltas),
+              ("bit_widths", bit_widths), ("word_offsets", word_offsets),
+              ("packed", packed), ("counts", counts))
+    for name, t in arrays:
+        B.check(t, name, device, 2)
+    n, n_mini = min_deltas.shape
+    if first.shape != (n, 1) or counts.shape != (n, 1) \
+            or bit_widths.shape != (n, n_mini) \
+            or word_offsets.shape != (n, n_mini) or packed.shape[0] != n \
+            or n_mini == 0 or packed.shape[1] == 0:
+        raise ValueError("inconsistent page shapes: " + ", ".join(
+            f"{name} {tuple(t.shape)}" for name, t in arrays))
+
+
+def _page_args(first, min_deltas, bit_widths, word_offsets, packed, counts,
+               page_size: int):
+    return (B.ptr(first), B.ptr(min_deltas), B.ptr(bit_widths),
+            B.ptr(word_offsets), B.ptr(packed), B.ptr(counts),
+            first.shape[0], min_deltas.shape[1], packed.shape[1], page_size)
+
+
+def delta_decode(first, min_deltas, bit_widths, word_offsets, packed, counts,
+                 page_size: int) -> torch.Tensor:
+    """Decode a batch of shipped pages: int32[n, page_size]; positions past
+    a page's count hold the running last id."""
+    note_shape("delta_decode", tuple(packed.shape), page_size)
+    if not B.on_cuda(first):
+        return R.decode_pages(first, min_deltas, bit_widths, word_offsets,
+                              packed, counts, page_size)
+    dev = first.device
+    check_pages(first, min_deltas, bit_widths, word_offsets, packed, counts,
+                dev)
+    out = torch.empty((first.shape[0], page_size), dtype=torch.int32,
+                      device=dev)
+    B.launch("rt_delta_decode",
+             *_page_args(first, min_deltas, bit_widths, word_offsets, packed,
+                         counts, page_size), B.ptr(out), B.stream(dev))
+    delta_decode.launches += 1
+    return out
+
+
+delta_decode.launches = 0
+
+
+def decode_launch(name: str, first, min_deltas, bit_widths, word_offsets,
+                  packed, counts, cached, gidx, gcount, n_words: int,
+                  *extra) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check and launch one per-dispatch fused C entry (``extra``: the
+    filter's arguments); returns ``(words, ids)``."""
+    dev = first.device
+    check_pages(first, min_deltas, bit_widths, word_offsets, packed, counts,
+                dev)
+    B.check(cached, "cached", dev, 2)
+    B.check(gidx, "gidx", dev, 1)
+    B.check(gcount, "gcount", dev, 2)
+    m, ps = first.shape[0], cached.shape[1]
+    if gcount.shape != (1, 1) or cached.shape[0] == 0 or ps == 0:
+        raise ValueError(f"gcount {tuple(gcount.shape)} must be (1, 1) and "
+                         f"cached {tuple(cached.shape)} non-empty")
+    if (m + cached.shape[0]) * ps >= 1 << 31 or 32 * n_words >= 1 << 31:
+        raise ValueError("matrix or target space overflows int32 indices")
+    ids = torch.empty((m, ps), dtype=torch.int32, device=dev)
+    words = torch.empty(n_words, dtype=torch.int32, device=dev)
+    B.launch(name, *_page_args(first, min_deltas, bit_widths, word_offsets,
+                               packed, counts, ps),
+             B.ptr(cached), cached.shape[0], B.ptr(gidx), gidx.shape[0],
+             B.ptr(gcount), B.ptr(ids), B.ptr(words), n_words, *extra,
+             B.stream(dev))
+    return words, ids
+
+
+def fused_decode_bitmap_batch(first, min_deltas, bit_widths, word_offsets,
+                              packed, counts, cached, gidx, gcount,
+                              n_words: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-dispatch fused retrieval: the shipped miss pages decode to
+    ``ids`` (int32[m, page_size]); the ``gcount`` requested rows, flat
+    positions ``gidx`` into ``[ids | cached]`` (page_size = the width of
+    ``cached``), set their ids' bits in the int32[n_words] target bitmap.
+    Returns ``(words, ids)``."""
+    note_shape("fused_decode_bitmap_batch", tuple(packed.shape),
+               tuple(cached.shape), gidx.shape[0], n_words)
+    if not B.on_cuda(first):
+        return R.fused_batch(first, min_deltas, bit_widths, word_offsets,
+                             packed, counts, cached, gidx, gcount, n_words)
+    out = decode_launch("rt_fused_decode_bitmap_batch", first, min_deltas,
+                        bit_widths, word_offsets, packed, counts, cached,
+                        gidx, gcount, n_words)
+    fused_decode_bitmap_batch.launches += 1
+    return out
+
+
+fused_decode_bitmap_batch.launches = 0

@@ -1,4 +1,4 @@
-"""Storage-plane integration of the pac_decode kernels (resident route).
+"""Storage-plane integration of the pac_decode kernels.
 
 The batched neighbor-retrieval plane: an arbitrary set of row ranges is
 decoded through **one** kernel dispatch over the page-deduplicated page
@@ -11,11 +11,21 @@ set.  Two entries:
   scatters the requested rows' ids straight into a target bitmap on the
   card, with a label predicate's plane ANDed in when one is pushed down.
 
-The column crosses to the card once, as its unpack plan
-(``PackedPages.device_plan``); a dispatch ships one int32 vector.  With a
-decoded-page LRU attached (:mod:`repro_torch.core.page_cache`) only the
-miss pages are charged to the ``IOMeter``, and the decoded matrix comes
-back to the host only when misses need backfilling.
+Two transfer regimes, with the same ids, PACs and IOMeter:
+
+* **device-resident** (the default): the column crosses to the card
+  once, as its unpack plan (``PackedPages.device_plan``); a dispatch
+  ships one int32 vector and the pages are gathered and decoded there
+  (``gather_decode``, the fused resident kernels);
+* **per-dispatch pack** (``REPRO_DEVICE_RESIDENT=0``, or
+  ``resident=False`` on the fused entries): the miss pages are gathered
+  on the host and shipped packed with every dispatch (``delta_decode``,
+  ``fused_decode_bitmap_batch`` and its filtered twin); LRU-hit rows
+  ship already decoded, and a label predicate ships as its RLE lists.
+
+With a decoded-page LRU attached (:mod:`repro_torch.core.page_cache`)
+only the miss pages are charged to the ``IOMeter``, and the decoded
+matrix comes back to the host only when misses need backfilling.
 
 Engines: ``numpy`` (the host oracle), ``torch`` (the kernels' plain
 PyTorch versions, on the CPU) and ``cuda`` (the kernels, on ``cuda:0``).
@@ -23,6 +33,7 @@ The staged vectors and their padding classes are the JAX package's.
 """
 from __future__ import annotations
 
+import os
 from collections import deque
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -34,7 +45,7 @@ from repro_torch.core.encoding import (DeltaColumn, delta_decode_page,
 from repro_torch.core.labels import intervals_to_ids
 from repro_torch.core.pac import PAC
 from repro_torch.core.page_cache import live_cache, miss_runs
-from repro_torch.kernels._pad import next_multiple, size_class
+from repro_torch.kernels._pad import next_multiple, next_pow2, size_class
 
 from . import kernel as K
 
@@ -43,6 +54,12 @@ ENGINES = ("numpy", "torch", "cuda")
 #: below this many ranges the host path's O(neighbors) post-processing
 #: beats the fused tail's O(num_targets) bitmap copy-out.
 FUSED_MIN_RANGES = 16
+
+#: the transfer regime of the kernel engines, the JAX package's switch:
+#: on by default, ``REPRO_DEVICE_RESIDENT=0`` takes the per-dispatch pack
+#: route everywhere (the fused entries' ``resident=`` overrides per call).
+DEVICE_RESIDENT = os.environ.get("REPRO_DEVICE_RESIDENT", "1") \
+    .strip().lower() not in ("0", "false", "no", "off")
 
 #: pow2 size-class floors for the per-dispatch index/position vectors --
 #: small frontiers share one bucket.
@@ -91,6 +108,50 @@ def reset_dispatch_pools() -> None:
     _WORDS_POOL.clear()
 
 
+def pack_pages(col: DeltaColumn, p0: int, p1: int
+               ) -> Tuple[np.ndarray, ...]:
+    """Views of pages [p0, p1) of the cached packed representation."""
+    return pack_column(col).slice(p0, p1)
+
+
+def pack_page_list(col: DeltaColumn, pages: Sequence[int]
+                   ) -> Tuple[np.ndarray, ...]:
+    """Row-gather of an arbitrary (sorted, deduplicated) page list."""
+    return pack_column(col).gather(pages)
+
+
+def _pad_pages(args: Tuple[np.ndarray, ...], rows: int
+               ) -> Tuple[np.ndarray, ...]:
+    """The six page arrays zero-padded to ``rows`` rows (all-zero pages
+    decode to zeros)."""
+    pad = rows - args[0].shape[0]
+    if not pad:
+        return args
+    return tuple(np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
+                 for a in args)
+
+
+def ship_pages(args: Tuple[np.ndarray, ...], device: torch.device
+               ) -> Tuple[torch.Tensor, ...]:
+    """The six page arrays as int32 tensors on ``device`` (the uint32
+    words travel as their int32 bit patterns)."""
+    return tuple(_to_device(np.ascontiguousarray(a).view(np.int32), device)
+                 for a in args)
+
+
+def decode_pages(col: DeltaColumn, p0: int, p1: int,
+                 engine: str = "cuda") -> np.ndarray:
+    """Decode pages [p0, p1) with ``delta_decode``; returns flat ids."""
+    device = engine_device(engine)
+    args = pack_pages(col, p0, p1)
+    counts = args[5][:, 0]
+    if not len(counts):
+        return np.zeros(0, np.int32)
+    ids = K.delta_decode(*ship_pages(args, device),
+                         page_size=col.page_size).cpu().numpy()
+    return np.concatenate([ids[i, :counts[i]] for i in range(len(counts))])
+
+
 def _charge_pages(col: DeltaColumn, pages: Sequence[int], meter) -> None:
     """IOMeter charge for a (sorted) page list: each page's bytes once,
     requests per contiguous run (what a real ranged reader would issue)."""
@@ -123,7 +184,9 @@ def _decode_page_matrix(col: DeltaColumn, pages: Sequence[int],
                         engine: str) -> np.ndarray:
     """Engine dispatch only -- no cache, no metering (see
     :func:`decode_page_list`).  Returns int64[len(pages), page_size] with
-    each row zeroed past its page's count."""
+    each row zeroed past its page's count.  The kernel engines follow
+    ``DEVICE_RESIDENT`` (the per-call ``resident=`` exists on the fused
+    entries only)."""
     ps = col.page_size
     n = len(pages)
     if engine == "numpy":
@@ -133,12 +196,19 @@ def _decode_page_matrix(col: DeltaColumn, pages: Sequence[int],
             out[i, :len(d)] = d
         return out
     device = engine_device(engine)
-    packed = pack_column(col)
-    plan = packed.device_plan(device)
-    idx = _page_index_vector(pages, len(col.pages))
-    ids = K.gather_decode(*plan, _to_device(idx, device))
+    if DEVICE_RESIDENT:
+        packed = pack_column(col)
+        plan = packed.device_plan(device)
+        idx = _page_index_vector(pages, len(col.pages))
+        ids = K.gather_decode(*plan, _to_device(idx, device))
+        counts = packed.counts[np.asarray(pages, np.int64), 0]
+    else:
+        # per-dispatch pack: the pages ship packed, padded to a pow2 row
+        # count so the launch shapes stay few
+        args = _pad_pages(pack_page_list(col, pages), next_pow2(n))
+        ids = K.delta_decode(*ship_pages(args, device), page_size=ps)
+        counts = args[5][:n, 0]
     ids = ids[:n].cpu().numpy().astype(np.int64)
-    counts = packed.counts[np.asarray(pages, np.int64), 0]
     cols = np.arange(ps)[None, :]
     return np.where(cols < counts[:, None], ids, 0)
 
@@ -275,11 +345,28 @@ def _gather_positions(pages: np.ndarray, base_of_page: np.ndarray,
     return gidx, total
 
 
+def stage_resident(col: DeltaColumn, los, his, pages: np.ndarray, pmask
+                   ) -> Tuple[np.ndarray, int, int]:
+    """The one staging vector ``[idx | gidx | total]`` of a resident fused
+    dispatch over the sorted ``pages`` (``pmask``: as
+    :func:`prune_page_list` returned it) -- one copy to the device.
+    Returns ``(staged, p_pad, total)``."""
+    # rows are in sorted-page order: base_of_page[i] == i
+    gidx, total = _gather_positions(pages, np.arange(len(pages)), los, his,
+                                    col.page_size, pruned=pmask is not None)
+    p_pad = _page_class(len(pages), len(col.pages))
+    staged = np.zeros(p_pad + len(gidx) + 1, np.int32)
+    staged[:len(pages)] = pages
+    staged[p_pad:-1] = gidx
+    staged[-1] = total
+    return staged, p_pad, total
+
+
 def _retrieve_pac_batch_fused(col: DeltaColumn, los, his,
                               target_page_size: int, num_targets: int,
                               meter, engine: str, filter_plan=None,
                               resident: Optional[bool] = None) -> PAC:
-    """Fused path: one dispatch from resident pages to a target bitmap.
+    """Fused path: one dispatch from packed pages to a target bitmap.
 
     The decoded ids stay on the device; the host receives only the dense
     bitmap (``PAC.from_dense_bitmap`` keeps the non-empty planes).  With a
@@ -287,13 +374,18 @@ def _retrieve_pac_batch_fused(col: DeltaColumn, los, his,
     only and the kernel's decode matrix backfills the cache (the one case
     where the matrix comes back to the host).  With ``filter_plan`` (a
     :class:`repro_torch.kernels.label_filter.ops.FilterPlan` over the
-    target vertex table) the predicate's resident plane is ANDed in by
-    the same dispatch.  ``resident=False`` (the JAX package's
-    per-dispatch pack path) is not ported.
+    target vertex table) the predicate is ANDed in by the same dispatch.
+
+    Two transfer regimes, identical results and accounting (``resident``
+    None follows ``DEVICE_RESIDENT``):
+
+    * **device-resident**: pages are gathered from the column's resident
+      unpack plan by index (LRU hits are decoded again there), and the
+      predicate is the filter's resident plane;
+    * **per-dispatch pack** (``resident=False``): the miss pages are
+      gathered on the host and shipped packed, LRU-hit rows ship already
+      decoded in ``cached``, and the predicate ships as its RLE lists.
     """
-    if resident is False:
-        raise NotImplementedError(
-            "resident=False (the per-dispatch pack path) is not ported")
     if engine not in ("torch", "cuda"):
         raise ValueError(f"fused path requires a kernel engine, not "
                          f"{engine!r}")
@@ -308,23 +400,21 @@ def _retrieve_pac_batch_fused(col: DeltaColumn, los, his,
     pages, pmask = prune_page_list(col, pages, qual)
     if pages.size == 0:
         return PAC(target_page_size)
+    if resident is None:
+        resident = DEVICE_RESIDENT
     cache = live_cache(col)
     if cache is None:
-        miss = [int(p) for p in pages]
+        hits, miss = {}, [int(p) for p in pages]
     else:
-        _, miss = cache.split(pages)
+        hits, miss = cache.split(pages)
     _charge_pages(col, miss, meter)
     n_words = -(-num_targets // 32)
-    # rows are in sorted-page order: base_of_page[i] == i
-    gidx, total = _gather_positions(pages, np.arange(len(pages)), los, his,
-                                    ps, pruned=pmask is not None)
+    if not resident:
+        return _retrieve_pac_batch_packed(col, los, his, pages, pmask, hits,
+                                          miss, cache, target_page_size,
+                                          n_words, device, filter_plan)
     plan = pack_column(col).device_plan(device)
-    # one staging vector [idx | gidx | total] = one copy to the device
-    p_pad = _page_class(len(pages), len(col.pages))
-    staged = np.zeros(p_pad + len(gidx) + 1, np.int32)
-    staged[:len(pages)] = pages
-    staged[p_pad:-1] = gidx
-    staged[-1] = total
+    staged, p_pad, _ = stage_resident(col, los, his, pages, pmask)
     staged_t = _to_device(staged, device)
     # the decode matrix only exists to backfill the LRU: with no cache --
     # or a warm one (zero misses) -- the ids never leave the card
@@ -351,6 +441,64 @@ def _retrieve_pac_batch_fused(col: DeltaColumn, los, his,
     return PAC.from_dense_bitmap(host_words, target_page_size)
 
 
+def stage_packed(col: DeltaColumn, los, his, pages: np.ndarray, pmask,
+                 hits: Dict[int, np.ndarray], miss: Sequence[int]
+                 ) -> Tuple[Tuple[np.ndarray, ...], np.ndarray, np.ndarray,
+                            int]:
+    """The host arrays of one per-dispatch pack dispatch over the sorted
+    ``pages`` (``pmask``: as :func:`prune_page_list` returned it): the
+    miss pages packed (``m_pad = next_pow2(m)`` rows), the LRU-hit rows
+    decoded (``c_pad = next_pow2(hits)`` rows, at least one), and the
+    requested-row positions over the ``[miss | cached]`` row order with
+    their count.  Returns ``(args, cached, gidx, total)``."""
+    ps = col.page_size
+    m_pad = next_pow2(len(miss))
+    args = _pad_pages(pack_page_list(col, miss), m_pad)
+    hit_list = [int(p) for p in pages if int(p) in hits]
+    cached = np.zeros((next_pow2(len(hit_list)), ps), np.int32)
+    for i, p in enumerate(hit_list):
+        d = hits[p]
+        cached[i, :len(d)] = d
+    # matrix row of each sorted page: misses first, then cached rows
+    miss_set = set(miss)
+    is_miss = np.fromiter((int(p) in miss_set for p in pages), bool,
+                          len(pages))
+    base_of_page = np.where(is_miss, np.cumsum(is_miss) - 1,
+                            m_pad + np.cumsum(~is_miss) - 1)
+    gidx, total = _gather_positions(pages, base_of_page, los, his, ps,
+                                    pruned=pmask is not None)
+    return args, cached, gidx, total
+
+
+def _retrieve_pac_batch_packed(col: DeltaColumn, los, his, pages: np.ndarray,
+                               pmask, hits: Dict[int, np.ndarray],
+                               miss: Sequence[int], cache,
+                               target_page_size: int, n_words: int,
+                               device: torch.device, filter_plan=None) -> PAC:
+    """The per-dispatch pack tail of the fused path: ships what
+    :func:`stage_packed` gathers and, with a filter, its RLE lists; one
+    ``fused_decode_bitmap_batch`` (or its filtered twin) dispatch."""
+    args, cached, gidx, total = stage_packed(col, los, his, pages, pmask,
+                                             hits, miss)
+    shipped = ship_pages(args, device) + (
+        _to_device(cached, device), _to_device(gidx, device),
+        torch.full((1, 1), total, dtype=torch.int32, device=device))
+    if filter_plan is None:
+        words, ids = K.fused_decode_bitmap_batch(*shipped, n_words=n_words)
+    else:
+        from repro_torch.kernels.label_filter import kernel as LK
+        words, ids = LK.fused_decode_filter_bitmap_batch(
+            *shipped, _to_device(filter_plan.pos, device),
+            _to_device(filter_plan.meta, device), filter_plan.program.ops,
+            n_words)
+    if cache is not None and miss:
+        mat = ids.cpu().numpy().astype(np.int64)
+        for i, p in enumerate(miss):
+            cache.put(p, mat[i, :col.pages[p].count].copy())
+    return PAC.from_dense_bitmap(words.cpu().numpy().view(np.uint32),
+                                 target_page_size)
+
+
 def retrieve_pac_batch(col: DeltaColumn, los, his, target_page_size: int,
                        meter=None, engine: str = "cuda",
                        num_targets: Optional[int] = None,
@@ -367,9 +515,13 @@ def retrieve_pac_batch(col: DeltaColumn, los, his, target_page_size: int,
 
     ``label_filter`` (:class:`repro_torch.core.labels.LabelFilter` over
     the target vertex table) pushes a label predicate down: the fused
-    path ANDs the predicate plane inside the dispatch; the host path
+    path ANDs the predicate inside the dispatch; the host path
     intersects with the filter's PAC.  Label metadata I/O is the caller's
     to charge (see ``neighbor.retrieve_neighbors_batch``).
+
+    ``resident`` picks the fused path's transfer regime (see
+    :func:`_retrieve_pac_batch_fused`); None follows ``DEVICE_RESIDENT``.
+    The host path's decode follows ``DEVICE_RESIDENT`` only.
     """
     los = np.asarray(los, np.int64)
     his = np.asarray(his, np.int64)
@@ -390,9 +542,6 @@ def retrieve_pac_batch(col: DeltaColumn, los, his, target_page_size: int,
         return _retrieve_pac_batch_fused(col, los, his, target_page_size,
                                          int(num_targets), meter, engine,
                                          plan, resident=resident)
-    if resident is False:
-        raise NotImplementedError(
-            "resident=False (the per-dispatch pack path) is not ported")
     # the same page-granular pruning hull applies on the host path (pruned
     # pages hold no qualifying ids), so meters agree with the fused path
     qual = label_filter.qual_range() if label_filter is not None else None
@@ -402,3 +551,14 @@ def retrieve_pac_batch(col: DeltaColumn, los, his, target_page_size: int,
     if label_filter is not None:
         pac = pac.intersect(label_filter.pac(target_page_size, engine))
     return pac
+
+
+def retrieve_pac(col: DeltaColumn, lo: int, hi: int, target_page_size: int,
+                 meter=None, engine: str = "cuda") -> PAC:
+    """Kernel-engine neighbor retrieval: rows [lo, hi) -> PAC.
+
+    Charges the same page bytes as the numpy path (the I/O plane is
+    identical; only the decode engine differs).
+    """
+    return retrieve_pac_batch(col, np.array([lo]), np.array([hi]),
+                              target_page_size, meter, engine=engine)

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the pac_decode CUDA kernels.
 
-The same functions as ``csrc/gather_decode.cu`` and
-``csrc/bitmap_scatter.cu``, written as tensor code.  The kernel wrappers
+The same functions as ``csrc/gather_decode.cu``,
+``csrc/bitmap_scatter.cu`` and ``csrc/per_dispatch.cu``, written as
+tensor code.  The kernel wrappers
 run them for CPU tensors (the CPU tests), and ``chip_smoke.py`` holds the
 kernels against them on the card.  They work on any device.
 
@@ -17,8 +18,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.encoding import (POS_BW_MASK, POS_SHIFT_SHIFT,
-                                       POS_WIDX_SHIFT)
+from repro_torch.core.encoding import (MINIBLOCK, POS_BW_MASK,
+                                       POS_SHIFT_SHIFT, POS_WIDX_SHIFT)
 
 MASK32 = 0xFFFFFFFF
 
@@ -85,3 +86,66 @@ def fused_gather_batch(first, pos, mind, packed, staged: torch.Tensor,
     if fwords is not None:
         words = words & fwords
     return words, ids
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """bool[n_words * 32] -> int32[n_words] (little-endian bit order)."""
+    b = bits.reshape(-1, 32).long()
+    shifts = torch.arange(32, device=bits.device)
+    return wrap_int32((b << shifts).sum(1))
+
+
+def decode_pages(first, min_deltas, bit_widths, word_offsets, packed,
+                 counts, page_size: int) -> torch.Tensor:
+    """Plain version of ``delta_decode``: shipped pages -> int32[n,
+    page_size].  Delta j of a page lives in miniblock j // 32 at bit
+    (j % 32) * width; deltas at or past ``count - 1`` are 0, so positions
+    past a page's count hold the running last id.  Word and miniblock
+    indices are clamped: the clamp only moves reads of zeroed deltas."""
+    n, n_mini = min_deltas.shape
+    dev = min_deltas.device
+    j = torch.arange(page_size - 1, device=dev)
+    mini = (j // MINIBLOCK).clamp(max=n_mini - 1)
+    bw = bit_widths.long()[:, mini]                       # [n, d]
+    bit = (j % MINIBLOCK) * bw
+    widx = (word_offsets.long()[:, mini] + (bit >> 5)) \
+        .clamp(0, packed.shape[1] - 1)
+    words = torch.gather(packed.long() & MASK32, 1, widx)
+    mask = torch.where(bw >= 32, torch.full_like(bw, MASK32),
+                       (torch.ones_like(bw) << bw.clamp(max=32)) - 1)
+    deltas = ((words >> (bit & 31)) & mask) + min_deltas.long()[:, mini]
+    deltas = torch.where(j < counts.long() - 1, deltas,
+                         torch.zeros_like(deltas))
+    f = first.long()
+    return wrap_int32(torch.cat([f, f + torch.cumsum(deltas, 1)], 1))
+
+
+def rank_bitmap(full: torch.Tensor, gidx: torch.Tensor, gcount: torch.Tensor,
+                n_words: int) -> torch.Tensor:
+    """The TPU kernels' bitmap tail: the ``gcount`` requested rows (flat
+    positions ``gidx`` into ``full``, clamped) are sorted with a sentinel
+    past the target space for the padding, and bit ``t`` is set iff some
+    sorted id equals ``t`` (a rank lookup).  Returns int32[n_words]."""
+    n_slots = 32 * n_words
+    if gidx.numel() == 0 or n_words == 0:
+        return torch.zeros(n_words, dtype=torch.int32, device=full.device)
+    flat = full.reshape(-1)
+    vals = flat[gidx.long().clamp(0, flat.numel() - 1)].long()
+    k = torch.arange(gidx.numel(), device=gidx.device)
+    s, _ = torch.sort(torch.where(k < gcount.reshape(()).long(), vals,
+                                  torch.full_like(vals, n_slots)))
+    targets = torch.arange(n_slots, device=full.device)
+    pos = torch.searchsorted(s, targets).clamp(max=s.numel() - 1)
+    return pack_bits(s[pos] == targets)
+
+
+def fused_batch(first, min_deltas, bit_widths, word_offsets, packed, counts,
+                cached, gidx, gcount, n_words: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the per-dispatch fused retrieval: the shipped miss
+    pages decode to ``ids``, the requested rows of ``[ids | cached]`` make
+    the target bitmap.  Returns ``(words, ids)``."""
+    ids = decode_pages(first, min_deltas, bit_widths, word_offsets, packed,
+                       counts, cached.shape[1])
+    full = torch.cat([ids, cached], 0)
+    return rank_bitmap(full, gidx, gcount, n_words), ids

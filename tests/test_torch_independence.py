@@ -54,6 +54,37 @@ print("LOADED", bad)
 """
 
 
+QUERY_PROBE = """
+import sys
+import torch
+from repro_torch.core import query as Q
+from repro_torch.data.synthetic import ldbc_like
+from repro_torch.kernels.pac_decode import ops as pac_ops
+torch.set_num_threads(1)
+snb = ldbc_like(scale=1, seed=0)
+g = Q.build_snb_graphar(snb, 1024)
+base = Q.build_snb_baseline(snb, 1024)
+for resident in (True, False):
+    pac_ops.DEVICE_RESIDENT = resident
+    assert Q.is3_graphar(g, 17, engine="torch")[0].size
+    assert Q.ic8_graphar(g, 426, engine="torch",
+                         reply_label="TagClass0")[0].size
+    assert Q.bi2_graphar(g, "TagClass3", engine="torch") == \
+        Q.bi2_acero(base, "TagClass3")
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("LOADED", bad)
+"""
+
+
+def test_queries_load_neither_jax_nor_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", QUERY_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_retrieval_loads_neither_jax_nor_the_jax_package():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", PROBE], env=env,
@@ -95,3 +126,23 @@ def test_cuda_engine_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA device"):
         trav.frontier_edge_counts(adj, [0], [9], [0], [9], meter)
     assert meter.nbytes == 0 and not hasattr(adj, "_traversal_plans")
+
+
+def test_cuda_engine_without_a_card_raises_per_dispatch(monkeypatch):
+    from repro_torch.kernels.pac_decode import ops as pac_ops
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(pac_ops, "DEVICE_RESIDENT", False)
+    n = 300
+    rng = np.random.default_rng(0)
+    adj = TC.build_adjacency(rng.integers(0, n, 2000),
+                             rng.integers(0, n, 2000), n, n, TC.BY_SRC,
+                             TC.ENC_GRAPHAR, page_size=128)
+    meter = TC.IOMeter()
+    for batch in (4, 32):               # the decode and the fused routes
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            TC.retrieve_neighbors_batch(adj, np.arange(batch), 128, meter,
+                                        resident=False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        TC.k_hop(adj, np.arange(4), 2, meter)          # the host loop
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        pac_ops.decode_pages(adj.table["<dst>"].encoded, 0, 2)

@@ -148,9 +148,6 @@ def test_steady_state_keeps_shape_classes_flat(graphs):
 def test_unported_routes_raise(graphs, monkeypatch):
     adj, vt = graphs[TC]
     vs = np.arange(20)
-    with pytest.raises(NotImplementedError, match="resident"):
-        TC.retrieve_neighbors_batch(adj, vs, TPS, engine="torch",
-                                    resident=False)
     monkeypatch.setenv("REPRO_PARTITIONS", "4")
     with pytest.raises(NotImplementedError, match="partition"):
         TC.retrieve_neighbors_batch(adj, vs, TPS, engine="torch")

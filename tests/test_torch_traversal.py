@@ -289,8 +289,6 @@ def test_unported_routes_raise(graphs, monkeypatch):
         TC.k_hop(adj, np.array([0]), 2, engine="numpy", fused=True)
     with pytest.raises(NotImplementedError, match="partition"):
         TC.k_hop(adj, np.array([0]), 2, engine="torch", partitions=2)
-    with pytest.raises(NotImplementedError, match="resident"):
-        TC.k_hop(adj, np.array([0]), 2, engine="torch", resident=False)
     monkeypatch.setattr(adj, "delta", object())
     for fused in (None, False):
         with pytest.raises(NotImplementedError, match="mutable"):
