@@ -53,8 +53,25 @@ Phases, each of which exits non-zero when it fails:
      warm (no miss page), with ``gidx`` rows past ``gcount`` and past the
      matrix and under two programs; timed against the plain version and
      the bound, the host pack and the copy to the card timed apart.
-Every launch count is set to 0 just before each of phases 4, 5, 7 and 8
-and read just after; a kernel's ``launches`` is the sum over the four.
+ 10. entries: ``ids_to_bitmap`` (phase 4's batch-16384 PAC, the sorted
+     ``<src>`` ids and a window of them), ``decode_range_to_bitmap`` (the
+     whole ``<src>`` and the whole unsorted ``<dst>`` column, and a
+     page-aligned sub-range with a non-zero base), ``rle_to_bitmap`` (the
+     8 label columns, ``want`` True and False, and a scattered column),
+     ``select_from_pages`` (a seeded ``age`` property by the batch-16384
+     PAC) and ``retrieve_neighbors_batch`` of that batch filtered by two
+     ``NumericFilter``s over ``age`` and one that also takes a NOT over a
+     leaf of a clustered ``joined`` property whose zone maps skip pages,
+     resident and per-dispatch; each run
+     held bit for bit against the numpy oracle (the raw edge arrays' id
+     sets, the dense label planes, ``vals[pac.to_ids()]``, the numpy
+     engine with its IOMeter and property-page counters);
+ 11. entry kernels: ``bitmap``, ``fused_decode_bitmap``, ``rle_to_bitmap``
+     and ``bitmap_select`` against their plain versions on the card, bit
+     for bit, at phase 10's shapes; timed against the plain version, the
+     bound and, for ``bitmap_select``, ``torch.masked_select``.
+Every launch count is set to 0 just before each of phases 4, 5, 7, 8 and
+10 and read just after; a kernel's ``launches`` is the sum over the five.
 The card's name and power limit, then the kernel table as JSON, come on
 the lines before the last; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -95,6 +112,9 @@ PER_DISPATCH_KERNELS = ("delta_decode", "fused_decode_bitmap_batch",
 LDBC_KERNELS = {"resident": ("gather_decode", "cond_bitmap", "two_hop",
                              "count_hop"),
                 "per-dispatch": ("cond_bitmap",) + PER_DISPATCH_KERNELS}
+#: kernels of the single-range, RLE-label and selection entries (phase 10)
+ENTRY_KERNELS = ("bitmap", "fused_decode_bitmap", "rle_to_bitmap",
+                 "bitmap_select")
 #: ldbc_like(40): 400,000 persons and 3,200,000 messages, the order of
 #: LDBC SNB SF1's posts and comments
 LDBC_SCALE = 40
@@ -175,10 +195,15 @@ def build_graph():
     log(f"set-up: {N_VERTICES} vertices, {adj.num_edges} edges, "
         f"{len(col.pages)} pages of {PAGE_SIZE}, host build "
         f"{time.perf_counter() - t0:.1f} s")
+    # the id sets of the raw edge arrays and the dense label planes: what
+    # phase 10's whole-column bitmaps must equal
+    truth = {"labels": labels,
+             "src": np.bincount(src, minlength=N_VERTICES) > 0,
+             "dst": np.bincount(dst, minlength=N_VERTICES) > 0}
     del src, dst
     rng = np.random.default_rng(1)
     batches = {b: rng.integers(0, N_VERTICES, b) for b in BATCHES}
-    return adj, vt, batches
+    return adj, vt, batches, truth
 
 
 def staged_for(adj, vs, filt=None):
@@ -512,8 +537,8 @@ def traversal_slice_phase(torch, adj, vt, card):
     require(pac_key(pac) == pac_key(want) and pac.count() > 0
             and (m_k.nbytes, m_k.nrequests) == (m_o.nbytes, m_o.nrequests),
             "two_hop_pac differs from the staged numpy path")
-    times = [host_ms(torch, lambda: TO.two_hop_pac(
-        adj, adj, [seed], PAGE_SIZE, filt, engine=ENGINE))
+    times = [host_timed(torch, lambda: TO.two_hop_pac(
+        adj, adj, [seed], PAGE_SIZE, filt, engine=ENGINE))[1]
         for _ in range(REPS)]
     results["two_hop_pac"] = {"median_ms": statistics.median(times),
                               "runs": times, "ids": pac.count()}
@@ -531,8 +556,8 @@ def traversal_slice_phase(torch, adj, vt, card):
     require(np.array_equal(counts, np.bincount(rows, minlength=N_VERTICES))
             and (m_k.nbytes, m_k.nrequests) == (m_o.nbytes, m_o.nrequests),
             "frontier_edge_counts differs from the numpy bincount")
-    times = [host_ms(torch, lambda: TO.frontier_edge_counts(
-        adj, starts, ends, los, his, engine=ENGINE)) for _ in range(REPS)]
+    times = [host_timed(torch, lambda: TO.frontier_edge_counts(
+        adj, starts, ends, los, his, engine=ENGINE))[1] for _ in range(REPS)]
     results["frontier_edge_counts"] = {
         "median_ms": statistics.median(times), "runs": times,
         "intervals": len(starts), "edges": int(counts.sum())}
@@ -568,13 +593,14 @@ def profile_ms(torch, fn, reps: int = 5):
     return wall, busy
 
 
-def host_ms(torch, fn) -> float:
-    """Host wall milliseconds of one call, synchronised on both ends."""
+def host_timed(torch, fn):
+    """``(fn(), host wall milliseconds of the call)``, synchronised on both
+    ends."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def needed_rows(torch, ks, voff, frontier, active):
@@ -818,7 +844,7 @@ def ldbc_phase(torch, card, wrappers):
         want = graphar(q, "numpy", m_n)
         refs, times = [], []
         for _ in range(REPS):       # timed runs; each result checked
-            times.append(host_ms(torch, lambda: refs.append(acero(q))))
+            times.append(host_timed(torch, lambda: refs.append(acero(q)))[1])
         require(all(same(q[0], want, ref) for ref in refs),
                 f"{q}: the numpy engine differs from acero")
         oracle[q] = (want, (m_n.nbytes, m_n.nrequests),
@@ -835,7 +861,7 @@ def ldbc_phase(torch, card, wrappers):
             require(same(q[0], got, want)
                     and (m_k.nbytes, m_k.nrequests) == io,
                     f"{q} {regime}: cuda differs from the numpy engine")
-            times = [host_ms(torch, lambda: graphar(q, ENGINE))
+            times = [host_timed(torch, lambda: graphar(q, ENGINE))[1]
                      for _ in range(REPS)]
             res = {"query": q[0], "arg": q[1], "label": q[2],
                    "regime": regime, "median_ms": statistics.median(times),
@@ -1066,6 +1092,303 @@ def per_dispatch_kernel_phase(torch, adj, vt, batches):
                   "rows": total}
 
 
+def dense_words(np, bits, n_words):
+    """uint32[n_words] with bit i set where ``bits[i]``."""
+    plane = np.zeros(32 * n_words, bool)
+    plane[:len(bits)] = bits
+    return np.packbits(plane, bitorder="little").view(np.uint32)
+
+
+def pac_from_key(key):
+    """The PAC of a ``pac_key`` list (phase 4's oracle keeps those)."""
+    import numpy as np
+    from repro_torch.core.pac import PAC
+    return PAC(PAGE_SIZE, {p: np.frombuffer(b, np.uint32).copy()
+                           for p, b in key})
+
+
+def entries_phase(torch, adj, truth, batches, oracle, card):
+    """Phase 10: the single-range, RLE-label and selection entries and
+    numeric predicates on the card, each run held bit for bit against the
+    numpy oracle: ``ids_to_bitmap`` over phase 4's batch-16384 PAC, the
+    sorted ``<src>`` ids and a window of them; ``decode_range_to_bitmap``
+    over the whole ``<src>`` and ``<dst>`` columns and a page-aligned
+    sub-range; ``rle_to_bitmap`` over the 8 label columns (``want`` True
+    and False) and a scattered column; ``select_from_pages`` of a seeded
+    ``age`` property by the batch-16384 PAC; and ``retrieve_neighbors_batch``
+    of that batch filtered by two ``NumericFilter``s over ``age`` and one
+    with a NOT over a clustered property's leaf whose zone maps skip
+    pages, resident and per-dispatch.  Returns the results and the inputs
+    the kernel phase reuses."""
+    import numpy as np
+    import repro_torch.core as TC
+    from repro_torch.data.synthetic import scattered_labels
+    from repro_torch.kernels.bitmap_select.ops import select_from_pages
+    from repro_torch.kernels.pac_decode import ops
+    from repro_torch.kernels.rle_filter.ops import rle_to_bitmap
+    n_words = -(-N_VERTICES // 32)
+    res = {}
+
+    # (a) ids_to_bitmap
+    pac = pac_from_key(oracle[(BATCHES[-1], False, "none")][0][0])
+    wpp = PAGE_SIZE // 32
+    pac_words = np.zeros(-(-N_VERTICES // PAGE_SIZE) * wpp, np.uint32)
+    for p, w in pac.bitmaps.items():
+        pac_words[p * wpp:(p + 1) * wpp] = w
+    pac_words = pac_words[:n_words]
+    src_ids = np.repeat(np.arange(N_VERTICES, dtype=np.int32),
+                        adj.degrees().astype(np.int64))
+    window = (32 * (N_VERTICES // 64), N_VERTICES // 512)
+    for what, ids, base, nw, want in (
+            ("the batch-16384 PAC's ids", pac.to_ids(), 0, n_words,
+             pac_words),
+            ("the <src> column's ids", src_ids, 0, n_words,
+             dense_words(np, truth["src"], n_words)),
+            ("a window of the <src> ids", src_ids, *window, None)):
+        got, ms = host_timed(
+            torch, lambda: ops.ids_to_bitmap(ids, base, nw, ENGINE))
+        if want is None:
+            want = ops.ids_to_bitmap(ids, base, nw, "numpy")
+            require(want.any() and ids.min() < base
+                    and ids.max() >= base + 32 * nw,
+                    "the window has no ids on both sides")
+        require(np.array_equal(got, want),
+                f"ids_to_bitmap differs over {what}")
+        log(f"entries: ids_to_bitmap over {what} ({len(ids)} ids, base "
+            f"{base}, {nw} words) equal, {ms:.3f} ms")
+    # (b) decode_range_to_bitmap
+    src_col = adj.table["<src>"].encoded
+    dst_col = adj.table["<dst>"].encoded
+    sub = (1000 * PAGE_SIZE, 1100 * PAGE_SIZE, 32 * (N_VERTICES // 96),
+           N_VERTICES // 100)
+    for what, col, lo, hi, base, nw, want in (
+            ("the whole <src> column", src_col, 0, src_col.count, 0, n_words,
+             dense_words(np, truth["src"], n_words)),
+            ("the whole <dst> column", dst_col, 0, dst_col.count, 0, n_words,
+             dense_words(np, truth["dst"], n_words)),
+            ("<dst> pages [1000, 1100)", dst_col, *sub, None)):
+        got, ms = host_timed(torch, lambda: ops.decode_range_to_bitmap(
+            col, lo, hi, base, nw, ENGINE))
+        if want is None:
+            want = ops.decode_range_to_bitmap(col, lo, hi, base, nw, "numpy")
+        require(np.array_equal(got, want) and want.any(),
+                f"decode_range_to_bitmap differs over {what}")
+        log(f"entries: decode_range_to_bitmap over {what} (rows [{lo}, "
+            f"{hi}), base {base}, {nw} words) equal, {ms:.3f} ms")
+    # (c) rle_to_bitmap
+    scattered = scattered_labels(N_VERTICES, ["S"], seed=5)["S"]
+    rles = {name: TC.rle_encode_bool(truth["labels"][name])
+            for name in LABELS}
+    rles["scattered"] = TC.rle_encode_bool(scattered)
+    planes = dict(truth["labels"], scattered=scattered)
+    for name, rle in rles.items():
+        for want_value in (True, False):
+            got, ms = host_timed(
+                torch, lambda: rle_to_bitmap(rle, want_value, ENGINE))
+            require(np.array_equal(got, dense_words(
+                np, planes[name] == want_value, n_words)),
+                f"rle_to_bitmap differs on {name} == {want_value}")
+        log(f"entries: rle_to_bitmap on {name} ({rle.positions.size} "
+            f"positions) equal for want True and False, {ms:.3f} ms")
+    # (d) select_from_pages
+    age = np.random.default_rng(4).integers(0, 100, N_VERTICES) \
+        .astype(np.int32)
+    vals = age.astype(np.float32)
+    page_values = {p: vals[p * PAGE_SIZE:(p + 1) * PAGE_SIZE]
+                   for p in pac.pages()}
+    got, ms = host_timed(
+        torch, lambda: select_from_pages(pac, page_values, ENGINE))
+    require(np.array_equal(got.view(np.int32),
+                           vals[pac.to_ids()].view(np.int32)),
+            "select_from_pages differs from vals[pac.to_ids()]")
+    log(f"entries: select_from_pages over {len(pac.pages())} pages "
+        f"({pac.count()} ids) equal, {ms:.3f} ms")
+    # (e) numeric-filtered retrieval, resident and per-dispatch
+    # `joined` rises with the vertex id, so the zone maps skip the pages
+    # of `joined < 2500` past the column's middle and NOT carries the
+    # leaf's False there over as True
+    joined = np.sort(np.random.default_rng(5).integers(0, 5000, N_VERTICES)
+                     .astype(np.int32))
+    vt_age = TC.VertexTable.build(
+        TC.VertexTypeSchema("v_age", [TC.PropertySchema("age", "int32"),
+                                      TC.PropertySchema("joined", "int32")],
+                            page_size=PAGE_SIZE),
+        {"age": age, "joined": joined}, {}, num_vertices=N_VERTICES)
+    vs = batches[BATCHES[-1]]
+    conds = {"18 <= age < 30": TC.NumProp("age").between(18, 30),
+             "age >= 90": TC.NumProp("age") >= 90,
+             "~(joined < 2500) & age >= 90":
+                 ~(TC.NumProp("joined") < 2500) & (TC.NumProp("age") >= 90)}
+
+    def run(engine, cond, resident=None):
+        filt = TC.NumericFilter(vt_age, cond)
+        out = []
+        for _ in range(REPS if engine == ENGINE else 1):
+            meter = TC.IOMeter()
+            p, ms = host_timed(torch, lambda: TC.retrieve_neighbors_batch(
+                adj, vs, PAGE_SIZE, meter, engine, filter=filt,
+                resident=resident))
+            out.append(((pac_key(p), meter.nbytes, meter.nrequests,
+                         filt.prop_pages_read, filt.prop_pages_skipped),
+                        ms))
+        return out
+
+    res["numeric"] = []
+    for label, cond in conds.items():
+        want = run("numpy", cond)[0][0]
+        for resident in (True, False):
+            runs = run(ENGINE, cond, resident)
+            require(all(r[0] == want for r in runs),
+                    f"numeric retrieval {label} resident={resident} "
+                    f"differs from the numpy engine")
+            require("joined" not in label or want[4] > 0,
+                    f"numeric retrieval {label} skipped no property page")
+            times = [r[1] for r in runs]
+            res["numeric"].append({
+                "filter": label, "resident": resident,
+                "median_ms": statistics.median(times), "runs": times,
+                "pages": len(want[0]), "io_bytes": want[1],
+                "prop_pages_read": want[3], "prop_pages_skipped": want[4]})
+            log(f"entries: batch {len(vs)} filtered by {label} "
+                f"resident={resident}: equal to numpy (PAC {len(want[0])} "
+                f"pages, io {want[1]} B / {want[2]} req, property pages "
+                f"{want[3]} read / {want[4]} skipped), host ms "
+                + ", ".join(f"{t:.3f}" for t in times))
+    res["inputs"] = {"src_ids": src_ids, "window": window, "sub": sub,
+                     "pac": pac, "rles": rles, "page_values": page_values}
+    return res
+
+
+def entry_kernel_phase(torch, adj, inputs):
+    """Phase 11: kernels 11-14 against their plain versions on the card,
+    bit for bit, at phase 10's shapes (the whole unsorted ``<dst>``
+    column among them); timed against the plain version, the bound and,
+    for ``bitmap_select``, ``torch.masked_select`` with the mask
+    precomputed."""
+    import numpy as np
+    from repro_torch.kernels.bitmap_select import kernel as BK
+    from repro_torch.kernels.bitmap_select import ops as BO
+    from repro_torch.kernels.bitmap_select import ref as BR
+    from repro_torch.kernels.pac_decode import kernel as PK
+    from repro_torch.kernels.pac_decode import ops
+    from repro_torch.kernels.pac_decode import ref as PR
+    from repro_torch.kernels.rle_filter import kernel as FK
+    from repro_torch.kernels.rle_filter import ops as FO
+    from repro_torch.kernels.rle_filter import ref as FR
+    dev = torch.device(DEVICE)
+    rows = []
+    words_out = -(-N_VERTICES // 2048) * 64
+
+    def equal(k, r, what):
+        require(torch.equal(k, r), f"{what} differs ({max_err(k, r)})")
+        return max_err(k, r)
+
+    # -- 11: bitmap over the sorted <src> ids, the PAC's ids and a window
+    src_t = torch.from_numpy(inputs["src_ids"]).to(dev)
+    n_src = src_t.shape[0]
+    err = equal(PK.bitmap(src_t, n_src, 0, words_out),
+                PR.bitmap(src_t, n_src, 0, words_out), "bitmap on <src>")
+    pac_t = torch.from_numpy(inputs["pac"].to_ids().astype(np.int32)).to(dev)
+    equal(PK.bitmap(pac_t, pac_t.shape[0], 0, words_out),
+          PR.bitmap(pac_t, pac_t.shape[0], 0, words_out), "bitmap on the PAC")
+    base, nw = inputs["window"]
+    equal(PK.bitmap(src_t, n_src, base, nw),
+          PR.bitmap(src_t, n_src, base, nw), "bitmap on a window")
+    rows.append(kernel_row(
+        "bitmap", "src/repro_torch/kernels/csrc/single_range.cu",
+        "src/repro/kernels/pac_decode/kernel.py:180", err,
+        cuda_ms(torch, lambda: PK.bitmap(src_t, n_src, 0, words_out), 20),
+        cuda_ms(torch, lambda: PR.bitmap(src_t, n_src, 0, words_out), 2),
+        4 * n_src + 4 * words_out))
+    log(f"kernels: bitmap equal over {n_src} <src> ids, "
+        f"{pac_t.shape[0]} PAC ids and a window")
+    del src_t
+
+    # -- 12: fused_decode_bitmap over the whole <dst> and <src> columns and
+    #    a sub-range of <dst>
+    lo, hi, sub_base, sub_nw = inputs["sub"]
+    for name in ("<dst>", "<src>"):
+        enc = adj.table[name].encoded
+        args = ops.pack_pages(enc, 0, len(enc.pages))
+        shipped = ops.ship_pages(args, dev)
+
+        def fused(fn, shipped=shipped, base=0, nw=words_out):
+            return fn(*shipped, base=base, page_size=PAGE_SIZE, words_out=nw)
+
+        err12 = equal(fused(PK.fused_decode_bitmap),
+                      fused(PR.fused_decode_bitmap),
+                      f"fused_decode_bitmap on {name}")
+        if name == "<dst>":
+            part = ops.ship_pages(ops.pack_pages(
+                enc, lo // PAGE_SIZE, hi // PAGE_SIZE), dev)
+            equal(fused(PK.fused_decode_bitmap, part, sub_base, sub_nw),
+                  fused(PR.fused_decode_bitmap, part, sub_base, sub_nw),
+                  "fused_decode_bitmap on a sub-range")
+            n_pages, n_mini = args[1].shape
+            rows.append(kernel_row(
+                "fused_decode_bitmap",
+                "src/repro_torch/kernels/csrc/single_range.cu",
+                "src/repro/kernels/pac_decode/kernel.py:570", err12,
+                cuda_ms(torch, lambda: fused(PK.fused_decode_bitmap), 20),
+                cuda_ms(torch, lambda: fused(PR.fused_decode_bitmap), 2),
+                4 * (n_pages * (2 + 3 * n_mini) + int(args[2].sum()))
+                + 4 * words_out))
+        del shipped
+    log(f"kernels: fused_decode_bitmap equal over the whole <dst> and <src> "
+        f"columns ({len(adj.table['<dst>'].encoded.pages)} pages each) and "
+        f"<dst> rows [{lo}, {hi})")
+
+    # -- 13: rle_to_bitmap over every column of phase 10, timed on the
+    #    scattered one
+    for name, rle in inputs["rles"].items():
+        for want_value in (True, False):
+            pos, meta, nw = FO.stage_rle(rle, want_value)
+            pos_t = torch.from_numpy(pos).to(dev)
+            meta_t = torch.from_numpy(meta).to(dev)
+            err13 = equal(FK.rle_to_bitmap(pos_t, meta_t, nw),
+                          FR.rle_to_bitmap(pos_t, meta_t, nw),
+                          f"rle_to_bitmap on {name} == {want_value}")
+    n_pos = pos.shape[1]
+    steps = int(np.ceil(np.log2(n_pos + 1)))
+    rows.append(kernel_row(
+        "rle_to_bitmap", "src/repro_torch/kernels/csrc/rle_filter.cu",
+        "src/repro/kernels/rle_filter/kernel.py:47", err13,
+        cuda_ms(torch, lambda: FK.rle_to_bitmap(pos_t, meta_t, nw), 20),
+        cuda_ms(torch, lambda: FR.rle_to_bitmap(pos_t, meta_t, nw), 3),
+        4 * n_pos + 12 + 4 * nw, 32 * nw * steps))
+    log(f"kernels: rle_to_bitmap equal on {len(inputs['rles'])} columns, "
+        f"want True and False (timed on the scattered one: {n_pos} "
+        f"positions, {nw} words)")
+
+    # -- 14: bitmap_select over the batch-16384 PAC's pages
+    vals, words = BO.stage_pages(inputs["pac"], inputs["page_values"])
+    n, ps = vals.shape
+    vals_t = torch.from_numpy(vals).to(dev)
+    words_t = torch.from_numpy(words.view(np.int32)).to(dev)
+    k_out, k_cnt = BK.bitmap_select(vals_t, words_t, ps)
+    r_out, r_cnt = BR.bitmap_select(vals_t, words_t, ps)
+    err = max(equal(k_cnt, r_cnt, "bitmap_select counts"),
+              equal(k_out.view(torch.int32), r_out.view(torch.int32),
+                    "bitmap_select values"))
+    lanes = torch.arange(ps, device=dev)
+    mask = ((words_t.long()[:, lanes >> 5] >> (lanes & 31)) & 1).bool()
+    row = kernel_row(
+        "bitmap_select", "src/repro_torch/kernels/csrc/bitmap_select.cu",
+        "src/repro/kernels/bitmap_select/kernel.py:44", err,
+        cuda_ms(torch, lambda: BK.bitmap_select(vals_t, words_t, ps), 50),
+        cuda_ms(torch, lambda: BR.bitmap_select(vals_t, words_t, ps), 5),
+        # only the selected lanes' values need reading
+        4 * int(k_cnt.sum()) + 4 * n * (ps // 32) + 4 * n * ps + 4 * n)
+    row["library_ms"] = cuda_ms(
+        torch, lambda: torch.masked_select(vals_t, mask), 50)
+    rows.append(row)
+    log(f"kernels: bitmap_select equal over {n} pages "
+        f"({int(k_cnt.sum())} values); library_ms is torch.masked_select "
+        f"with the mask precomputed")
+    return rows
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1079,8 +1402,10 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.bitmap_select import kernel as BK
     from repro_torch.kernels.label_filter import kernel as LK
     from repro_torch.kernels.pac_decode import kernel as PK
+    from repro_torch.kernels.rle_filter import kernel as FK
     from repro_torch.kernels.traversal import kernel as TK
     t0 = time.perf_counter()
     lib = _build.library_path()
@@ -1092,7 +1417,7 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line:
                 log(f"   ptxas: {line.strip()}")
 
-    adj, vt, batches = build_graph()
+    adj, vt, batches, truth = build_graph()
     t0 = time.perf_counter()
     rows = kernel_phase(torch, adj, vt, batches)
     log(f"3. kernels: the four retrieval kernels equal to their plain "
@@ -1109,7 +1434,11 @@ def main() -> int:
                 "delta_decode": PK.delta_decode,
                 "fused_decode_bitmap_batch": PK.fused_decode_bitmap_batch,
                 "fused_decode_filter_bitmap_batch":
-                    LK.fused_decode_filter_bitmap_batch}
+                    LK.fused_decode_filter_bitmap_batch,
+                "bitmap": PK.bitmap,
+                "fused_decode_bitmap": PK.fused_decode_bitmap,
+                "rle_to_bitmap": FK.rle_to_bitmap,
+                "bitmap_select": BK.bitmap_select}
 
     def drive(phase, *args):
         """Run one slice phase with every launch count set to 0 just
@@ -1169,9 +1498,25 @@ def main() -> int:
     log(f"9. per-dispatch kernels: all three equal to their plain versions "
         f"({time.perf_counter() - t0:.1f} s); host pack {host['pack_ms']:.3f}"
         f" ms, host-to-device copy {host['h2d_ms']:.3f} ms")
+
+    t0 = time.perf_counter()
+    ent, e_launches = drive(entries_phase, torch, adj, truth, batches,
+                            oracle, card)
+    require(all(e_launches[n] for n in ENTRY_KERNELS),
+            f"an entry kernel never launched: {e_launches}")
+    log(f"10. entries: ids_to_bitmap, decode_range_to_bitmap, "
+        f"rle_to_bitmap, select_from_pages and {len(ent['numeric'])} "
+        f"numeric-filtered retrievals equal to the numpy oracle, launches "
+        f"{e_launches} ({time.perf_counter() - t0:.1f} s) on {card}")
+
+    t0 = time.perf_counter()
+    rows += entry_kernel_phase(torch, adj, ent["inputs"])
+    log(f"11. entry kernels: all four equal to their plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in
-                            (launches, t_launches, p_launches, l_launches))
+                            (launches, t_launches, p_launches, l_launches,
+                             e_launches))
 
     print(card)
     print(json.dumps({"kernels": rows}))

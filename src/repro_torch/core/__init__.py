@@ -23,6 +23,7 @@ from .neighbor import (decode_edge_ranges, degrees_topk, fetch_properties,
                        neighbor_properties, neighbor_properties_batch,
                        retrieve_neighbors, retrieve_neighbors_batch,
                        retrieve_neighbors_scan)
+from .numeric import NumCmp, NumericFilter, NumProp
 from .pac import (PAC, bitmap_to_ids, ids_to_bitmap,
                   words_per_page)
 from .page_cache import DecodedPageCache, attach_page_cache, live_cache

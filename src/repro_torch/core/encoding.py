@@ -229,11 +229,9 @@ def rle_encode_bool(values: np.ndarray) -> RleColumn:
 
 
 def rle_decode_bool(col: RleColumn) -> np.ndarray:
-    out = np.zeros(col.count, dtype=bool)
-    starts, ends = col.interval_starts(True)
-    for s, e in zip(starts, ends):
-        out[s:e] = True
-    return out
+    """The dense column: run ``i`` repeated over its length."""
+    values = (np.arange(col.n_runs) & 1).astype(bool) ^ col.first_value
+    return np.repeat(values, np.diff(col.positions))
 
 
 # --------------------------------------------------------------------------

@@ -151,6 +151,11 @@ class CondProgram:
     arrays at merged-run representatives or torch bool planes evaluate
     the same program; the CUDA kernel runs it as an opcode array.
     Frozen/hashable, so plans can be cached per program.
+
+    ``labels`` entries are strings for label leaves; numeric predicates
+    (:mod:`repro_torch.core.numeric`) store their frozen comparison leaves
+    instead -- consumers that resolve labels by name only ever see label
+    programs.
     """
 
     labels: Tuple
@@ -161,7 +166,10 @@ def compile_cond(cond: Cond) -> CondProgram:
     """Compile a condition tree into a :class:`CondProgram` (iterative
     postorder walk; the only tree traversal left in the plane).
 
-    Leaves are label references (:class:`L`, keyed by name)."""
+    Leaves are label references (:class:`L`, keyed by name) or any node
+    exposing a hashable ``leaf_key()`` -- the numeric comparison leaves of
+    :mod:`repro_torch.core.numeric` compile through the same program, so
+    one stack machine evaluates label and numeric predicates alike."""
     if isinstance(cond, CondProgram):
         return cond
     labels: List = []
@@ -170,7 +178,8 @@ def compile_cond(cond: Cond) -> CondProgram:
     stack: List[Tuple[Cond, bool]] = [(cond, False)]
     while stack:
         node, visited = stack.pop()
-        key = node.name if isinstance(node, L) else None
+        key = (node.name if isinstance(node, L)
+               else node.leaf_key() if hasattr(node, "leaf_key") else None)
         if key is not None:
             i = index.setdefault(key, len(labels))
             if i == len(labels):

@@ -48,6 +48,11 @@ SIGNATURES = {
     "rt_fused_decode_filter_bitmap_batch": (_P, _P, _P, _P, _P, _P, _I, _I,
                                             _I, _I, _P, _I, _P, _I, _P, _P,
                                             _P, _I, _P, _P, _I, _P, _I, _P),
+    "rt_ids_bitmap": (_P, _I, _I, _P, _I, _P),
+    "rt_fused_decode_bitmap": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _P, _I, _P),
+    "rt_rle_to_bitmap": (_P, _I, _P, _P, _I, _P),
+    "rt_bitmap_select": (_P, _P, _I, _I, _P, _P, _P),
 }
 
 _LOCK = threading.Lock()

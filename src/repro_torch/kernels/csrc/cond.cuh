@@ -1,5 +1,6 @@
 // The label-predicate interpreter shared by cond_bitmap.cu and the
-// filtered per-dispatch retrieval (per_dispatch.cu).
+// filtered per-dispatch retrieval (per_dispatch.cu), and the RLE leaf
+// evaluated a word at a time (rle_word, for rle_filter.cu).
 //
 // pos int32[k, n_pos] holds each label's RLE interval position list,
 // padded with the row count; meta int32[k, 2] = (first_value, count); ops
@@ -18,6 +19,42 @@ namespace rt {
 constexpr int kOpNot = -1;
 constexpr int kOpAnd = -2;
 
+// The number of entries of the sorted row[0, n) that are <= x
+// (searchsorted side="right").
+__device__ __forceinline__ int upper_bound(const int* __restrict__ row,
+                                          int n, int x) {
+  int lo = 0;
+  int hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (row[mid] <= x) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// Word w of an RLE leaf's bitmap: bit b is set when lane 32 * w + b is
+// below count and its value, first_value ^ (run & 1), equals want.  One
+// search finds the run of the word's first lane; the walk then crosses the
+// run boundaries that fall inside the word's 32 lanes.
+__device__ __forceinline__ unsigned rle_word(const int* __restrict__ pos,
+                                             int n_pos, int first_value,
+                                             int count, int want, int w) {
+  const int lane0 = w << 5;
+  int lo = upper_bound(pos, n_pos, lane0);  // run = lo - 1
+  unsigned out = 0u;
+  for (int b = 0; b < 32; ++b) {
+    const int lane = lane0 + b;
+    if (lane >= count) break;
+    while (lo < n_pos && pos[lo] <= lane) ++lo;
+    if ((first_value ^ ((lo - 1) & 1)) == want) out |= 1u << b;
+  }
+  return out;
+}
+
 __device__ __forceinline__ bool eval_cond(const int* __restrict__ pos,
                                           const int* __restrict__ meta,
                                           int n_pos,
@@ -28,17 +65,7 @@ __device__ __forceinline__ bool eval_cond(const int* __restrict__ pos,
     const int op = ops[o];
     if (op >= 0) {
       const int* row = pos + static_cast<size_t>(op) * n_pos;
-      int lo = 0;
-      int hi = n_pos;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (row[mid] <= lane) {
-          lo = mid + 1;
-        } else {
-          hi = mid;
-        }
-      }
-      const int run = lo - 1;
+      const int run = upper_bound(row, n_pos, lane) - 1;
       const unsigned long long leaf = (meta[2 * op] ^ (run & 1)) == 1;
       stack = (stack << 1) | leaf;
     } else if (op == kOpNot) {

@@ -58,27 +58,6 @@ namespace {
 
 constexpr int kScatterThreads = 256;
 
-// Delta j of one shipped page.
-struct MiniblockDelta {
-  const int* mind;
-  const int* bw;
-  const int* woff;
-  const unsigned* words;
-  int n_mini;
-  int max_words;
-  int last;  // count - 1: deltas at or past it are 0
-
-  __device__ __forceinline__ unsigned operator()(int j) const {
-    if (j >= last) return 0u;
-    const int m = min(j >> 5, n_mini - 1);
-    const int w = bw[m];
-    const int bit = (j & 31) * w;
-    const int widx = min(max(woff[m] + (bit >> 5), 0), max_words - 1);
-    return rt::extract_bits(words[widx], bit & 31, w) +
-           static_cast<unsigned>(mind[m]);
-  }
-};
-
 __global__ void __launch_bounds__(rt::kDecodeThreads)
 delta_decode_kernel(const int* __restrict__ first,
                     const int* __restrict__ mind, const int* __restrict__ bw,
@@ -87,7 +66,7 @@ delta_decode_kernel(const int* __restrict__ first,
                     const int* __restrict__ counts, int n_mini,
                     int max_words, int page_size, int* __restrict__ out) {
   const size_t row = blockIdx.x;
-  const MiniblockDelta delta{mind + row * n_mini, bw + row * n_mini,
+  const rt::MiniblockDelta delta{mind + row * n_mini, bw + row * n_mini,
                              woff + row * n_mini, packed + row * max_words,
                              n_mini, max_words, counts[row] - 1};
   rt::decode_row(delta, static_cast<unsigned>(first[row]), page_size - 1,

@@ -1,6 +1,7 @@
 """Wrappers of the pac_decode CUDA kernels (``csrc/gather_decode.cu``,
-``csrc/bitmap_scatter.cu``, and the per-dispatch pack route's
-``csrc/per_dispatch.cu``).
+``csrc/bitmap_scatter.cu``, the per-dispatch pack route's
+``csrc/per_dispatch.cu``, and the single-range entries of
+``csrc/single_range.cu``).
 
 A wrapper given CUDA tensors checks them, allocates its outputs with
 ``torch.empty`` and launches the kernel on the current stream; given CPU
@@ -220,3 +221,75 @@ def fused_decode_bitmap_batch(first, min_deltas, bit_widths, word_offsets,
 
 
 fused_decode_bitmap_batch.launches = 0
+
+
+# --------------------------------------------------------------------------
+# single-range entries: ids -> bitmap, one page range -> bitmap
+# --------------------------------------------------------------------------
+
+#: largest page the fused single-range kernel scans in shared memory
+MAX_FUSED_PAGE = 1 << 15
+
+
+def check_window(base: int, n_words: int) -> None:
+    """Raise unless ``[base, base + 32 * n_words)`` is a 32-aligned window
+    whose offsets fit int32."""
+    if base % 32 or not -(1 << 31) <= base < (1 << 31):
+        raise ValueError(f"base {base} must be a 32-aligned int32")
+    if not 0 <= 32 * n_words < 1 << 31:
+        raise ValueError(f"n_words {n_words} overflows int32 bit offsets")
+
+
+def bitmap(ids: torch.Tensor, count: int, base: int,
+           n_words: int) -> torch.Tensor:
+    """ids (int32[n]) -> int32[n_words] over ``[base, base + 32 *
+    n_words)`` with the bit of each of ``ids[:count]`` in range set, under
+    any order and multiplicity; ``base`` is 32-aligned."""
+    note_shape("bitmap", ids.shape[0], n_words)
+    check_window(base, n_words)
+    count = max(0, min(int(count), ids.shape[0]))
+    if not B.on_cuda(ids):
+        return R.bitmap(ids, count, base, n_words)
+    dev = ids.device
+    B.check(ids, "ids", dev, 1)
+    words = torch.empty(n_words, dtype=torch.int32, device=dev)
+    B.launch("rt_ids_bitmap", B.ptr(ids), count, base, B.ptr(words),
+             n_words, B.stream(dev))
+    bitmap.launches += 1
+    return words
+
+
+bitmap.launches = 0
+
+
+def fused_decode_bitmap(first, min_deltas, bit_widths, word_offsets, packed,
+                        counts, base: int, page_size: int,
+                        words_out: int) -> torch.Tensor:
+    """A batch of shipped pages -> int32[words_out] over ``[base, base +
+    32 * words_out)``: the bits of every page's rows ``[0, count)``, the
+    decoded ids kept on chip."""
+    note_shape("fused_decode_bitmap", tuple(packed.shape), page_size,
+               words_out)
+    check_window(base, words_out)
+    if not B.on_cuda(first):
+        return R.fused_decode_bitmap(first, min_deltas, bit_widths,
+                                     word_offsets, packed, counts, base,
+                                     page_size, words_out)
+    dev = first.device
+    check_pages(first, min_deltas, bit_widths, word_offsets, packed, counts,
+                dev)
+    if not 1 <= page_size <= MAX_FUSED_PAGE \
+            or first.shape[0] * page_size >= 1 << 31:
+        raise ValueError(f"{first.shape[0]} pages of {page_size} rows: "
+                         f"want 1 <= page_size <= {MAX_FUSED_PAGE} and "
+                         "fewer than 2**31 rows")
+    words = torch.empty(words_out, dtype=torch.int32, device=dev)
+    B.launch("rt_fused_decode_bitmap",
+             *_page_args(first, min_deltas, bit_widths, word_offsets, packed,
+                         counts, page_size), base, B.ptr(words), words_out,
+             B.stream(dev))
+    fused_decode_bitmap.launches += 1
+    return words
+
+
+fused_decode_bitmap.launches = 0

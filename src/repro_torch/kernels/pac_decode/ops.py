@@ -11,6 +11,10 @@ set.  Two entries:
   scatters the requested rows' ids straight into a target bitmap on the
   card, with a label predicate's plane ANDed in when one is pushed down.
 
+Two single-range entries build one bitmap over a 32-aligned window:
+``ids_to_bitmap`` from an id list, ``decode_range_to_bitmap`` from a
+page-aligned row range of a delta column, with the ids kept on the card.
+
 Two transfer regimes, with the same ids, PACs and IOMeter:
 
 * **device-resident** (the default): the column crosses to the card
@@ -562,3 +566,56 @@ def retrieve_pac(col: DeltaColumn, lo: int, hi: int, target_page_size: int,
     """
     return retrieve_pac_batch(col, np.array([lo]), np.array([hi]),
                               target_page_size, meter, engine=engine)
+
+
+#: word padding of the single-range bitmaps (the JAX package's WORD_TILE:
+#: 64 words, 2048 bits)
+WORD_TILE = 64
+
+
+def _host_bitmap(ids: np.ndarray, base: int, n_words: int) -> np.ndarray:
+    """The numpy oracle of the single-range entries: uint32[n_words] with
+    the bit of every id in ``[base, base + 32 * n_words)`` set."""
+    rel = np.asarray(ids, np.int64) - base
+    plane = np.zeros(32 * n_words, bool)
+    plane[rel[(rel >= 0) & (rel < 32 * n_words)]] = True
+    return np.packbits(plane, bitorder="little").view(np.uint32)
+
+
+def ids_to_bitmap(ids: np.ndarray, base: int, n_words: int,
+                  engine: str = "cuda") -> np.ndarray:
+    """uint32[n_words] over ``[base, base + 32 * n_words)`` (``base``
+    32-aligned) with the bit of every id set: ``bitmap`` on the kernel
+    engines.  The JAX package's contract asks for sorted ids; any order
+    and multiplicity gives the set here."""
+    assert base % 32 == 0
+    if engine == "numpy":
+        return _host_bitmap(ids, base, n_words)
+    device = engine_device(engine)
+    ids_t = _to_device(np.ascontiguousarray(ids, np.int32), device)
+    words = K.bitmap(ids_t, ids_t.shape[0], base,
+                     next_multiple(n_words, WORD_TILE))
+    return words.cpu().numpy().view(np.uint32)[:n_words]
+
+
+def decode_range_to_bitmap(col: DeltaColumn, lo: int, hi: int, base: int,
+                           n_words: int, engine: str = "cuda") -> np.ndarray:
+    """Delta rows ``[lo, hi)`` -> uint32[n_words] over ``[base, base + 32 *
+    n_words)`` (``base`` 32-aligned): ``fused_decode_bitmap`` on the kernel
+    engines, the ids never leaving the card.  ``lo`` must be page-aligned
+    and ``hi`` page-aligned or the column's end (whole-column scans are
+    the common case).  The rows need not be sorted."""
+    assert base % 32 == 0
+    ps = col.page_size
+    assert lo % ps == 0 and (hi % ps == 0 or hi == col.count), \
+        "fused path requires page-aligned ranges"
+    p0, p1 = lo // ps, -(-hi // ps)
+    if engine == "numpy":
+        ids = [delta_decode_page(col.pages[p]) for p in range(p0, p1)]
+        return _host_bitmap(np.concatenate(ids) if ids else
+                            np.zeros(0, np.int64), base, n_words)
+    device = engine_device(engine)
+    words = K.fused_decode_bitmap(
+        *ship_pages(pack_pages(col, p0, p1), device), base=base,
+        page_size=ps, words_out=next_multiple(n_words, WORD_TILE))
+    return words.cpu().numpy().view(np.uint32)[:n_words]

@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the pac_decode CUDA kernels.
 
 The same functions as ``csrc/gather_decode.cu``,
-``csrc/bitmap_scatter.cu`` and ``csrc/per_dispatch.cu``, written as
-tensor code.  The kernel wrappers
+``csrc/bitmap_scatter.cu``, ``csrc/per_dispatch.cu`` and
+``csrc/single_range.cu``, written as tensor code.  The kernel wrappers
 run them for CPU tensors (the CPU tests), and ``chip_smoke.py`` holds the
 kernels against them on the card.  They work on any device.
 
@@ -56,21 +56,28 @@ def gather_decode(first, pos, mind, packed, idx) -> torch.Tensor:
     return decode_plan_rows(*gather_rows(idx, first, pos, mind, packed))
 
 
+def set_bits(ids: torch.Tensor, valid: torch.Tensor, base: int,
+             n_words: int) -> torch.Tensor:
+    """int32[n_words] over ``[base, base + 32 * n_words)`` with the bit of
+    every valid in-range id set: an OR, exact under any order and
+    multiplicity of the ids."""
+    rel = ids.reshape(-1).long() - base
+    keep = valid.reshape(-1) & (rel >= 0) & (rel < 32 * n_words)
+    plane = torch.zeros(32 * n_words, dtype=torch.bool, device=ids.device)
+    plane[rel[keep]] = True
+    return pack_bits(plane)
+
+
 def bitmap_scatter(ids: torch.Tensor, gidx: torch.Tensor,
                    total: torch.Tensor, n_words: int) -> torch.Tensor:
     """Requested rows -> int32[n_words] bitmap of their distinct ids.
 
     Row ``k < total`` reads ``ids.flat[clamp(gidx[k])]``; ids outside
-    ``[0, 32 * n_words)`` are dropped.  There is no OR-reduce scatter, so
-    the ids are deduplicated and distinct powers of two summed."""
+    ``[0, 32 * n_words)`` are dropped."""
     flat = ids.reshape(-1)
-    vals = flat[gidx.long().clamp(0, flat.numel() - 1)].long()
+    vals = flat[gidx.long().clamp(0, flat.numel() - 1)]
     k = torch.arange(gidx.numel(), device=gidx.device)
-    keep = (k < total) & (vals >= 0) & (vals < 32 * n_words)
-    u = torch.unique(vals[keep])
-    out = torch.zeros(n_words, dtype=torch.int64, device=ids.device)
-    out.scatter_add_(0, u >> 5, torch.ones_like(u) << (u & 31))
-    return wrap_int32(out)
+    return set_bits(vals, k < total, 0, n_words)
 
 
 def fused_gather_batch(first, pos, mind, packed, staged: torch.Tensor,
@@ -149,3 +156,22 @@ def fused_batch(first, min_deltas, bit_widths, word_offsets, packed, counts,
                        counts, cached.shape[1])
     full = torch.cat([ids, cached], 0)
     return rank_bitmap(full, gidx, gcount, n_words), ids
+
+
+def bitmap(ids: torch.Tensor, count: int, base: int,
+           n_words: int) -> torch.Tensor:
+    """Plain version of ``ids_bitmap``: the bits of ``ids[:count]``."""
+    k = torch.arange(ids.numel(), device=ids.device)
+    return set_bits(ids, k < count, base, n_words)
+
+
+def fused_decode_bitmap(first, min_deltas, bit_widths, word_offsets, packed,
+                        counts, base: int, page_size: int,
+                        words_out: int) -> torch.Tensor:
+    """Plain version of ``fused_decode_bitmap``: the pages decode as in
+    :func:`decode_pages`, and the bits of rows ``[0, count)`` of every
+    page are set (vectorised over the pages)."""
+    ids = decode_pages(first, min_deltas, bit_widths, word_offsets, packed,
+                       counts, page_size)
+    lane = torch.arange(page_size, device=ids.device)
+    return set_bits(ids, lane[None, :] < counts.long(), base, words_out)

@@ -1,11 +1,13 @@
-"""The traversal and per-dispatch kernels on the card, at the CPU tests'
-small sizes.
+"""The traversal, per-dispatch and single-range kernels on the card, at
+the CPU tests' small sizes.
 
 Each CUDA kernel is held bit for bit against its plain PyTorch version on
 the same CUDA tensors, and the cuda engine's ``k_hop``, ``two_hop_pac``,
-``frontier_edge_counts`` and per-dispatch retrieval against the numpy
-oracle (ids, counts, PACs, IOMeter and LRU counters).  Every test here needs an NVIDIA GPU and
-``nvcc`` and skips without one; run them on a machine with a card:
+``frontier_edge_counts``, per-dispatch retrieval, the single-range,
+RLE-label and selection entries and numeric-filtered retrieval against
+the numpy oracle (ids, counts, values, PACs, IOMeter and LRU counters).
+Every test here needs an NVIDIA GPU and ``nvcc`` and skips without one;
+run them on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -18,11 +20,17 @@ import torch
 import repro_torch.core as TC
 from repro_torch.data.synthetic import clustered_labels, powerlaw_graph
 from repro_torch.kernels._pad import next_pow2
+from repro_torch.kernels.bitmap_select import kernel as BK
+from repro_torch.kernels.bitmap_select import ops as BO
+from repro_torch.kernels.bitmap_select import ref as BR
 from repro_torch.kernels.label_filter import kernel as LK
 from repro_torch.kernels.label_filter import ops as LO
 from repro_torch.kernels.pac_decode import kernel as PK
 from repro_torch.kernels.pac_decode import ops as PO
 from repro_torch.kernels.pac_decode import ref as PR
+from repro_torch.kernels.rle_filter import kernel as FK
+from repro_torch.kernels.rle_filter import ops as FO
+from repro_torch.kernels.rle_filter import ref as FR
 from repro_torch.kernels.traversal import kernel as K
 from repro_torch.kernels.traversal import ops as TO
 from repro_torch.kernels.traversal import ref as R
@@ -274,3 +282,167 @@ def test_per_dispatch_retrieval_cuda_equals_oracle(dev, graph, monkeypatch,
         enc.page_cache = None
         out[engine] = runs
     assert out["cuda"] == out["numpy"]
+
+
+# ------------- the single-range, RLE-label and selection entries -------------
+
+def _held(fn, plain, *args, **kwargs):
+    """Launch ``fn`` (one launch) and its plain version on the same
+    tensors; return both results."""
+    before = fn.launches
+    got = fn(*args, **kwargs)
+    want = plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    return got, want
+
+
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "window", "empty"])
+def test_ids_bitmap_kernel_equals_plain(dev, case):
+    rng = np.random.default_rng(2)
+    ids = {"sorted": np.sort(rng.integers(0, 9000, 5000)),
+           "unsorted": rng.integers(0, 9000, 5000),
+           "window": np.sort(rng.integers(-500, 9000, 5000)),
+           "empty": np.zeros(0, np.int64)}[case]
+    base, n_words = (1024, 100) if case == "window" else (0, 300)
+    t = torch.from_numpy(ids.astype(np.int32)).to(dev)
+    for count in (len(ids), len(ids) // 2):
+        got, want = _held(PK.bitmap, PR.bitmap, t, count, base, n_words)
+        assert torch.equal(got, want)
+    if case == "unsorted":
+        assert PO.ids_to_bitmap(ids, 0, 300, "cuda").tolist() == \
+            PO.ids_to_bitmap(ids, 0, 300, "numpy").tolist()
+
+
+@pytest.mark.parametrize("column", ["<src>", "<dst>"])
+@pytest.mark.parametrize("base,n_words", [(0, -(-N // 32)), (512, 20)])
+def test_fused_decode_bitmap_kernel_equals_plain(dev, graph, column, base,
+                                                 n_words):
+    enc = graph[0].table[column].encoded
+    shipped = PO.ship_pages(PO.pack_pages(enc, 0, len(enc.pages)), dev)
+    got, want = _held(PK.fused_decode_bitmap, PR.fused_decode_bitmap,
+                      *shipped, base=base, page_size=PAGE, words_out=n_words)
+    assert torch.equal(got, want) and bool(want.any())
+    # the <dst> column is unsorted across key segments: the set of its ids
+    got = PO.decode_range_to_bitmap(enc, 0, enc.count, base, n_words, "cuda")
+    assert got.tolist() == PO.decode_range_to_bitmap(
+        enc, 0, enc.count, base, n_words, "numpy").tolist()
+
+
+@pytest.mark.parametrize("page_size", [32, 16384])
+def test_fused_decode_bitmap_kernel_page_sizes(dev, page_size):
+    # one page of 32 rows; pages of 16384 rows take 64 KB of shared memory
+    rng = np.random.default_rng(page_size)
+    vals = np.concatenate([rng.integers(0, 1 << 20, 3 * page_size),
+                           rng.integers(0, 1 << 20, 77)])
+    enc = TC.delta_encode_column(vals, page_size)
+    shipped = PO.ship_pages(PO.pack_pages(enc, 0, len(enc.pages)), dev)
+    got, want = _held(PK.fused_decode_bitmap, PR.fused_decode_bitmap,
+                      *shipped, base=0, page_size=page_size,
+                      words_out=1 << 15)
+    assert torch.equal(got, want) and bool(want.any())
+
+
+@pytest.mark.parametrize("kind", ["random", "alternating", "empty",
+                                  "late_start"])
+@pytest.mark.parametrize("want_value", [0, 1])
+def test_rle_to_bitmap_kernel_equals_plain(dev, kind, want_value):
+    rng = np.random.default_rng(5)
+    n = 50_000
+    if kind == "late_start":          # lanes before positions[0]: run -1
+        pos = np.array([5, 40, 41, 100, 250, 300])
+        n = 300
+    else:
+        dense = {"random": rng.random(n) < 0.3,
+                 "alternating": np.arange(n) % 2 == 1,
+                 "empty": np.zeros(0, bool)}[kind]
+        rle = TC.rle_encode_bool(dense)
+        pos, n = rle.positions, rle.count
+    padded = np.full((1, -(-len(pos) // 128) * 128), n, np.int32)
+    padded[0, :len(pos)] = pos
+    meta = np.array([[1, want_value, n]], np.int32)
+    n_words = -(-max(n, 1) // 2048) * 64
+    got, want = _held(FK.rle_to_bitmap, FR.rle_to_bitmap,
+                      torch.from_numpy(padded).to(dev),
+                      torch.from_numpy(meta).to(dev), n_words)
+    assert torch.equal(got, want)
+    if kind == "random":
+        col = TC.rle_encode_bool(dense)
+        assert FO.rle_to_bitmap(col, bool(want_value), "cuda").tolist() == \
+            FO.rle_to_bitmap(col, bool(want_value), "numpy").tolist()
+
+
+@pytest.mark.parametrize("page_size", [32, 256, 2048])
+def test_bitmap_select_kernel_equals_plain(dev, page_size):
+    rng = np.random.default_rng(page_size)
+    vals = rng.standard_normal((5, page_size)).astype(np.float32)
+    vals.view(np.uint32)[0, :5] = [0x7FC01234, 0x80000000, 0x00000001,
+                                   0x007FFFFF, 0xFFC00001]
+    words = rng.integers(0, 1 << 32, (5, page_size // 32),
+                         dtype=np.uint64).astype(np.uint32)
+    words[0, 0] = 0x1F
+    words[2] = 0                          # a page that selects nothing
+    words[3] = 0xFFFFFFFF                 # one that selects everything
+    (out, cnt), (r_out, r_cnt) = _held(
+        BK.bitmap_select, BR.bitmap_select,
+        torch.from_numpy(vals).to(dev),
+        torch.from_numpy(words.view(np.int32)).to(dev), page_size)
+    assert torch.equal(cnt, r_cnt)
+    assert torch.equal(out.view(torch.int32), r_out.view(torch.int32))
+    ids = np.flatnonzero(rng.random(7 * page_size) < 0.2)
+    pac = TC.PAC.from_ids(ids, page_size)
+    allv = rng.standard_normal(7 * page_size).astype(np.float32)
+    pages = {p: allv[p * page_size:(p + 1) * page_size] for p in pac.pages()}
+    got = BO.select_from_pages(pac, pages, "cuda")
+    assert got.view(np.int32).tolist() == allv[ids].view(np.int32).tolist()
+
+
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("batch", [8, 40])
+def test_numeric_retrieval_cuda_equals_oracle(dev, graph, batch, resident):
+    adj, _ = graph
+    rng = np.random.default_rng(9)
+    vt = TC.VertexTable.build(
+        TC.VertexTypeSchema("v", [TC.PropertySchema("age", "int64")],
+                            page_size=PAGE),
+        {"age": rng.integers(0, 100, N)}, {}, num_vertices=N)
+    vs = rng.integers(0, N, batch)
+    out = {}
+    for engine in ("cuda", "numpy"):
+        filt = TC.NumericFilter(vt, TC.NumProp("age").between(18, 30)
+                                | (TC.NumProp("age") >= 90))
+        meter = TC.IOMeter()
+        pac = TC.retrieve_neighbors_batch(adj, vs, 256, meter, engine,
+                                          filter=filt, resident=resident)
+        out[engine] = (pac.to_ids().tolist(), meter.nbytes,
+                       meter.nrequests, filt.prop_pages_read,
+                       filt.prop_pages_skipped)
+    assert out["cuda"] == out["numpy"] and out["cuda"][0]
+
+
+@pytest.mark.parametrize("resident", [True, False])
+def test_numeric_retrieval_cuda_skips_pages(dev, graph, resident):
+    # `joined` rises with the vertex id, so the zone maps skip the pages of
+    # `joined < 500` past its first half; NOT turns the leaf's False there
+    # into True, which the kernels must carry over the skipped pages
+    adj, _ = graph
+    rng = np.random.default_rng(10)
+    vt = TC.VertexTable.build(
+        TC.VertexTypeSchema("v", [TC.PropertySchema("age", "int64"),
+                                  TC.PropertySchema("joined", "int64")],
+                            page_size=PAGE),
+        {"age": rng.integers(0, 100, N),
+         "joined": np.sort(rng.integers(0, 1000, N))}, {}, num_vertices=N)
+    vs = rng.integers(0, N, 40)
+    out = {}
+    for engine in ("cuda", "numpy"):
+        filt = TC.NumericFilter(vt, ~(TC.NumProp("joined") < 500)
+                                & (TC.NumProp("age") >= 50))
+        meter = TC.IOMeter()
+        pac = TC.retrieve_neighbors_batch(adj, vs, 256, meter, engine,
+                                          filter=filt, resident=resident)
+        out[engine] = (pac.to_ids().tolist(), meter.nbytes,
+                       meter.nrequests, filt.prop_pages_read,
+                       filt.prop_pages_skipped)
+    assert out["cuda"] == out["numpy"] and out["cuda"][0]
+    assert out["cuda"][4] > 0

@@ -77,6 +77,55 @@ print("LOADED", bad)
 """
 
 
+ENTRY_PROBE = """
+import sys
+import numpy as np
+import torch
+import repro_torch.core as TC
+from repro_torch.data.synthetic import powerlaw_graph
+from repro_torch.kernels.bitmap_select.ops import select_from_pages
+from repro_torch.kernels.pac_decode import ops as pac_ops
+from repro_torch.kernels.rle_filter.ops import rle_to_bitmap
+torch.set_num_threads(1)
+n = 600
+src, dst = powerlaw_graph(n, 5, seed=1)
+adj = TC.build_adjacency(src, dst, n, n, TC.BY_SRC, TC.ENC_GRAPHAR,
+                         page_size=128)
+enc = adj.table["<dst>"].encoded
+assert pac_ops.ids_to_bitmap(np.array([5, 7, 5]), 0, 1, "torch")[0] == 160
+assert pac_ops.decode_range_to_bitmap(enc, 0, enc.count, 0, 19,
+                                      "torch").any()
+assert rle_to_bitmap(TC.rle_encode_bool(np.arange(n) % 3 == 0), True,
+                     "torch").any()
+pac = TC.PAC.from_ids(np.arange(0, n, 7), 128)
+vals = np.arange(n, dtype=np.float32)
+sel = select_from_pages(pac, {p: vals[p * 128:(p + 1) * 128]
+                              for p in pac.pages()}, "torch")
+assert sel.tolist() == list(range(0, n, 7))
+vt = TC.VertexTable.build(
+    TC.VertexTypeSchema("v", [TC.PropertySchema("age", "int64")],
+                        page_size=128),
+    {"age": np.arange(n) % 100}, {}, num_vertices=n)
+filt = TC.NumericFilter(vt, TC.NumProp("age").between(18, 30))
+for batch in (5, 40):
+    for resident in (True, False):
+        assert TC.retrieve_neighbors_batch(adj, np.arange(batch), 128,
+                                           engine="torch", filter=filt,
+                                           resident=resident).count() > 0
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("LOADED", bad)
+"""
+
+
+def test_kernel_entries_load_neither_jax_nor_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", ENTRY_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_queries_load_neither_jax_nor_the_jax_package():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", QUERY_PROBE], env=env,
@@ -146,3 +195,29 @@ def test_cuda_engine_without_a_card_raises_per_dispatch(monkeypatch):
         TC.k_hop(adj, np.arange(4), 2, meter)          # the host loop
     with pytest.raises(RuntimeError, match="CUDA device"):
         pac_ops.decode_pages(adj.table["<dst>"].encoded, 0, 2)
+
+
+def test_cuda_engine_without_a_card_raises_kernel_entries(monkeypatch):
+    from repro_torch.kernels.bitmap_select.ops import select_from_pages
+    from repro_torch.kernels.pac_decode import ops as pac_ops
+    from repro_torch.kernels.rle_filter.ops import rle_to_bitmap
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    col = TC.delta_encode_column(np.arange(300), 128)
+    pac = TC.PAC.from_ids(np.arange(0, 300, 7), 128)
+    n = 300
+    vt = TC.VertexTable.build(
+        TC.VertexTypeSchema("v", [TC.PropertySchema("age", "int64")],
+                            page_size=128),
+        {"age": np.arange(n) % 100}, {}, num_vertices=n)
+    filt = TC.NumericFilter(vt, TC.NumProp("age") >= 90)
+    calls = [
+        lambda: pac_ops.ids_to_bitmap(np.arange(9), 0, 4),
+        lambda: pac_ops.decode_range_to_bitmap(col, 0, col.count, 0, 10),
+        lambda: rle_to_bitmap(TC.rle_encode_bool(np.ones(9, bool))),
+        lambda: select_from_pages(pac, {p: np.zeros(128, np.float32)
+                                        for p in pac.pages()}),
+        lambda: filt.bitmap("cuda"),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            call()
