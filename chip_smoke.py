@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them.
 
 Run from the root of the repository:  python3 chip_smoke.py
+(``--lm`` runs phases 1-2, 12-13 and the LM profile only.)
 
-Phases, each of which exits non-zero when it fails:
+Phases, each of which exits non-zero when it fails (12 and 13 run right
+after 2, so that their host timings come before any profiler in the
+process; the LM profile runs last):
   1. device: require a CUDA device; print the card's name and power limit;
   2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` (timed);
   set-up: a soc-LiveJournal1-sized graph (4,847,571 vertices, ~69.0M
@@ -70,8 +73,33 @@ Phases, each of which exits non-zero when it fails:
      and ``bitmap_select`` against their plain versions on the card, bit
      for bit, at phase 10's shapes; timed against the plain version, the
      bound and, for ``bitmap_select``, ``torch.masked_select``.
-Every launch count is set to 0 just before each of phases 4, 5, 7, 8 and
-10 and read just after; a kernel's ``launches`` is the sum over the five.
+ 12. lm: smollm-360m at full width (32 layers, d_model 960, 15 query and
+     5 KV heads of 64, d_ff 2560, vocab 49152, tied, bf16), weights from
+     the port's ``init(seed=0)`` on the card.  (a) ``forward`` of 4 x 2048
+     seeded tokens on the flash route (kernel 15, 32 launches per forward)
+     and on the plain route in bf16, each against the float32 plain route:
+     max |d logit|, top-1 agreement over all positions and over the
+     decisive ones (top two float32 logits more than 4 bf16 steps apart;
+     there it must be >= 0.99), the flash error at most 1.5x the plain
+     route's; (b) float32 flash against float32 plain within 1e-3 of max
+     |logit|, and ``loss`` on both; (c) 4 ``HashTokenizer`` prompts cut
+     or padded to 512 tokens prefilled into a bf16 cache of 1024, 32
+     greedy decode steps, every step held against the plain full forward
+     over the same tokens (top-1 equal on every decisive position), and
+     prompts of 128/256/384/512 prefilled one by one into a vector-index
+     cache (``serve.steps.write_slots``) and decoded together; host ms of
+     the forward, prefill and decode step, median of 3;
+ 13. flash kernel: kernel 15 against ``attention_ref`` on the card at
+     [60, 2048, 64] (the forward's shape) and at one block, d 32, 128 and
+     256, float32 (1e-4) and bf16 (0.1), causal and not; timed at [60,
+     2048, 64] bf16 causal beside the plain version, the bound and
+     ``scaled_dot_product_attention``;
+ 12p. lm profile: ``torch.profiler`` over one forward, prefill and decode
+     step of the bf16 model: device busy ms by kernel, idle share against
+     phase 12's unprofiled host wall.
+Every launch count is set to 0 just before each of phases 4, 5, 7, 8, 10
+and 12 and read just after; a kernel's ``launches`` is the sum over the
+six.
 The card's name and power limit, then the kernel table as JSON, come on
 the lines before the last; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -79,6 +107,7 @@ the lines before the last; the last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -121,6 +150,20 @@ LDBC_SCALE = 40
 #: where the kernel phase runs and which engine the slice drives
 DEVICE = "cuda:0"
 ENGINE = "cuda"
+#: the LM slice (phases 12-13): smollm-360m at full width, SmolLM's context
+LM_ARCH = "smollm-360m"
+LM_BATCH, LM_SEQ = 4, 2048
+LM_HEADS = 15                   # smollm-360m's query heads
+PROMPT_LEN, CACHE_LEN, DECODE_STEPS = 512, 1024, 32
+SLOT_PROMPTS = (128, 256, 384, 512)
+#: two logits closer than this many bf16 steps are a tie for top-1
+TIE_ULPS = 4
+#: words of text behind each of the 4 requests: two cut to PROMPT_LEN
+#: tokens, two padded
+REQUEST_WORDS = (700, 600, 400, 300)
+BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:89"
 
 
 def log(msg: str) -> None:
@@ -161,11 +204,12 @@ def require(cond: bool, msg: str) -> None:
         raise SystemExit(f"FAILED: {msg}")
 
 
-def kernel_row(name, source, replaces, err, ms, plain_ms, nbytes, nops=0):
+def kernel_row(name, source, replaces, err, ms, plain_ms, nbytes, nops=0,
+               ops_per_s=INT32_OPS_PER_S):
     """One entry of the ``kernels`` line; its launches are filled in from
     the slice phases."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / INT32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": 0,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1389,7 +1433,350 @@ def entry_kernel_phase(torch, adj, inputs):
 
 
 
+def lm_models(torch, cfg):
+    """smollm-360m's bf16 weights from the port's ``init(seed=0)`` on the
+    card, as four models: bf16 and float32, each on the flash route and
+    on the plain one (the same weights, the float32 ones widened)."""
+    from repro_torch.models import build_model
+    f16 = build_model(cfg).init(0)
+    state = f16.state_dict()
+    models = {("bf16", True): f16}
+    for dt, flash in (("bf16", False), ("f32", True), ("f32", False)):
+        c = cfg.with_(use_flash=flash)
+        if dt == "f32":
+            c = c.with_(param_dtype="float32", compute_dtype="float32")
+        m = build_model(c)
+        m.load_state_dict({k: v.float() if dt == "f32" else v
+                           for k, v in state.items()})
+        models[(dt, flash)] = m
+    return models
+
+
+def prompts(np, n_words, length, vocab):
+    """``HashTokenizer`` prompts of seeded text, cut or padded (``PAD``
+    after the text) to ``length`` tokens: int32 [len(n_words), length]."""
+    from repro_torch.data.tokenizer import PAD, HashTokenizer
+    tok = HashTokenizer(vocab)
+    rng = np.random.default_rng(3)
+    out = np.full((len(n_words), length), PAD, np.int32)
+    for i, n in enumerate(n_words):
+        ids = tok.encode(" ".join(f"w{int(w)}" for w in
+                                  rng.zipf(1.3, n) % 100_000))[:length]
+        out[i, :ids.size] = ids
+    return out
+
+
+def greedy_requests(torch, model, tokens, cache, steps):
+    """Prefill ``tokens`` into ``cache``, then ``steps`` greedy decode
+    steps; returns the logits of the prefill and of every step (float32,
+    [B, steps + 1, V]) and the fed tokens [B, steps]."""
+    from repro_torch.serve.sampling import sample
+    logits, cache = model.prefill({"tokens": tokens}, cache)
+    outs, fed = [logits[:, -1].float()], []
+    for _ in range(steps):
+        nxt = sample(logits[:, -1])[:, None].to(torch.int32)
+        fed.append(nxt)
+        logits, cache = model.decode_step(nxt, cache)
+        outs.append(logits[:, -1].float())
+    return torch.stack(outs, 1), torch.cat(fed, 1), cache
+
+
+def decisive(torch, ref):
+    """Positions whose top two reference logits lie more than ``TIE_ULPS``
+    bf16 steps apart (a step at the largest |logit|): there a bf16 route
+    must pick the reference's token; nearer, bf16 cannot tell the two
+    apart.  Returns the mask and the margin used."""
+    big = ref.abs().max().item()
+    tie = TIE_ULPS * 2.0 ** (math.floor(math.log2(big)) - 7)
+    top2 = ref.topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1] > tie, tie
+
+
+def agreement(torch, pick, top, mask):
+    """(top-1 share over all positions, over the ``mask`` positions)."""
+    same = pick == top
+    return same.float().mean().item(), same[mask].float().mean().item()
+
+
+def held_against_forward(torch, plain, tokens, fed, step_logits, start):
+    """Hold prefill/decode logits [B, steps + 1, V] against the plain
+    route's full forward over prompt + fed tokens (positions ``start - 1``
+    on); returns the top-1 shares (all, decisive), the decisive count,
+    max |d| and max |logit|."""
+    full, _ = plain.forward({"tokens": torch.cat([tokens, fed], 1)})
+    ref = full[:, start - 1:start + fed.shape[1]].float()
+    mask, _ = decisive(torch, ref)
+    top1 = agreement(torch, step_logits.argmax(-1), ref.argmax(-1), mask)
+    return {"top1": top1[0], "top1_decisive": top1[1],
+            "n": mask.numel(), "n_decisive": int(mask.sum()),
+            "err": (ref - step_logits).abs().max().item(),
+            "max": ref.abs().max().item()}
+
+
+def lm_phase(torch, card):
+    """Phase 12: smollm-360m at full width on the card (see the module
+    docstring); returns its measurements."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.serve.steps import write_slots
+    dev = torch.device(DEVICE)
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest",
+            "float32 matmuls must not take TF32 in the LM phase")
+    cfg = get_config(LM_ARCH, use_flash=True)
+    require((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+             cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.tie_embeddings,
+             cfg.param_dtype) == (32, 960, 15, 5, 64, 2560, 49152, True,
+                                  "bfloat16"), f"{LM_ARCH} config changed")
+    t0 = time.perf_counter()
+    models = lm_models(torch, cfg)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (LM_BATCH, LM_SEQ), np.int32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (LM_BATCH, LM_SEQ), np.int32))
+    batch = {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+
+    # (a)/(b): forwards over 4 x 2048 random tokens
+    def forward(key):
+        before = FK.flash_attention.launches
+        logits, _ = models[key].forward(batch)
+        ran = FK.flash_attention.launches - before
+        require(ran == (cfg.num_layers if key[1] else 0),
+                f"{key}: the flash kernel launched {ran} times in one "
+                f"forward")
+        return logits
+
+    ref = forward(("f32", False))
+    top = ref.argmax(-1)
+    mask, tie = decisive(torch, ref)
+    out.update(ref_max=ref.abs().max().item(), tie=tie,
+               n_decisive=int(mask.sum()), n=mask.numel(),
+               ceiling=agreement(torch, ref.bfloat16().argmax(-1), top,
+                                 mask))
+    for key in (("bf16", True), ("bf16", False), ("f32", True)):
+        logits = forward(key).float()
+        top1 = agreement(torch, logits.argmax(-1), top, mask)
+        out[key] = {"err": (logits - ref).abs().max().item(),
+                    "top1": top1[0], "top1_decisive": top1[1]}
+        del logits
+    del ref, top, mask
+    flash, plain = out[("bf16", True)], out[("bf16", False)]
+    log(f"12a. bf16 forward vs float32 plain ({out['n']} positions, "
+        f"{out['n_decisive']} decisive: top two more than {tie:.4f} apart): "
+        f"flash max|d| {flash['err']:.4f}, top-1 {flash['top1']:.5f} "
+        f"(decisive {flash['top1_decisive']:.5f}); plain max|d| "
+        f"{plain['err']:.4f}, top-1 {plain['top1']:.5f} (decisive "
+        f"{plain['top1_decisive']:.5f}); float32 logits rounded to bf16: "
+        f"top-1 {out['ceiling'][0]:.5f} (decisive {out['ceiling'][1]:.5f}); "
+        f"max|logit| {out['ref_max']:.3f}")
+    for name, r in (("flash", flash), ("plain", plain)):
+        require(r["top1_decisive"] >= 0.99,
+                f"bf16 {name} route: top-1 {r['top1_decisive']} < 0.99 on "
+                f"decisive positions")
+    require(flash["err"] <= 1.5 * plain["err"],
+            f"bf16 flash max|d| {flash['err']} > 1.5x plain's "
+            f"{plain['err']}")
+    require(flash["top1"] >= plain["top1"] - 0.01,
+            f"bf16 flash top-1 {flash['top1']} below plain's "
+            f"{plain['top1']} - 0.01")
+    f32 = out[("f32", True)]
+    require(f32["err"] <= 1e-3 * out["ref_max"],
+            f"float32 flash max|d| {f32['err']} > 1e-3 x max|logit|")
+    losses = {flash: models[("f32", flash)].loss(batch)[0].item()
+              for flash in (True, False)}
+    out["loss"] = losses
+    require(abs(losses[True] - losses[False]) <= 1e-4,
+            f"float32 loss flash {losses[True]} vs plain {losses[False]}")
+    log(f"12b. float32 flash vs plain: max|d| {f32['err']:.3e} "
+        f"({f32['err'] / out['ref_max']:.3e} of max|logit|), top-1 "
+        f"{f32['top1']:.5f}; loss flash {losses[True]:.6f} plain "
+        f"{losses[False]:.6f}")
+
+    # timing: host wall of one forward, median of 3
+    for key in (("bf16", True), ("bf16", False)):
+        out[f"forward_ms_{key[1]}"] = statistics.median(
+            host_timed(torch, lambda: models[key].forward(batch))[1]
+            for _ in range(REPS))
+
+    # (c): 4 requests, prefill 512 into a bf16 cache of 1024, 32 greedy steps
+    m16, p16 = models[("bf16", True)], models[("bf16", False)]
+    prompt = torch.from_numpy(prompts(np, REQUEST_WORDS, PROMPT_LEN,
+                                      cfg.vocab_size)).to(dev)
+    n_req = prompt.shape[0]
+    step_logits, fed, cache = greedy_requests(
+        torch, m16, prompt, m16.init_cache(n_req, CACHE_LEN), DECODE_STEPS)
+    require(int(cache["index"]) == PROMPT_LEN + DECODE_STEPS,
+            f"cache index {int(cache['index'])}")
+    held = held_against_forward(torch, p16, prompt, fed, step_logits,
+                                PROMPT_LEN)
+    out["requests"] = held
+    log(f"12c. requests: prefill + {DECODE_STEPS} greedy steps vs the plain "
+        f"forward, {held['n']} positions: top-1 equal {held['top1']:.5f} "
+        f"(decisive {held['n_decisive']}: {held['top1_decisive']:.5f}), "
+        f"max|d| {held['err']:.4f} (max|logit| {held['max']:.3f})")
+    require(held["top1_decisive"] == 1.0,
+            "a request's top-1 differs from the full forward")
+
+    def prefill_ms():
+        cache = m16.init_cache(n_req, CACHE_LEN)
+        return host_timed(torch, lambda: m16.prefill({"tokens": prompt},
+                                                     cache))[1]
+
+    def decode_ms():
+        cache = m16.init_cache(n_req, CACHE_LEN)
+        m16.prefill({"tokens": prompt}, cache)
+        nxt = fed[:, :1]
+        return host_timed(torch, lambda: [m16.decode_step(nxt, cache)
+                                          for _ in range(DECODE_STEPS)]
+                          )[1] / DECODE_STEPS
+
+    out["prefill_ms"] = statistics.median(prefill_ms() for _ in range(REPS))
+    out["decode_ms"] = statistics.median(decode_ms() for _ in range(REPS))
+
+    # per-slot vector index: prompts of 128/256/384/512, each prefilled on
+    # its own, written into one continuous batch, decoded together
+    slot_prompts = prompts(np, (700,) * len(SLOT_PROMPTS),
+                           max(SLOT_PROMPTS), cfg.vocab_size)
+    vcache = m16.init_cache(len(SLOT_PROMPTS), CACHE_LEN, vector_index=True)
+    first = []
+    for slot, n in enumerate(SLOT_PROMPTS):
+        p = torch.from_numpy(slot_prompts[slot:slot + 1, :n]).to(dev)
+        logits, one = m16.prefill({"tokens": p},
+                                  m16.init_cache(1, CACHE_LEN))
+        write_slots(vcache, one, [slot])
+        first.append(logits[:, -1].float())
+    steps, fed_v = [torch.cat(first)], []
+    for _ in range(DECODE_STEPS):
+        nxt = steps[-1].argmax(-1)[:, None].to(torch.int32)
+        fed_v.append(nxt)
+        logits, vcache = m16.decode_step(nxt, vcache)
+        steps.append(logits[:, -1].float())
+    steps, fed_v = torch.stack(steps, 1), torch.cat(fed_v, 1)
+    require(vcache["index"].tolist() ==
+            [n + DECODE_STEPS for n in SLOT_PROMPTS],
+            f"vector index {vcache['index'].tolist()}")
+    slots = [held_against_forward(
+        torch, p16, torch.from_numpy(slot_prompts[i:i + 1, :n]).to(dev),
+        fed_v[i:i + 1], steps[i:i + 1], n)
+        for i, n in enumerate(SLOT_PROMPTS)]
+    out["slots"] = slots
+    log("12c. vector index: " + "; ".join(
+        f"prompt {n}: top-1 equal {h['top1']:.5f} (decisive "
+        f"{h['n_decisive']}/{h['n']}: {h['top1_decisive']:.5f}), max|d| "
+        f"{h['err']:.4f}" for n, h in zip(SLOT_PROMPTS, slots)))
+    require(all(h["top1_decisive"] == 1.0 for h in slots),
+            "a slot's top-1 differs from the full forward")
+    log(f"12. timing (host wall, median of {REPS}): forward "
+        f"{LM_BATCH}x{LM_SEQ} {out['forward_ms_True']:.3f} ms flash, "
+        f"{out['forward_ms_False']:.3f} ms plain; prefill "
+        f"{n_req}x{PROMPT_LEN} {out['prefill_ms']:.3f} ms; decode "
+        f"{out['decode_ms']:.3f} ms/step "
+        f"({n_req * 1e3 / out['decode_ms']:.1f} tokens/s); model init "
+        f"{out['init_s']:.1f} s")
+
+    return out
+
+
+def lm_profile_phase(torch, lm):
+    """Where the LM's time goes: ``torch.profiler`` over one bf16 forward
+    (flash route), prefill and decode step of a model built anew from
+    ``init(seed=0)``.  Device busy ms by kernel; the idle share is taken
+    against phase 12's unprofiled host wall, since the profiler slows the
+    host (and every later host timing in the process), which is why this
+    runs last."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    dev = torch.device(DEVICE)
+    cfg = get_config(LM_ARCH, use_flash=True)
+    m16 = build_model(cfg).init(0)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ), np.int32)).to(dev)}
+    prompt = torch.from_numpy(prompts(np, REQUEST_WORDS, PROMPT_LEN,
+                                      cfg.vocab_size)).to(dev)
+    n_req = prompt.shape[0]
+    cache = m16.init_cache(n_req, CACHE_LEN)
+    m16.prefill({"tokens": prompt}, cache)
+    out = {}
+    for what, wall_key, fn in (
+            ("forward", "forward_ms_True", lambda: m16.forward(batch)),
+            ("prefill", "prefill_ms", lambda: m16.prefill(
+                {"tokens": prompt}, m16.init_cache(n_req, CACHE_LEN))),
+            ("decode step", "decode_ms",
+             lambda: m16.decode_step(prompt[:, :1], cache))):
+        wall, busy = profile_ms(torch, fn, reps=2)
+        total = sum(busy.values())
+        out[what] = {"profiled_wall": wall, "busy": total,
+                     "idle": 1 - total / lm[wall_key], "kernels": busy}
+        top6 = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+        log(f"12p. profile, one bf16 {what}: device busy {total:.3f} ms of "
+            f"{lm[wall_key]:.3f} ms unprofiled host wall (idle share "
+            f"{out[what]['idle']:.3f}; {wall:.3f} ms under the profiler); "
+            + "; ".join(f"{n[:50]} {ms:.3f}" for n, ms in top6))
+    return out
+
+
+def flash_kernel_phase(torch):
+    """Phase 13: the flash kernel against ``attention_ref`` on the card,
+    at the forward's shape [60, 2048, 64] and at one block, d 32/128/256;
+    timed at the forward's shape, bf16 causal, beside the plain version,
+    ``scaled_dot_product_attention`` and the bound."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bh = LM_BATCH * LM_HEADS
+    shapes = [(bh, LM_SEQ, 64), (8, 64, 64), (4, 384, 128), (8, 256, 32),
+              (4, 256, 256)]
+    errs = {}
+    for shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                       .to(dtype) for _ in range(3))
+            for causal in (True, False):
+                got = FK.flash_attention(q, k, v, causal)
+                want = FR.attention_ref(q, k, v, causal)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                tol = 1e-4 if dtype == torch.float32 else 0.1
+                require(err <= tol, f"flash_attention {shape} {dtype} "
+                        f"causal={causal}: max|d| {err} > {tol}")
+                errs[(shape, str(dtype)[6:], causal)] = err
+    log("13. flash kernel vs attention_ref: " + "; ".join(
+        f"{s[0]}x{s[1]}x{s[2]} {dt} {'causal' if c else 'full'} {e:.2e}"
+        for (s, dt, c), e in errs.items()))
+    q, k, v = (torch.randn((bh, LM_SEQ, 64), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    err = errs[((bh, LM_SEQ, 64), "bfloat16", True)]
+    flops = 4 * bh * LM_SEQ * LM_SEQ * 64 / 2
+    row = kernel_row(
+        "flash_attention", FLASH_SOURCE, FLASH_REPLACES, err,
+        cuda_ms(torch, lambda: FK.flash_attention(q, k, v, True), 10),
+        cuda_ms(torch, lambda: FR.attention_ref(q, k, v, True), 3),
+        4 * q.numel() * q.element_size(), flops, BF16_FLOPS_PER_S)
+    q4, k4, v4 = (x.view(LM_BATCH, LM_HEADS, LM_SEQ, 64)
+                  for x in (q, k, v))
+    row["library_ms"] = cuda_ms(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), 10)
+    log(f"13. flash_attention [{bh}, {LM_SEQ}, 64] bf16 causal: kernel "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return [row]
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--lm", action="store_true",
+                    help="run phases 1-2 and 12-13 only (the LM slice)")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1403,6 +1790,7 @@ def main() -> int:
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.bitmap_select import kernel as BK
+    from repro_torch.kernels.flash_attention import kernel as AK
     from repro_torch.kernels.label_filter import kernel as LK
     from repro_torch.kernels.pac_decode import kernel as PK
     from repro_torch.kernels.rle_filter import kernel as FK
@@ -1414,14 +1802,9 @@ def main() -> int:
     report = lib.with_suffix(".log")
     if report.exists():
         for line in report.read_text().splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "Compiling entry",
+                                       "spill")):
                 log(f"   ptxas: {line.strip()}")
-
-    adj, vt, batches, truth = build_graph()
-    t0 = time.perf_counter()
-    rows = kernel_phase(torch, adj, vt, batches)
-    log(f"3. kernels: the four retrieval kernels equal to their plain "
-        f"versions ({time.perf_counter() - t0:.1f} s)")
 
     wrappers = {"gather_decode": PK.gather_decode,
                 "fused_gather_decode_bitmap_batch":
@@ -1438,7 +1821,8 @@ def main() -> int:
                 "bitmap": PK.bitmap,
                 "fused_decode_bitmap": PK.fused_decode_bitmap,
                 "rle_to_bitmap": FK.rle_to_bitmap,
-                "bitmap_select": BK.bitmap_select}
+                "bitmap_select": BK.bitmap_select,
+                "flash_attention": AK.flash_attention}
 
     def drive(phase, *args):
         """Run one slice phase with every launch count set to 0 just
@@ -1447,6 +1831,50 @@ def main() -> int:
             w.launches = 0
         out = phase(*args)
         return out, {n: w.launches for n, w in wrappers.items()}
+
+    # the LM slice first: its host timings come before any profiler in
+    # the process (phases 5 and 8 profile); its own profile runs last
+    t0 = time.perf_counter()
+    lm, a_launches = drive(lm_phase, torch, card)
+    require(a_launches["flash_attention"] > 0,
+            f"the flash kernel never launched: {a_launches}")
+    log(f"12. lm: {LM_ARCH} forward, loss, prefill and decode checked, "
+        f"launches {a_launches} ({time.perf_counter() - t0:.1f} s) on {card}")
+    counts = [a_launches]
+
+    t0 = time.perf_counter()
+    rows = flash_kernel_phase(torch)
+    log(f"13. flash kernel: equal to attention_ref within tolerance "
+        f"({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
+    if not args.lm:
+        graph_rows, graph_counts = graph_phases(torch, drive, wrappers, card)
+        rows = graph_rows + rows
+        counts += graph_counts
+    t0 = time.perf_counter()
+    lm_profile_phase(torch, lm)
+    log(f"12p. lm profile ({time.perf_counter() - t0:.1f} s)")
+    for r in rows:
+        r["launches"] = sum(c[r["name"]] for c in counts)
+
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def graph_phases(torch, drive, wrappers, card):
+    """Phases 3-11 over the soc-LiveJournal1 graph and ``ldbc_like(40)``;
+    returns their kernel rows and the launch counts of their slice
+    phases."""
+    adj, vt, batches, truth = build_graph()
+    t0 = time.perf_counter()
+    rows = kernel_phase(torch, adj, vt, batches)
+    log(f"3. kernels: the four retrieval kernels equal to their plain "
+        f"versions ({time.perf_counter() - t0:.1f} s)")
 
     oracle = {}
     t0 = time.perf_counter()
@@ -1513,17 +1941,7 @@ def main() -> int:
     rows += entry_kernel_phase(torch, adj, ent["inputs"])
     log(f"11. entry kernels: all four equal to their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
-    for r in rows:
-        r["launches"] = sum(c[r["name"]] for c in
-                            (launches, t_launches, p_launches, l_launches,
-                             e_launches))
-
-    print(card)
-    print(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return rows, [launches, t_launches, p_launches, l_launches, e_launches]
 
 
 if __name__ == "__main__":

@@ -1,0 +1,211 @@
+"""Model assembly: the decoder-only language model of the dense family.
+
+The JAX package's ``models/model.py`` on PyTorch.  ``LM`` is an
+``nn.Module``: the ``prefix`` layers, then the ``n_units`` repeating units
+unrolled into one ``ModuleList`` (no scan, no remat: PyTorch runs
+eagerly).  Parameters keep the JAX package's names and layouts, so
+``models/convert.py`` carries a JAX parameter tree across as it is.
+
+The model lives on ``cuda:0`` unless the caller passes another device
+(``"cpu"`` for the plain versions, ``"meta"`` to count parameters without
+memory); with no card, the default raises.  The full forward is
+:meth:`LM.forward`, the counterpart of the reference's ``LM.apply``
+(``nn.Module.apply`` is PyTorch's own method).  With ``cfg.use_flash`` it
+takes the flash attention kernel.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import FULL_WINDOW, ModelConfig
+
+from .blocks import Block, check_spec, layer_apply, layer_cache_init
+from .layers import Norm, embed_init, param, softmax_cross_entropy
+
+Cache = Dict
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda:0``, raising when there is no card; anything
+    else as given (a CUDA device still needs a card)."""
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the model runs on a CUDA device by default and "
+                           "none is available (pass device='cpu' for the "
+                           "plain versions)")
+    return dev
+
+
+class LM(nn.Module):
+    """Config -> parameters, full forward, loss, KV cache, prefill and
+    decode."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        for spec in tuple(cfg.prefix) + tuple(cfg.unit):
+            check_spec(cfg, spec)
+        self.cfg = cfg
+        dev = resolve_device(device)
+        dt = DTYPES[cfg.param_dtype]
+        self.embed = param((cfg.vocab_size, cfg.d_model), dt, dev)
+        self.final_norm = Norm(cfg.norm, cfg.d_model, dt, dev)
+        # the output head is always its own parameter; "tied" configs
+        # initialise it from the embedding (the reference's choice)
+        self.lm_head = param((cfg.d_model, cfg.vocab_size), dt, dev)
+        self.prefix = nn.ModuleList(
+            Block(cfg, spec, cfg.prefix_d_ff, dt, dev) for spec in cfg.prefix)
+        self.layers = nn.ModuleList(
+            Block(cfg, spec, 0, dt, dev)
+            for _ in range(cfg.n_units) for spec in cfg.unit)
+        #: per block (prefix, then unit layers) attention window, 0 = full
+        self.windows = [FULL_WINDOW] * len(cfg.prefix) + list(cfg.windows())
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def blocks(self) -> List[Block]:
+        return list(self.prefix) + list(self.layers)
+
+    # ------------------------------------------------------------------ init
+    @torch.no_grad()
+    def init(self, seed: int = 0) -> "LM":
+        """Fill every parameter from a ``torch.Generator`` on the model's
+        device seeded with ``seed`` (the reference's distributions, not its
+        numbers).  Returns the model."""
+        cfg, dev = self.cfg, self.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        self.embed.copy_(embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                    self.embed.dtype, dev))
+        self.final_norm.init_()
+        head = self.embed if cfg.tie_embeddings else embed_init(
+            gen, cfg.vocab_size, cfg.d_model, self.lm_head.dtype, dev)
+        self.lm_head.copy_(head.t())
+        for block in self.blocks():
+            block.init_(gen)
+        return self
+
+    # -------------------------------------------------------------- decoder
+    def _tokens(self, tokens) -> torch.Tensor:
+        """An index array (numpy or torch) on the model's device."""
+        return torch.as_tensor(tokens, device=self.device)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = F.embedding(tokens, self.embed).to(DTYPES[cfg.compute_dtype])
+        if cfg.scale_embeddings:
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                                 device=x.device)
+        return x
+
+    def _decoder(self, x: torch.Tensor, positions: torch.Tensor,
+                 caches: Optional[List[Dict]]
+                 ) -> Tuple[torch.Tensor, Optional[List[Dict]], float]:
+        aux = 0.0
+        new_caches = [] if caches is not None else None
+        for i, (block, window) in enumerate(zip(self.blocks(),
+                                                self.windows)):
+            cache = None if caches is None else caches[i]
+            x, c, a = layer_apply(self.cfg, block, x, positions=positions,
+                                  window=window, cache=cache)
+            aux += a
+            if caches is not None:
+                new_caches.append(c)
+        return x, new_caches, aux
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.lm_head.to(x.dtype)
+
+    def _positions(self, b: int, s: int) -> torch.Tensor:
+        return torch.arange(s, dtype=torch.int32,
+                            device=self.device).expand(b, s)
+
+    # --------------------------------------------------------------- forward
+    @torch.no_grad()
+    def forward(self, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full forward (the reference's ``LM.apply``): ``batch["tokens"]``
+        [B, S] (and optional ``positions``) -> (logits [B, S, V], aux)."""
+        tokens = self._tokens(batch["tokens"])
+        b, s = tokens.shape
+        positions = batch.get("positions")
+        positions = self._positions(b, s) if positions is None \
+            else self._tokens(positions)
+        x, _, aux = self._decoder(self._embed(tokens), positions, None)
+        x = self.final_norm(x)
+        return self._head(x), torch.full((), aux, dtype=torch.float32,
+                                         device=self.device)
+
+    def loss(self, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+        logits, aux = self.forward(batch)
+        labels = self._tokens(batch["labels"])
+        mask = batch.get("mask")
+        ce, ntok = softmax_cross_entropy(
+            logits, labels, None if mask is None else self._tokens(mask))
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux, "tokens": ntok}
+
+    # ----------------------------------------------------------------- cache
+    def init_cache(self, batch_size: int, max_len: int,
+                   dtype=torch.bfloat16, vector_index: bool = False) -> Cache:
+        """``{"index", "layers": [{"kv": {"k", "v", "index"}}, ...]}``.
+        ``vector_index=True`` gives per-slot positions (an int32 [B] on the
+        device; continuous batching); the default scalar index (a 0-dim
+        CPU tensor) keeps all slots aligned.  The default type is bfloat16
+        whatever the model's, as in the reference."""
+        cfg = self.cfg
+        specs = list(cfg.prefix) + list(cfg.unit) * cfg.n_units
+        return {
+            "index": (torch.zeros((batch_size,), dtype=torch.int32,
+                                  device=self.device)
+                      if vector_index else torch.zeros((), dtype=torch.int32)),
+            "layers": [layer_cache_init(cfg, spec, batch_size, max_len, dtype,
+                                        vector_index, self.device)
+                       for spec in specs],
+        }
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict, cache: Cache
+                ) -> Tuple[torch.Tensor, Cache]:
+        """Run the prompt [B, S] through the model at positions 0..S-1,
+        writing its keys and values into ``cache`` (in place) at the
+        cache's index.  Returns (logits of the last position [B, 1, V],
+        cache)."""
+        tokens = self._tokens(batch["tokens"])
+        b, s = tokens.shape
+        x, layers, _ = self._decoder(self._embed(tokens),
+                                     self._positions(b, s), cache["layers"])
+        x = self.final_norm(x)
+        return self._head(x[:, -1:]), {"index": cache["index"] + s,
+                                       "layers": layers}
+
+    @torch.no_grad()
+    def decode_step(self, tokens, cache: Cache) -> Tuple[torch.Tensor, Cache]:
+        """One decode step: tokens [B, 1] at the cache's index (per slot
+        for a vector index).  Returns (logits [B, 1, V], cache)."""
+        tokens = self._tokens(tokens)
+        b = tokens.shape[0]
+        idx = cache["index"]
+        positions = idx.to(torch.int32)[:, None] if idx.dim() == 1 else \
+            torch.full((b, 1), int(idx), dtype=torch.int32,
+                       device=self.device)
+        x, layers, _ = self._decoder(self._embed(tokens), positions,
+                                     cache["layers"])
+        x = self.final_norm(x)
+        return self._head(x), {"index": idx + 1, "layers": layers}
+
+
+def build_model(cfg: ModelConfig, device=None) -> LM:
+    """The model with uninitialised parameters; ``.init(seed)`` fills
+    them, or ``load_state_dict`` (``convert.params_from_jax``)."""
+    return LM(cfg, device)
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

@@ -6,6 +6,9 @@ the same CUDA tensors, and the cuda engine's ``k_hop``, ``two_hop_pac``,
 ``frontier_edge_counts``, per-dispatch retrieval, the single-range,
 RLE-label and selection entries and numeric-filtered retrieval against
 the numpy oracle (ids, counts, values, PACs, IOMeter and LRU counters).
+The flash attention kernel is held against its plain version at every
+head dim it is built for, in float32 and bfloat16, and a reduced LM's
+flash route against its plain route.
 Every test here needs an NVIDIA GPU and ``nvcc`` and skips without one;
 run them on a machine with a card:
 
@@ -18,11 +21,14 @@ import pytest
 import torch
 
 import repro_torch.core as TC
+from repro_torch.configs import get_config
 from repro_torch.data.synthetic import clustered_labels, powerlaw_graph
 from repro_torch.kernels._pad import next_pow2
 from repro_torch.kernels.bitmap_select import kernel as BK
 from repro_torch.kernels.bitmap_select import ops as BO
 from repro_torch.kernels.bitmap_select import ref as BR
+from repro_torch.kernels.flash_attention import kernel as AK
+from repro_torch.kernels.flash_attention import ref as AR
 from repro_torch.kernels.label_filter import kernel as LK
 from repro_torch.kernels.label_filter import ops as LO
 from repro_torch.kernels.pac_decode import kernel as PK
@@ -34,6 +40,7 @@ from repro_torch.kernels.rle_filter import ref as FR
 from repro_torch.kernels.traversal import kernel as K
 from repro_torch.kernels.traversal import ops as TO
 from repro_torch.kernels.traversal import ref as R
+from repro_torch.models import build_model
 
 pytestmark = pytest.mark.cuda
 
@@ -446,3 +453,67 @@ def test_numeric_retrieval_cuda_skips_pages(dev, graph, resident):
                        filt.prop_pages_skipped)
     assert out["cuda"] == out["numpy"] and out["cuda"][0]
     assert out["cuda"][4] > 0
+
+
+# ------------------------------------------- flash attention (kernel 15)
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("seq", [7, 64, 384])
+def test_flash_attention_kernel_equals_plain(dev, seq, d, dtype, causal):
+    gen = torch.Generator(device=dev).manual_seed(seq + d)
+    q, k, v = (torch.randn((3, seq, d), generator=gen, device=dev)
+               .to(dtype) for _ in range(3))
+    before = AK.flash_attention.launches
+    got = AK.flash_attention(q, k, v, causal)
+    want = AR.attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert AK.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    # float32: the reference test's 1e-4; bf16: one rounding each
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_flash_attention_kernel_refuses_what_it_cannot_run(dev):
+    q = torch.zeros((2, 64, 48), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        AK.flash_attention(q, q, q)
+    q = torch.zeros((2, 64, 64), device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        AK.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        AK.flash_attention(q, q.transpose(0, 1).contiguous().transpose(0, 1),
+                           q)
+    with pytest.raises(ValueError, match="not supported"):
+        AK.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="multiple of"):
+        AK.flash_attention(*(torch.zeros((1, 200, 64), device=dev),) * 3)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "gemma3-4b"])
+def test_lm_flash_route_on_the_card(dev, arch):
+    """A reduced model on the card: the float32 flash route (kernel 15,
+    launched once per layer) against the float32 plain route, and the
+    prefill/decode of the same weights against the full forward."""
+    cfg = get_config(arch).reduced()
+    flash = build_model(cfg.with_(use_flash=True), dev).init(0)
+    plain = build_model(cfg, dev)
+    plain.load_state_dict(flash.state_dict())
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64),
+                                           dtype=np.int32)).to(dev)
+    before = AK.flash_attention.launches
+    got, _ = flash({"tokens": tokens})
+    assert AK.flash_attention.launches == before + cfg.num_layers
+    want, _ = plain({"tokens": tokens})
+    # gemma3's reduced windows (64) do not bind at 64 tokens
+    assert (got - want).abs().max().item() <= 1e-4
+    cache = plain.init_cache(2, 64, dtype=torch.float32)
+    logits, cache = plain.prefill({"tokens": tokens[:, :48]}, cache)
+    steps = [logits[:, -1]]
+    for t in range(48, 63):
+        logits, cache = plain.decode_step(tokens[:, t:t + 1], cache)
+        steps.append(logits[:, -1])
+    assert (torch.stack(steps, 1) - want[:, 47:63]).abs().max().item() <= 1e-4

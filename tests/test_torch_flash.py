@@ -1,0 +1,125 @@
+"""Flash attention (TPU kernel 15) in the port: the plain version of the
+CUDA kernel against the JAX package's reference and Pallas kernel.
+
+The same seeded inputs go through ``repro.kernels.flash_attention``
+(``ref.attention_ref``, and ``kernel.flash_attention`` in interpret mode,
+as the reference's own tests run it) and through the port's wrapper,
+which runs the plain version (``ref.py``) for CPU tensors.  The cases and
+tolerances are the reference test's (``tests/test_kernels.py``): float32
+at rtol = atol = 2e-5, bfloat16 at 0.1, and the GQA wrapper.  The kernel
+route takes exactly the shapes the reference kernel takes.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import kernel as fak
+from repro.kernels.flash_attention import ops as fao
+from repro.kernels.flash_attention import ref as far
+from repro_torch.kernels.flash_attention import kernel as K
+from repro_torch.kernels.flash_attention import ops as O
+from repro_torch.kernels.flash_attention import ref as R
+
+torch.set_num_threads(1)
+
+
+def _qkv(rng, shape, dtype=np.float32):
+    return [rng.standard_normal(shape).astype(dtype) for _ in range(3)]
+
+
+def _bf16(a):
+    """numpy float32 -> (jnp bfloat16, torch bfloat16) of the same
+    values."""
+    j = jnp.asarray(a, jnp.bfloat16)
+    return j, torch.from_numpy(np.asarray(j, np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seq,d", [(128, 64), (256, 64), (384, 128)])
+def test_plain_version_matches_reference_and_pallas(causal, seq, d):
+    rng = np.random.default_rng(seq + d)
+    q, k, v = _qkv(rng, (2, seq, d))
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    pallas = np.asarray(fak.flash_attention(jq, jk, jv, causal=causal,
+                                            block_q=128, block_k=128))
+    ref = np.asarray(far.attention_ref(jq, jk, jv, causal=causal))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    before = K.flash_attention.launches
+    got = K.flash_attention(tq, tk, tv, causal)
+    assert K.flash_attention.launches == before      # no kernel on the CPU
+    assert got.dtype == torch.float32 and got.shape == (2, seq, d)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(R.attention_ref(tq, tk, tv, causal).numpy(),
+                               ref, rtol=2e-5, atol=2e-5)
+
+
+def test_bf16_matches_pallas():
+    rng = np.random.default_rng(0)
+    (jq, tq), (jk, tk), (jv, tv) = (_bf16(x) for x in
+                                    _qkv(rng, (1, 256, 64)))
+    pallas = fak.flash_attention(jq, jk, jv, causal=True)
+    got = K.flash_attention(tq, tk, tv, True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(pallas, np.float32),
+                               rtol=0.1, atol=0.1)
+    # the same function: equal to the reference's plain version after its
+    # own bf16 rounding
+    ref = far.attention_ref(jq, jk, jv, causal=True)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               rtol=0, atol=2 ** -7)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_gqa_mha_matches_reference(use_kernel):
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((2, 8, 128, 64)).astype(np.float32)
+    k = rng.standard_normal((2, 2, 128, 64)).astype(np.float32)
+    v = rng.standard_normal((2, 2, 128, 64)).astype(np.float32)
+    ref = fao.mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=True, use_pallas=False)
+    got = O.mha(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                causal=True, use_kernel=use_kernel)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
+    # head h reads KV head h // 4 (jnp.repeat along heads)
+    one = R.attention_ref(torch.from_numpy(q[:, 5]), torch.from_numpy(k[:, 1]),
+                          torch.from_numpy(v[:, 1]), True)
+    np.testing.assert_allclose(got[:, 5].numpy(), one.numpy(), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("seq", [7, 64, 128, 200, 256, 300])
+def test_kernel_route_takes_the_reference_kernels_shapes(seq):
+    rng = np.random.default_rng(seq)
+    q, k, v = _qkv(rng, (1, seq, 32))
+    try:
+        want = np.asarray(fak.flash_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True))
+    except AssertionError:
+        want = None
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    if want is None:
+        with pytest.raises(ValueError, match="multiple of"):
+            K.flash_attention(tq, tk, tv, True)
+        with pytest.raises(ValueError, match="multiple of"):
+            O.mha(tq[None], tk[None], tv[None])
+        # the plain route takes any shape, as use_pallas=False does
+        O.mha(tq[None], tk[None], tv[None], use_kernel=False)
+    else:
+        np.testing.assert_allclose(K.flash_attention(tq, tk, tv, True)
+                                   .numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_kernel_route_refuses_mismatched_shapes():
+    x = torch.zeros((2, 64, 32))
+    with pytest.raises(ValueError, match="shape"):
+        K.flash_attention(x, torch.zeros((2, 128, 32)), x)
+    with pytest.raises(ValueError, match="shape"):
+        K.flash_attention(x[0], x[0], x[0])
+    with pytest.raises(ValueError, match="divide"):
+        O.mha(torch.zeros((1, 6, 64, 32)), torch.zeros((1, 4, 64, 32)),
+              torch.zeros((1, 4, 64, 32)))

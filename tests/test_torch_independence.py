@@ -118,6 +118,41 @@ print("LOADED", bad)
 """
 
 
+LM_PROBE = """
+import sys
+import numpy as np
+import torch
+import repro_torch.configs as RC
+import repro_torch.kernels.flash_attention.ops as fa
+from repro_torch.models import build_model
+from repro_torch.serve.sampling import sample
+torch.set_num_threads(1)
+cfg = RC.get_config("smollm-360m").reduced().with_(use_flash=True)
+model = build_model(cfg, "cpu").init(0)
+tokens = torch.from_numpy(np.random.default_rng(0).integers(
+    0, cfg.vocab_size, (2, 32)).astype(np.int32))
+logits, _ = model({"tokens": tokens})
+assert logits.shape == (2, 32, cfg.vocab_size)
+cache = model.init_cache(2, 40)
+logits, cache = model.prefill({"tokens": tokens}, cache)
+logits, cache = model.decode_step(sample(logits[:, -1])[:, None], cache)
+assert int(cache["index"]) == 33 and bool(torch.isfinite(logits).all())
+q = torch.zeros((1, 2, 64, 32))
+assert fa.mha(q, q[:, :1], q[:, :1]).shape == q.shape
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("LOADED", bad)
+"""
+
+
+def test_lm_loads_neither_jax_nor_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", LM_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_kernel_entries_load_neither_jax_nor_the_jax_package():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", ENTRY_PROBE], env=env,
