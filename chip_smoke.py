@@ -8,7 +8,11 @@ Phases, each of which exits non-zero when it fails (12 and 13 run right
 after 2, so that their host timings come before any profiler in the
 process; the LM profile runs last):
   1. device: require a CUDA device; print the card's name and power limit;
-  2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` (timed);
+  2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` (timed); print
+     ptxas's registers and spills, and count the tensor-core instructions
+     (HGMMA) of each bf16 flash kernel in the library's SASS
+     (``cuobjdump -sass``): each must have some, and no flash kernel may
+     spill;
   set-up: a soc-LiveJournal1-sized graph (4,847,571 vertices, ~69.0M
      edges) from ``powerlaw_graph`` and 8 ``clustered_labels``, ``by_src``
      adjacency at page size 2048;
@@ -90,10 +94,15 @@ process; the LM profile runs last):
      cache (``serve.steps.write_slots``) and decoded together; host ms of
      the forward, prefill and decode step, median of 3;
  13. flash kernel: kernel 15 against ``attention_ref`` on the card at
-     [60, 2048, 64] (the forward's shape) and at one block, d 32, 128 and
-     256, float32 (1e-4) and bf16 (0.1), causal and not; timed at [60,
-     2048, 64] bf16 causal beside the plain version, the bound and
-     ``scaled_dot_product_attention``;
+     [60, 2048, 64] and at one block, d 32, 128 and 256, float32 (1e-4)
+     and bf16 (0.1), causal and not; timed at [60, 2048, 64] bf16 causal
+     beside the plain version, the bound and
+     ``scaled_dot_product_attention``; then the forward's own call,
+     ``ops.mha`` on [4, 15, 2048, 64] queries over [4, 5, 2048, 64] KV
+     heads as strided views of [b, s, h, d] tensors, bf16 causal, against
+     the plain version (0.1, and elementwise 2^-8 (|want| + max|v|)),
+     timed beside it, the bound and ``scaled_dot_product_attention`` with
+     ``enable_gqa=True``;
  12p. lm profile: ``torch.profiler`` over one forward, prefill and decode
      step of the bf16 model: device busy ms by kernel, idle share against
      phase 12's unprofiled host wall.
@@ -1768,7 +1777,85 @@ def flash_kernel_phase(torch):
         f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
         f"scaled_dot_product_attention {row['library_ms']:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    flash_gqa_call(torch, gen)
     return [row]
+
+
+def flash_gqa_call(torch, gen):
+    """The forward's own call of kernel 15: ``ops.mha`` on [4, 15, 2048,
+    64] queries over 5 KV heads, each a [b, h, s, d] view of a [b, s, h,
+    d] tensor, bf16 causal; held against the plain version and timed
+    beside it and ``scaled_dot_product_attention`` with GQA."""
+    from repro_torch.kernels.flash_attention import ops as FO
+    dev = torch.device(DEVICE)
+    h, h_kv, d = LM_HEADS, 5, 64
+    q, k, v = (torch.randn((LM_BATCH, LM_SEQ, n, d), generator=gen,
+                           device=dev).bfloat16().transpose(1, 2)
+               for n in (h, h_kv, h_kv))
+    got = FO.mha(q, k, v, True)
+    want = FO.mha(q, k, v, True, use_kernel=False)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    within = bool((diff <= 2.0 ** -8 * (want.float().abs()
+                                        + v.float().abs().max())).all())
+    require(err <= 0.1 and within,
+            f"mha GQA strided: max|d| {err}, elementwise bound {within}")
+    require(got.transpose(1, 2).is_contiguous(),
+            "mha's output is not a view of a [b, s, h, d] tensor")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    how = "enable_gqa=True"
+    lib_fn = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    try:                        # the yardstick only: torch < 2.5 lacks it
+        lib_fn()
+    except TypeError:
+        how = "KV heads repeated"
+        kr, vr = (x.repeat_interleave(h // h_kv, 1) for x in (k, v))
+        lib_fn = lambda: sdpa(q, kr, vr, is_causal=True)
+    ms = cuda_ms(torch, lambda: FO.mha(q, k, v, True), 10)
+    plain_ms = cuda_ms(torch, lambda: FO.mha(q, k, v, True,
+                                             use_kernel=False), 3)
+    lib_ms = cuda_ms(torch, lib_fn, 10)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, out, k, v
+    bound = max(nbytes / HBM_BYTES_PER_S,
+                4 * LM_BATCH * h * LM_SEQ * LM_SEQ * d / 2
+                / BF16_FLOPS_PER_S) * 1e3
+    log(f"13. mha [{LM_BATCH}, {h}, {LM_SEQ}, {d}] over {h_kv} KV heads, "
+        f"strided views, bf16 causal: max|d| {err:.3e} (elementwise bound "
+        f"held); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention ({how}) {lib_ms:.4f} ms, bound "
+        f"{bound:.4f} ms")
+
+
+def flash_build_check(report, lib) -> None:
+    """Phase 2's check of kernel 15's build: no flash kernel spills, and
+    each bf16 (``flash_wgmma_kernel``) instantiation holds tensor-core
+    instructions, counted in the library's SASS."""
+    import os
+    lines = report.read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and "flash_" in line:
+            props = " ".join(lines[i + 1:i + 4])
+            require(" 0 bytes spill stores" in props,
+                    f"a flash kernel spills: {line.strip()} {props}")
+    from repro_torch.kernels import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None                # tensor-core ops and TMA loads
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "flash_wgmma_kernel" in fn:
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn in counts:
+            for ins in counts[fn]:
+                counts[fn][ins] += f" {ins}." in line or f" {ins} " in line
+    for fn, c in sorted(counts.items()):
+        log(f"   sass: {fn}: " + ", ".join(f"{k} {v}" for k, v in c.items()))
+    require(len(counts) == 4 and all(c["HGMMA"] > 0
+                                     for c in counts.values()),
+            f"a bf16 flash kernel holds no HGMMA: {counts}")
 
 
 def main() -> int:
@@ -1805,6 +1892,7 @@ def main() -> int:
             if any(w in line for w in ("registers", "Compiling entry",
                                        "spill")):
                 log(f"   ptxas: {line.strip()}")
+    flash_build_check(report, lib)
 
     wrappers = {"gather_decode": PK.gather_decode,
                 "fused_gather_decode_bitmap_batch":

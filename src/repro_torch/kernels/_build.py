@@ -31,7 +31,9 @@ FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C entry -> argument types (every pointer and the stream are void*).
+_L = ctypes.c_int64
+#: C entry -> argument types (every pointer and the stream are void*,
+#: strides int64).
 SIGNATURES = {
     "rt_gather_decode": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P),
     "rt_fused_gather_decode_bitmap": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I,
@@ -53,7 +55,8 @@ SIGNATURES = {
                                _P, _I, _P),
     "rt_rle_to_bitmap": (_P, _I, _P, _P, _I, _P),
     "rt_bitmap_select": (_P, _P, _I, _I, _P, _P, _P),
-    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           *(_L,) * 12, _I, _I, _P),
 }
 
 _LOCK = threading.Lock()

@@ -10,23 +10,20 @@ from . import ref as R
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         causal: bool = True, use_kernel: bool = True) -> torch.Tensor:
     """q: [b, h, sq, d]; k/v: [b, h_kv, sk, d] with h_kv dividing h (GQA:
-    head i reads KV head ``i // (h // h_kv)``).  ``use_kernel=False`` runs
-    the plain version on any device (the reference's
-    ``use_pallas=False``), which takes any shapes; the kernel route
-    raises ``ValueError`` on the shapes the reference kernel asserts
-    against."""
-    b, h, sq, d = q.shape
+    head i reads KV head ``i // (h // h_kv)`` by index; nothing is
+    repeated or made contiguous).  The result is a [b, h, sq, d] view of
+    a [b, sq, h, d] tensor, so ``transpose(1, 2).reshape(b, sq, -1)``
+    copies nothing.  ``use_kernel=False`` runs the plain version on any
+    device (the reference's ``use_pallas=False``), which takes any shapes;
+    the kernel route raises ``ValueError`` on the shapes the reference
+    kernel asserts against and on layouts the kernel cannot read
+    (:func:`.kernel.check_grouped`)."""
+    b, h, sq, _ = q.shape
     h_kv = k.shape[1]
     if h % h_kv:
         raise ValueError(f"{h_kv} KV heads do not divide {h} heads")
-    if h_kv != h:
-        k = k.repeat_interleave(h // h_kv, dim=1)
-        v = v.repeat_interleave(h // h_kv, dim=1)
-    qf = q.reshape(b * h, sq, d).contiguous()
-    kf = k.reshape(b * h, -1, d).contiguous()
-    vf = v.reshape(b * h, -1, d).contiguous()
+    out = q.new_empty((b, sq, h, v.shape[-1])).transpose(1, 2)
     if use_kernel:
-        o = K.flash_attention(qf, kf, vf, causal=causal)
-    else:
-        o = R.attention_ref(qf, kf, vf, causal=causal)
-    return o.reshape(b, h, sq, d)
+        return K.flash_attention_into(q, k, v, out, causal=causal)
+    return out.copy_(R.attention_ref(q, k, v, causal=causal,
+                                     kv_group=h // h_kv))

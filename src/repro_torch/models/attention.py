@@ -148,6 +148,8 @@ def attention_apply(attn: Attention, x: torch.Tensor, *, num_heads: int,
                              device=x.device).expand(b, t)
 
     if use_flash and cache is None:
+        # [b, h, s, d] views: the kernel reads them and the KV heads in
+        # place and writes a [b, s, h, d] tensor, so neither side copies
         from repro_torch.kernels.flash_attention import ops as fa
         out = fa.mha(q.transpose(1, 2), k.transpose(1, 2),
                      v.transpose(1, 2), causal=causal)

@@ -28,6 +28,7 @@ from repro_torch.kernels.bitmap_select import kernel as BK
 from repro_torch.kernels.bitmap_select import ops as BO
 from repro_torch.kernels.bitmap_select import ref as BR
 from repro_torch.kernels.flash_attention import kernel as AK
+from repro_torch.kernels.flash_attention import ops as AO
 from repro_torch.kernels.flash_attention import ref as AR
 from repro_torch.kernels.label_filter import kernel as LK
 from repro_torch.kernels.label_filter import ops as LO
@@ -457,23 +458,40 @@ def test_numeric_retrieval_cuda_skips_pages(dev, graph, resident):
 
 # ------------------------------------------- flash attention (kernel 15)
 
+@pytest.mark.parametrize("layout", ["flat", "gqa"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("seq", [7, 64, 384])
-def test_flash_attention_kernel_equals_plain(dev, seq, d, dtype, causal):
+def test_flash_attention_kernel_equals_plain(dev, seq, d, dtype, causal,
+                                             layout):
+    """``flat``: [3, seq, d] through ``flash_attention``; ``gqa``: the
+    forward's layout through ``ops.mha``, 6 query heads over 2 KV heads,
+    each a [b, h, seq, d] view of a [b, seq, h, d] tensor."""
     gen = torch.Generator(device=dev).manual_seed(seq + d)
-    q, k, v = (torch.randn((3, seq, d), generator=gen, device=dev)
-               .to(dtype) for _ in range(3))
     before = AK.flash_attention.launches
-    got = AK.flash_attention(q, k, v, causal)
-    want = AR.attention_ref(q, k, v, causal)
+    if layout == "flat":
+        q, k, v = (torch.randn((3, seq, d), generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        got = AK.flash_attention(q, k, v, causal)
+        want = AR.attention_ref(q, k, v, causal)
+    else:
+        q, k, v = (torch.randn((2, seq, n, d), generator=gen, device=dev)
+                   .to(dtype).transpose(1, 2) for n in (6, 2, 2))
+        got = AO.mha(q, k, v, causal)
+        want = AR.attention_ref(q, k, v, causal, kv_group=3)
+        assert got.transpose(1, 2).is_contiguous()
     torch.cuda.synchronize()
     assert AK.flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
-    # float32: the reference test's 1e-4; bf16: one rounding each
-    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
-    assert (got.float() - want.float()).abs().max().item() <= tol
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:          # the reference test's 1e-4
+        assert diff.max().item() <= 1e-4
+    else:
+        # one output rounding on each side, and p's bf16 rounding inside
+        # a convex combination of V's rows
+        bound = 2.0 ** -8 * (want.float().abs() + v.float().abs().max())
+        assert bool((diff <= bound).all()), diff.max().item()
 
 
 def test_flash_attention_kernel_refuses_what_it_cannot_run(dev):
@@ -483,13 +501,17 @@ def test_flash_attention_kernel_refuses_what_it_cannot_run(dev):
     q = torch.zeros((2, 64, 64), device=dev)
     with pytest.raises(ValueError, match="dtype"):
         AK.flash_attention(q, q.bfloat16(), q)
-    with pytest.raises(ValueError, match="contiguous"):
-        AK.flash_attention(q, q.transpose(0, 1).contiguous().transpose(0, 1),
+    with pytest.raises(ValueError, match="innermost stride"):
+        AK.flash_attention(q, torch.zeros((2, 64, 128), device=dev)[..., ::2],
                            q)
     with pytest.raises(ValueError, match="not supported"):
         AK.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="multiple of"):
         AK.flash_attention(*(torch.zeros((1, 200, 64), device=dev),) * 3)
+    with pytest.raises(ValueError, match="aligned"):
+        x = torch.zeros((2 * 64 * 64 + 4,), device=dev,   # 8 bytes in
+                        dtype=torch.bfloat16)[4:].view(2, 64, 64)
+        AK.flash_attention(x, x, x)
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "gemma3-4b"])

@@ -123,3 +123,65 @@ def test_kernel_route_refuses_mismatched_shapes():
     with pytest.raises(ValueError, match="divide"):
         O.mha(torch.zeros((1, 6, 64, 32)), torch.zeros((1, 4, 64, 32)),
               torch.zeros((1, 4, 64, 32)))
+
+
+def _bshd(rng, b, s, h, d):
+    """A seeded [b, s, h, d] array and its [b, h, s, d] torch view."""
+    a = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    return a, torch.from_numpy(a).transpose(1, 2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("h_kv", [1, 2, 4])
+def test_mha_reads_strided_grouped_heads_in_place(h_kv, use_kernel, causal):
+    """The forward's layout: q/k/v as [b, h, s, d] views of [b, s, h, d]
+    tensors (not contiguous), KV heads read by index, against the JAX
+    package's ``mha(use_pallas=False)`` (which repeats the KV heads)."""
+    rng = np.random.default_rng(40 + h_kv)
+    b, s, h, d = 2, 128, 4, 32
+    (q, tq), (k, tk), (v, tv) = (_bshd(rng, b, s, n, d)
+                                 for n in (h, h_kv, h_kv))
+    assert not tq.is_contiguous()
+    ref = fao.mha(*(jnp.asarray(x.transpose(0, 2, 1, 3)) for x in (q, k, v)),
+                  causal=causal, use_pallas=False)
+    got = O.mha(tq, tk, tv, causal=causal, use_kernel=use_kernel)
+    assert got.shape == (b, h, s, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_mha_output_reshapes_to_bsh_without_a_copy(use_kernel):
+    rng = np.random.default_rng(3)
+    b, s, h, d = 2, 64, 4, 32
+    _, tq = _bshd(rng, b, s, h, d)
+    _, tk = _bshd(rng, b, s, 2, d)
+    out = O.mha(tq, tk, tk, use_kernel=use_kernel)
+    flat = out.transpose(1, 2).reshape(b, s, -1)
+    assert flat.data_ptr() == out.data_ptr()
+    assert flat._base is not None                 # a view, not a copy
+    np.testing.assert_array_equal(flat[:, :, d:2 * d].numpy(),
+                                  out[:, 1].numpy())
+
+
+@pytest.mark.parametrize("case", ["inner_stride", "row_stride", "heads"])
+def test_kernel_route_refuses_layouts_it_cannot_read(case):
+    q = torch.zeros((1, 4, 64, 32))
+    k = v = torch.zeros((1, 2, 64, 32))
+    if case == "inner_stride":          # every other element of d
+        q = torch.zeros((1, 4, 64, 64))[..., ::2]
+        match = "innermost stride"
+    elif case == "row_stride":          # rows 36 elements apart
+        k = torch.zeros((1, 2, 64, 36))[..., :32]
+        match = "multiple of 8"
+    else:
+        k = v = torch.zeros((1, 3, 64, 32))
+        match = "divide"
+    with pytest.raises(ValueError, match=match):
+        O.mha(q, k, v)
+    with pytest.raises(ValueError, match=match):
+        K.flash_attention_into(q, k, v, torch.empty_like(q))
+    # the plain route takes any layout (the reference's use_pallas=False)
+    if case != "heads":
+        O.mha(q, k, v, use_kernel=False)
