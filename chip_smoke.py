@@ -2,7 +2,9 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them.
 
 Run from the root of the repository:  python3 chip_smoke.py
-(``--lm`` runs phases 1-2, 12-13 and the LM profile only.)
+(``--lm`` runs phases 1-2, 12-13 and the LM profile only; ``--traversal``
+phases 1-3, 5 and 6, which hold and time kernels 3 and 5 and drive the
+traversal path that launches them.)
 
 Phases, each of which exits non-zero when it fails (12 and 13 run right
 after 2, so that their host timings come before any profiler in the
@@ -16,7 +18,8 @@ process; the LM profile runs last):
   set-up: a soc-LiveJournal1-sized graph (4,847,571 vertices, ~69.0M
      edges) from ``powerlaw_graph`` and 8 ``clustered_labels``, ``by_src``
      adjacency at page size 2048;
-  3. kernels: each of the four kernels against its plain PyTorch version
+  3. kernels: an empty kernel's launch-to-completion time (the launch
+     floor); each of the four kernels against its plain PyTorch version
      on the card, at the shapes the main path gives it, bit for bit;
      timed against the plain version and against its bound;
   4. slice: ``retrieve_neighbors_batch(engine="cuda")`` over batches of
@@ -194,6 +197,23 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(torch, fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn`` with the host ahead of the card:
+    the ``reps`` calls are queued behind a spin kernel of about 10 ms, so
+    no launch waits on the host, and the events time the device alone."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def cuda_ms_each(torch, fn, reps: int) -> list:
     """Device milliseconds of each of ``reps`` calls of ``fn`` (CUDA
     events around each call, after one warm-up call)."""
@@ -274,6 +294,27 @@ def staged_for(adj, vs, filt=None):
     return staged, p_pad, len(pages), total
 
 
+def launch_floor_ms(torch, dev):
+    """An empty kernel's device milliseconds: one launch bracketed by
+    events (median of 20), and the mean of 100 queued back to back."""
+    from repro_torch.kernels import _build
+
+    def empty():
+        _build.launch("rt_launch_floor", _build.stream(dev))
+
+    empty()
+    one = []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        empty()
+        end.record()
+        torch.cuda.synchronize()
+        one.append(start.elapsed_time(end))
+    return statistics.median(one), queued_ms(torch, empty, 100)
+
+
 def kernel_phase(torch, adj, vt, batches):
     import numpy as np
     from repro_torch.core.encoding import delta_encode_column, pack_column
@@ -284,6 +325,10 @@ def kernel_phase(torch, adj, vt, batches):
     from repro_torch.kernels.pac_decode import ops
     from repro_torch.kernels.pac_decode import ref as PR
     dev = torch.device(DEVICE)
+    one, each = launch_floor_ms(torch, dev)
+    log(f"kernels: launch floor: an empty kernel takes {one:.4f} ms from "
+        f"launch to completion (median of 20), {each:.4f} ms each queued "
+        f"back to back")
     col = adj.table["<dst>"].encoded
     plan = col.packed_cache.device_plan(dev)
     n_pages, d = plan[1].shape
@@ -349,9 +394,11 @@ def kernel_phase(torch, adj, vt, batches):
     fw = LK.cond_bitmap(pos_t, meta_t, fplan.program.ops, n_words)
     fr = LR.cond_bitmap(pos_t, meta_t, fplan.program.ops, n_words)
     require(torch.equal(fw, fr), f"cond_bitmap differs ({max_err(fw, fr)})")
+    # the least work: one flip per run boundary inside the words of each
+    # leaf the program reads, and each op once per word
     n_ops = len(fplan.program.ops)
-    k_leaves = sum(1 for op in fplan.program.ops if op[0] == "leaf")
-    steps = int(np.ceil(np.log2(fplan.pos.shape[1] + 1)))
+    flips = sum(int((fplan.pos[op[1]] < 32 * n_words).sum())
+                for op in fplan.program.ops if op[0] == "leaf")
     entry("cond_bitmap", "src/repro_torch/kernels/csrc/cond_bitmap.cu",
           "src/repro/kernels/label_filter/kernel.py:88", max_err(fw, fr),
           cuda_ms(torch, lambda: LK.cond_bitmap(
@@ -359,8 +406,12 @@ def kernel_phase(torch, adj, vt, batches):
           cuda_ms(torch, lambda: LR.cond_bitmap(
               pos_t, meta_t, fplan.program.ops, n_words), 3),
           fplan.pos.nbytes + fplan.meta.nbytes + 4 * n_ops + 4 * n_words,
-          32 * n_words * (k_leaves * steps + n_ops))
-    log(f"kernels: cond_bitmap equal over {n_words} words")
+          flips + n_words * n_ops)
+    queued = queued_ms(torch, lambda: LK.cond_bitmap(
+        pos_t, meta_t, fplan.program.ops, n_words), 100)
+    log(f"kernels: cond_bitmap equal over {n_words} words ({n_ops} ops, "
+        f"{flips} run boundaries); {rows[-1]['ms']:.4f} ms a call back to "
+        f"back, {queued:.4f} ms of device queued behind the host")
 
     for name, fwords in (("fused_gather_decode_bitmap_batch", None),
                          ("fused_gather_decode_filter_bitmap_batch", fw)):
@@ -722,6 +773,9 @@ def traversal_kernel_phase(torch, inputs):
         require(equal(TK.khop_scan(k, voff, s_, fw3, n),
                       TR.khop_scan(k, voff, s_, fw3, n)),
                 "khop_scan differs with padding keys or sentinel seeds")
+    # the card's clocks fall while the host works (phase 5): warm it up
+    # before it is timed
+    cuda_ms(torch, lambda: TK.khop_scan(ks, voff, sv, fw3, n), 30)
     visited, planes, _ = want
     frontier = TR._seed_plane(sv, n)
     seen = frontier.clone()
@@ -1861,8 +1915,12 @@ def flash_build_check(report, lib) -> None:
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--lm", action="store_true",
-                    help="run phases 1-2 and 12-13 only (the LM slice)")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--lm", action="store_true",
+                      help="run phases 1-2 and 12-13 only (the LM slice)")
+    only.add_argument("--traversal", action="store_true",
+                      help="run phases 1-3, 5 and 6 only (kernels 3 and 5 "
+                      "and the traversal path)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1920,29 +1978,34 @@ def main() -> int:
         out = phase(*args)
         return out, {n: w.launches for n, w in wrappers.items()}
 
-    # the LM slice first: its host timings come before any profiler in
-    # the process (phases 5 and 8 profile); its own profile runs last
-    t0 = time.perf_counter()
-    lm, a_launches = drive(lm_phase, torch, card)
-    require(a_launches["flash_attention"] > 0,
-            f"the flash kernel never launched: {a_launches}")
-    log(f"12. lm: {LM_ARCH} forward, loss, prefill and decode checked, "
-        f"launches {a_launches} ({time.perf_counter() - t0:.1f} s) on {card}")
-    counts = [a_launches]
+    rows, counts = [], []
+    if not args.traversal:
+        # the LM slice first: its host timings come before any profiler in
+        # the process (phases 5 and 8 profile); its own profile runs last
+        t0 = time.perf_counter()
+        lm, a_launches = drive(lm_phase, torch, card)
+        require(a_launches["flash_attention"] > 0,
+                f"the flash kernel never launched: {a_launches}")
+        log(f"12. lm: {LM_ARCH} forward, loss, prefill and decode checked, "
+            f"launches {a_launches} ({time.perf_counter() - t0:.1f} s) on "
+            f"{card}")
+        counts.append(a_launches)
 
-    t0 = time.perf_counter()
-    rows = flash_kernel_phase(torch)
-    log(f"13. flash kernel: equal to attention_ref within tolerance "
-        f"({time.perf_counter() - t0:.1f} s)")
-    torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rows = flash_kernel_phase(torch)
+        log(f"13. flash kernel: equal to attention_ref within tolerance "
+            f"({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
 
     if not args.lm:
-        graph_rows, graph_counts = graph_phases(torch, drive, wrappers, card)
+        graph_rows, graph_counts = graph_phases(torch, drive, wrappers, card,
+                                                args.traversal)
         rows = graph_rows + rows
         counts += graph_counts
-    t0 = time.perf_counter()
-    lm_profile_phase(torch, lm)
-    log(f"12p. lm profile ({time.perf_counter() - t0:.1f} s)")
+    if not args.traversal:
+        t0 = time.perf_counter()
+        lm_profile_phase(torch, lm)
+        log(f"12p. lm profile ({time.perf_counter() - t0:.1f} s)")
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in counts)
 
@@ -1954,10 +2017,10 @@ def main() -> int:
     return 0
 
 
-def graph_phases(torch, drive, wrappers, card):
-    """Phases 3-11 over the soc-LiveJournal1 graph and ``ldbc_like(40)``;
-    returns their kernel rows and the launch counts of their slice
-    phases."""
+def graph_phases(torch, drive, wrappers, card, traversal_only=False):
+    """Phases 3-11 over the soc-LiveJournal1 graph and ``ldbc_like(40)``
+    (with ``traversal_only``, phases 3, 5 and 6); returns their kernel
+    rows and the launch counts of their slice phases."""
     adj, vt, batches, truth = build_graph()
     t0 = time.perf_counter()
     rows = kernel_phase(torch, adj, vt, batches)
@@ -1965,14 +2028,15 @@ def graph_phases(torch, drive, wrappers, card):
         f"versions ({time.perf_counter() - t0:.1f} s)")
 
     oracle = {}
-    t0 = time.perf_counter()
-    results, launches = drive(slice_phase, torch, adj, vt, batches, card,
-                              oracle)
-    require(all(launches[n] for n in RETRIEVAL_KERNELS),
-            f"a retrieval kernel never launched: {launches}")
-    log(f"4. slice: {len(results)} configurations equal to the numpy "
-        f"oracle, launches {launches} ({time.perf_counter() - t0:.1f} s) "
-        f"on {card}")
+    if not traversal_only:
+        t0 = time.perf_counter()
+        results, launches = drive(slice_phase, torch, adj, vt, batches, card,
+                                  oracle)
+        require(all(launches[n] for n in RETRIEVAL_KERNELS),
+                f"a retrieval kernel never launched: {launches}")
+        log(f"4. slice: {len(results)} configurations equal to the numpy "
+            f"oracle, launches {launches} ({time.perf_counter() - t0:.1f} "
+            f"s) on {card}")
 
     t0 = time.perf_counter()
     trav, t_launches = drive(traversal_slice_phase, torch, adj, vt, card)
@@ -1987,6 +2051,8 @@ def graph_phases(torch, drive, wrappers, card):
     rows += traversal_kernel_phase(torch, trav["inputs"])
     log(f"6. traversal kernels: all three equal to their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
+    if traversal_only:
+        return rows, [t_launches]
 
     t0 = time.perf_counter()
     pd, p_launches = drive(per_dispatch_phase, torch, adj, vt, batches, card,

@@ -1,6 +1,8 @@
 // The label-predicate interpreter shared by cond_bitmap.cu and the
 // filtered per-dispatch retrieval (per_dispatch.cu), and the RLE leaf
-// evaluated a word at a time (rle_word, for rle_filter.cu).
+// evaluated a word at a time (rle_word, for rle_filter.cu).  The word-wide
+// pieces at the end (leaf_word, lanes_below, WordStack, apply_word_op)
+// run the same program on whole 32-lane words (cond_bitmap.cu).
 //
 // pos int32[k, n_pos] holds each label's RLE interval position list,
 // padded with the row count; meta int32[k, 2] = (first_value, count); ops
@@ -77,6 +79,64 @@ __device__ __forceinline__ bool eval_cond(const int* __restrict__ pos,
     }
   }
   return (stack & 1ull) && lane < meta[1];
+}
+
+
+constexpr unsigned kAllLanes = 0xFFFFFFFFu;
+
+// A leaf's 32 bits from the parity of its lanes' runs (bit b of `odd`:
+// run & 1 at lane b): first_value ^ (run & 1) == 1, as eval_cond reads
+// it, for any first_value.
+__device__ __forceinline__ unsigned leaf_word(unsigned odd, int first_value) {
+  const unsigned if_even = first_value == 1 ? kAllLanes : 0u;
+  const unsigned if_odd = first_value == 0 ? kAllLanes : 0u;
+  return (odd & if_odd) | (~odd & if_even);
+}
+
+// The lanes of the word starting at lane0 that are below count.
+__device__ __forceinline__ unsigned lanes_below(int lane0, int count) {
+  const long long k = static_cast<long long>(count) - lane0;
+  return k >= 32 ? kAllLanes : (k <= 0 ? 0u : (1u << k) - 1u);
+}
+
+// The program's stack of predicate words.  Up to 8 deep it is a shift
+// register (slot 0 the top, every index fixed at compile time, so it
+// stays in registers); deeper programs index a local array.
+template <int kDepth>
+struct WordStack {
+  unsigned slot[kDepth];
+  int top = 0;
+
+  __device__ __forceinline__ void push(unsigned x) {
+    if (kDepth <= 8) {
+#pragma unroll
+      for (int i = kDepth - 1; i > 0; --i) slot[i] = slot[i - 1];
+      slot[0] = x;
+    } else {
+      slot[top++] = x;
+    }
+  }
+
+  __device__ __forceinline__ unsigned pop() {
+    if (kDepth > 8) return slot[--top];
+    const unsigned x = slot[0];
+#pragma unroll
+    for (int i = 0; i < kDepth - 1; ++i) slot[i] = slot[i + 1];
+    return x;
+  }
+};
+
+// One NOT, AND or OR of the program on whole words (op < 0; any opcode
+// but NOT and AND is OR, as in eval_cond).
+template <int kDepth>
+__device__ __forceinline__ void apply_word_op(WordStack<kDepth>& st, int op) {
+  if (op == kOpNot) {
+    st.push(~st.pop());
+  } else {
+    const unsigned b = st.pop();
+    const unsigned a = st.pop();
+    st.push(op == kOpAnd ? (a & b) : (a | b));
+  }
 }
 
 }  // namespace rt

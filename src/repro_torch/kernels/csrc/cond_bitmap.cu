@@ -10,19 +10,30 @@
 // - 1 (searchsorted side="right"); the program combines the leaves, lanes
 // at or past meta[0][1] are 0, and the bits pack into uint32 words.
 //
-// Bound on the H100: the bytes are few (k * n_pos * 4 read, 4 * n_words
-// written); the work is n_words * 32 lanes x (one step per level of each
-// leaf's binary search over n_pos positions + one per program op), counted
-// as 32-bit operations at the card's 67 T/s non-tensor 32-bit rate (the
-// data sheet's float32 figure).  The predicate plane is built once per
-// (filter, n_words) and reused by every filtered dispatch.
+// Bound on the H100: bytes.  The kernel must read pos, meta and the
+// opcodes once and write 4 * n_words bytes; the work is one flip per run
+// boundary and n_ops word operations per output word, 32-bit operations
+// at the card's 67 T/s non-tensor rate, far below the bytes.  Writing the
+// words alone (606 KB at soc-LiveJournal1 scale) takes 0.18 us, well
+// under a launch, so the kernel's aim is to add little to its launch.  The
+// predicate plane is built once per (filter, n_words) and reused by every
+// filtered dispatch.
 //
-// Design: one thread per bit lane and one warp per output word, so the 32
-// lanes of a word pack with a single __ballot_sync.  The program is data,
-// not generated source: each thread walks the opcode array with the
-// interpreter of cond.cuh (its stack one 64-bit register).  Neighbouring
-// lanes search the same run boundaries, so the binary searches hit the
-// same cache lines.
+// Design: a thread per output word and a block per range of kThreads
+// words.  A leaf's word needs only the parity of its run at the word's
+// first lane and the run boundaries that fall inside its 32 lanes: each
+// boundary p flips the parity of the lanes from p on,
+// odd ^= ~0u << (p - lane0), so the word costs one flip per boundary and
+// no search per lane.  The block first finds, for every label row, the
+// slice of pos that falls in its lanes, two warp-wide 32-ary searches
+// (all rows at once, spread over the warps); for each leaf of the program
+// it then stages that slice into shared memory with coalesced loads, in
+// chunks of kChunk positions, so a dense list (a boundary every lane, as a
+// numeric predicate over a scattered column can give) streams through the
+// same loop, and each thread finds its first boundary with a binary search
+// in shared memory.  The program then runs on whole words (NOT, AND, OR of
+// 32 lanes at once) over a stack of words: in registers up to 8 deep, in
+// local memory up to 64 (the wrapper passes the program's depth).
 #include <cuda_runtime.h>
 
 #include "cond.cuh"
@@ -30,31 +41,132 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kLanes = 32 * kThreads;  // bit lanes of one block
+constexpr int kChunk = 2048;           // positions staged at a time
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__global__ void __launch_bounds__(kThreads)
-cond_bitmap_kernel(const int* __restrict__ pos, const int* __restrict__ meta,
-                   int n_pos, const int* __restrict__ ops, int n_ops,
-                   unsigned* __restrict__ words, int n_words) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const int word = lane >> 5;
-  if (word >= n_words) return;  // whole warps leave together
-  const bool bit = rt::eval_cond(pos, meta, n_pos, ops, n_ops, lane);
-  const unsigned w = __ballot_sync(0xFFFFFFFFu, bit);
-  if ((threadIdx.x & 31) == 0) words[word] = w;
+// The number of entries of the sorted row[0, n) that are <= x, found by
+// the 32 lanes of a warp together: each step probes the last entry of
+// each of 32 near-equal parts of [lo, hi), so the range shrinks 32-fold.
+__device__ __forceinline__ int warp_upper_bound(const int* __restrict__ row,
+                                                int n, int x) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0;
+  int hi = n;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const long long m = hi - lo;
+    const int idx = lo + static_cast<int>((m * (lane + 1)) >> 5) - 1;
+    const bool le = idx < lo || row[idx] <= x;
+    // sorted entries: the lanes that hold are a prefix
+    const int t = __popc(__ballot_sync(kFull, le));
+    const int below = __shfl_sync(kFull, idx, t > 0 ? t - 1 : 0);
+    const int above = __shfl_sync(kFull, idx, t < 32 ? t : 31);
+    lo = t > 0 ? below + 1 : lo;
+    hi = t < 32 ? above : hi;
+  }
+  return lo;
 }
+
+template <int kDepth>
+__global__ void __launch_bounds__(kThreads)
+cond_words_kernel(const int* __restrict__ pos, const int* __restrict__ meta,
+                  int k, int n_pos, const int* __restrict__ ops, int n_ops,
+                  unsigned* __restrict__ words, int n_words) {
+  extern __shared__ int bounds[];  // [2 r], [2 r + 1]: row r's slice
+  __shared__ int chunk[kChunk];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int first_lane = blockIdx.x * kLanes;
+  const int last_lane = static_cast<int>(
+      min(static_cast<long long>(first_lane) + kLanes, 32LL * n_words) - 1);
+  for (int q = warp; q < 2 * k; q += kWarps) {
+    const int ub = warp_upper_bound(pos + static_cast<size_t>(q >> 1) * n_pos,
+                                    n_pos, q & 1 ? last_lane : first_lane);
+    if (lane == 0) bounds[q] = ub;
+  }
+  __syncthreads();
+  const int w = blockIdx.x * kThreads + threadIdx.x;
+  const bool in = w < n_words;
+  const int lane0 = in ? w << 5 : 0;
+  rt::WordStack<kDepth> st;
+  for (int o = 0; o < n_ops; ++o) {
+    const int op = ops[o];  // the same for every thread
+    if (op < 0) {
+      rt::apply_word_op(st, op);
+      continue;
+    }
+    // leaf `op`: its positions in (first_lane, last_lane] are row[lo, hi)
+    const int* row = pos + static_cast<size_t>(op) * n_pos;
+    const int lo = bounds[2 * op];
+    const int hi = bounds[2 * op + 1];
+    int cnt = lo;  // positions <= lane0
+    unsigned flips = 0u;
+    for (int c = lo; c < hi; c += kChunk) {
+      const int m = min(kChunk, hi - c);
+      __syncthreads();  // the last chunk's readers are done
+      for (int i = threadIdx.x; i < m; i += kThreads) chunk[i] = row[c + i];
+      __syncthreads();
+      if (in) {
+        int j = rt::upper_bound(chunk, m, lane0);
+        cnt += j;
+        while (j < m && chunk[j] <= lane0 + 31) {
+          // a run of equal positions flips by its count's parity (the
+          // list's padding repeats the row count many times)
+          const int p = chunk[j];
+          int e = j + 1;
+          if (e < m && chunk[e] == p) {
+            e = j + rt::upper_bound(chunk + j, m - j, p);
+          }
+          if ((e - j) & 1) flips ^= kFull << (p - lane0);
+          j = e;
+        }
+      }
+    }
+    // run = cnt - 1 at lane0; each boundary inside the word flips the rest
+    const unsigned odd = (((cnt - 1) & 1) ? kFull : 0u) ^ flips;
+    st.push(rt::leaf_word(odd, meta[2 * op]));
+  }
+  const unsigned out = st.pop();
+  if (in) words[w] = out & rt::lanes_below(lane0, meta[1]);
+}
+
+template <int kDepth>
+int cond_words_launch(const int* pos, const int* meta, int k, int n_pos,
+                      const int* ops, int n_ops, int* words, int n_words,
+                      cudaStream_t stream) {
+  const size_t dyn = 2 * sizeof(int) * static_cast<size_t>(k);
+  if (dyn > 32 * 1024) {  // past the default 48 KB with the chunk
+    const cudaError_t err = cudaFuncSetAttribute(
+        cond_words_kernel<kDepth>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(dyn));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (n_words + kThreads - 1) / kThreads;
+  cond_words_kernel<kDepth><<<blocks, kThreads, dyn, stream>>>(
+      pos, meta, k, n_pos, ops, n_ops, reinterpret_cast<unsigned*>(words),
+      n_words);
+  return static_cast<int>(cudaGetLastError());
+}
+
+__global__ void empty_kernel() {}
 
 }  // namespace
 
-extern "C" int rt_cond_bitmap(const int* pos, const int* meta, int n_pos,
-                              const int* ops, int n_ops, int* words,
-                              int n_words, void* stream) {
-  if (n_words > 0) {
-    const long long lanes = 32LL * n_words;
-    const int blocks = static_cast<int>((lanes + kThreads - 1) / kThreads);
-    cond_bitmap_kernel<<<blocks, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        pos, meta, n_pos, ops, n_ops, reinterpret_cast<unsigned*>(words),
-        n_words);
-  }
+// depth: the program's deepest stack (at most 64, as the wrapper checks)
+extern "C" int rt_cond_bitmap(const int* pos, const int* meta, int k,
+                              int n_pos, const int* ops, int n_ops, int depth,
+                              int* words, int n_words, void* stream) {
+  if (n_words <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return depth <= 8 ? cond_words_launch<8>(pos, meta, k, n_pos, ops, n_ops,
+                                           words, n_words, s)
+                    : cond_words_launch<64>(pos, meta, k, n_pos, ops, n_ops,
+                                            words, n_words, s);
+}
+
+// One launch of an empty kernel: the floor under every kernel's time.
+extern "C" int rt_launch_floor(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

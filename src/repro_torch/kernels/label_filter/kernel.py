@@ -8,7 +8,7 @@ its launches in ``launches``.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple, Union
+from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
 
@@ -29,6 +29,11 @@ def encode_program(ops: Sequence[Tuple]) -> List[int]:
     """Postfix program -> the kernel's int32 opcodes (i >= 0: push leaf i,
     -1 NOT, -2 AND, -3 OR).  Raises for a malformed program or one deeper
     than :data:`MAX_DEPTH`."""
+    return _encode(ops)[0]
+
+
+def _encode(ops: Sequence[Tuple]) -> Tuple[List[int], int]:
+    """:func:`encode_program`'s opcodes and the program's deepest stack."""
     codes, depth, deepest = [], 0, 0
     for op in ops:
         if op[0] == OP_LEAF:
@@ -48,25 +53,51 @@ def encode_program(ops: Sequence[Tuple]) -> List[int]:
         raise ValueError(f"malformed program: {depth} planes left")
     if deepest > MAX_DEPTH:
         raise ValueError(f"program needs a stack of {deepest} > {MAX_DEPTH}")
-    return codes
+    return codes, deepest
 
 
-def program_args(pos: torch.Tensor, meta: torch.Tensor, codes: List[int],
-                 n_words: int) -> torch.Tensor:
-    """Check the filter inputs of a launch; returns the opcodes on the
-    filter's device."""
+#: (device, program) -> (the opcodes on that device, the program's depth,
+#: its highest leaf), so a launch copies no program to the card
+_PROGRAMS: Dict[Tuple[torch.device, Tuple], Tuple[torch.Tensor, int, int]] = {}
+
+
+def device_program(ops: Sequence[Tuple], device
+                   ) -> Tuple[torch.Tensor, int]:
+    """``(opcodes, depth)``: the program's opcodes as an int32 tensor on
+    ``device``, one tensor per ``(device, program)`` made on first use and
+    kept, and its deepest stack.  Raises as :func:`encode_program`."""
+    opcodes, depth, _ = _program(ops, torch.device(device))
+    return opcodes, depth
+
+
+def _program(ops: Sequence[Tuple], device: torch.device
+             ) -> Tuple[torch.Tensor, int, int]:
+    key = (device, tuple(ops))
+    hit = _PROGRAMS.get(key)
+    if hit is None:
+        codes, depth = _encode(ops)
+        hit = (torch.tensor(codes, dtype=torch.int32).to(device), depth,
+               max(codes))
+        _PROGRAMS[key] = hit
+    return hit
+
+
+def program_args(pos: torch.Tensor, meta: torch.Tensor, ops: Sequence[Tuple],
+                 n_words: int) -> Tuple[torch.Tensor, int]:
+    """Check the filter inputs of a launch; returns :func:`device_program`
+    on the filter's device."""
     dev = pos.device
     B.check(pos, "pos", dev, 2)
     B.check(meta, "meta", dev, 2)
     if meta.shape != (pos.shape[0], 2):
         raise ValueError(f"meta {tuple(meta.shape)} does not match pos "
                          f"{tuple(pos.shape)}")
-    if max(codes) >= pos.shape[0]:
-        raise ValueError(f"program reads leaf {max(codes)} of "
-                         f"{pos.shape[0]}")
+    opcodes, depth, top_leaf = _program(ops, dev)
+    if top_leaf >= pos.shape[0]:
+        raise ValueError(f"program reads leaf {top_leaf} of {pos.shape[0]}")
     if 32 * n_words >= 1 << 31:
         raise ValueError(f"n_words={n_words} overflows int32 bit lanes")
-    return torch.tensor(codes, dtype=torch.int32).to(dev)
+    return opcodes, depth
 
 
 def cond_bitmap(pos: torch.Tensor, meta: torch.Tensor, ops: Sequence[Tuple],
@@ -74,14 +105,15 @@ def cond_bitmap(pos: torch.Tensor, meta: torch.Tensor, ops: Sequence[Tuple],
     """Evaluate the postfix program ``ops`` over the RLE position lists
     -> int32[n_words] predicate words over ``[0, 32 * n_words)``."""
     note_shape("cond_bitmap", tuple(pos.shape), n_words, tuple(ops))
-    codes = encode_program(ops)
     if not B.on_cuda(pos):
+        encode_program(ops)
         return R.cond_bitmap(pos, meta, ops, n_words)
     dev = pos.device
-    opcodes = program_args(pos, meta, codes, n_words)
+    opcodes, depth = program_args(pos, meta, ops, n_words)
     out = torch.empty(n_words, dtype=torch.int32, device=dev)
-    B.launch("rt_cond_bitmap", B.ptr(pos), B.ptr(meta), pos.shape[1],
-             B.ptr(opcodes), len(codes), B.ptr(out), n_words, B.stream(dev))
+    B.launch("rt_cond_bitmap", B.ptr(pos), B.ptr(meta), pos.shape[0],
+             pos.shape[1], B.ptr(opcodes), opcodes.shape[0], depth,
+             B.ptr(out), n_words, B.stream(dev))
     cond_bitmap.launches += 1
     return out
 
@@ -122,7 +154,7 @@ def fused_decode_filter_bitmap_batch(
     note_shape("fused_decode_filter_bitmap_batch", tuple(packed.shape),
                tuple(cached.shape), gidx.shape[0], n_words,
                tuple(fpos.shape), tuple(ops))
-    codes = encode_program(ops)
+    encode_program(ops)
     if not B.on_cuda(first):
         return R.fused_filter_batch(first, min_deltas, bit_widths,
                                     word_offsets, packed, counts, cached,
@@ -130,12 +162,12 @@ def fused_decode_filter_bitmap_batch(
     if fpos.device != first.device:
         raise ValueError(f"fpos is on {fpos.device}, expected "
                          f"{first.device}")
-    opcodes = program_args(fpos, fmeta, codes, n_words)
+    opcodes, _ = program_args(fpos, fmeta, ops, n_words)
     out = PK.decode_launch("rt_fused_decode_filter_bitmap_batch", first,
                            min_deltas, bit_widths, word_offsets, packed,
                            counts, cached, gidx, gcount, n_words,
                            B.ptr(fpos), B.ptr(fmeta), fpos.shape[1],
-                           B.ptr(opcodes), len(codes))
+                           B.ptr(opcodes), opcodes.shape[0])
     fused_decode_filter_bitmap_batch.launches += 1
     return out
 

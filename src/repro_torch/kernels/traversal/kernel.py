@@ -3,13 +3,16 @@
 As in :mod:`repro_torch.kernels.pac_decode.kernel`: CUDA tensors launch
 the kernels, CPU tensors run the plain versions in :mod:`.ref`, and there
 is no fallback from one to the other.  Each wrapper counts the CUDA
-kernels it launches in a plain integer attribute, ``launches``: one per
-hop for :func:`khop_scan`, two (one per expansion) for :func:`two_hop`
-and for :func:`count_hop` (the interval plane, then the count).
+kernels it launches in a plain integer attribute, ``launches``: one for
+the seeds and one per hop for :func:`khop_scan`, two (one per expansion)
+for :func:`two_hop` and for :func:`count_hop` (the interval plane, then
+the count).
 
-The seed plane is a zero fill plus a masked scatter, and the interval
-bounds are sorted once per call; both are small torch ops around the
-kernels, as JAX computes them outside its ``pallas_call``.
+``khop_scan``'s seeds go into the zeroed visited plane and frontier
+words by a launch of their own, where JAX builds its seed plane outside
+the ``pallas_call``; ``two_hop``'s seed plane is a zero fill plus a
+masked scatter, and the interval bounds are sorted once per call, small
+torch ops around the kernels.
 """
 from __future__ import annotations
 
@@ -56,34 +59,66 @@ def _check_words(words: torch.Tensor, name: str, shape: Tuple[int, ...],
                          f"{shape} covering {n} ids")
 
 
+#: the most words of frontier summary a hop kernel block keeps in shared
+#: memory (24 KB): one bit for each 2**g frontier words, g as small as fits
+SUMMARY_WORDS = 6144
+
+
+def _summary_shape(n_words: int) -> Tuple[int, int]:
+    """``(g, n_sum)``: the frontier summary's bit ``w >> g`` covers
+    frontier word ``w``, in ``n_sum <= SUMMARY_WORDS`` words."""
+    if n_words == 0:
+        return 0, 0
+    g = 0
+    while ((n_words - 1) >> g) // 32 + 1 > SUMMARY_WORDS:
+        g += 1
+    return g, ((n_words - 1) >> g) // 32 + 1
+
+
 def khop_scan(key_sorted: torch.Tensor, voff: torch.Tensor,
               seed_ids: torch.Tensor, filt_words: torch.Tensor, n_out: int
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused k-hop (see :func:`.ref.khop_scan`): the hops are
-    ``filt_words.shape[0]`` kernel launches queued on the current stream
-    with no host synchronisation between them.  Returns ``(visited,
-    hop_planes, hop_sizes)``."""
+    """Fused k-hop (see :func:`.ref.khop_scan`): a seed launch, then
+    ``filt_words.shape[0]`` hop launches, queued on the current stream
+    with no host synchronisation.  Returns ``(visited, hop_planes,
+    hop_sizes)``."""
     note_shape("khop_scan", key_sorted.shape[0], seed_ids.shape[0],
                tuple(filt_words.shape), n_out)
     if not B.on_cuda(seed_ids):
         return R.khop_scan(key_sorted, voff, seed_ids, filt_words, n_out)
     dev = seed_ids.device
     _check_plan(key_sorted, voff, n_out, dev)
+    if key_sorted.data_ptr() % 16:
+        raise ValueError("key_sorted is not 16-byte aligned")
     B.check(seed_ids, "seed_ids", dev, 1)
     hops = filt_words.shape[0] if filt_words.dim() == 2 else -1
-    _check_words(filt_words, "filt_words", (hops, -(-n_out // 32)), n_out,
-                 dev)
-    f0 = R._seed_plane(seed_ids, n_out)
-    visited = f0.clone()
+    n_words = -(-n_out // 32)
+    _check_words(filt_words, "filt_words", (hops, n_words), n_out, dev)
+    visited = torch.zeros(n_out, dtype=torch.int32, device=dev)
+    g, n_sum = _summary_shape(n_words)
+    buf = torch.zeros(3 * (n_words + n_sum), dtype=torch.int32, device=dev)
+    # the frontier words of even and odd hops, and the visited words
+    words = buf[:3 * n_words].view(3, n_words)
+    # the frontier words' summaries, three in turn: a hop reads one,
+    # writes the next and zeroes the one after
+    sums = buf[3 * n_words:].view(3, n_sum)
     planes = torch.empty((hops, n_out), dtype=torch.int32, device=dev)
-    sizes = torch.zeros(hops, dtype=torch.int32, device=dev)
-    frontier = f0
-    for h in range(hops):
-        B.launch("rt_khop_hop", B.ptr(key_sorted), B.ptr(voff), n_out,
-                 B.ptr(frontier), B.ptr(visited), B.ptr(filt_words[h]),
-                 B.ptr(planes[h]), B.ptr(sizes[h:h + 1]), B.stream(dev))
+    sizes = torch.empty(hops, dtype=torch.int32, device=dev)
+    s = B.stream(dev)
+    # the C entries launch nothing with no seed and no hop, or no id
+    if max(seed_ids.shape[0], hops) > 0:
+        B.launch("rt_khop_seed", B.ptr(seed_ids), seed_ids.shape[0], n_out,
+                 B.ptr(visited), B.ptr(words[0]), B.ptr(words[2]),
+                 B.ptr(sums[0]), g, B.ptr(sizes), hops, s)
         khop_scan.launches += 1
-        frontier = planes[h]
+    for h in range(hops if n_out > 0 else 0):
+        B.launch("rt_khop_hop", B.ptr(key_sorted), B.ptr(voff), n_out,
+                 B.ptr(words[h % 2]), B.ptr(sums[h % 3]),
+                 B.ptr(sums[(h + 1) % 3]), B.ptr(sums[(h + 2) % 3]), n_sum,
+                 g, B.ptr(words[2]), B.ptr(visited), B.ptr(filt_words[h]),
+                 B.ptr(words[(h + 1) % 2]), B.ptr(planes[h]),
+                 B.ptr(sizes[h:h + 1]), s)
+        khop_scan.launches += 1
     return visited, planes, sizes
 
 

@@ -19,6 +19,8 @@ This file imports nothing of JAX, so it runs where JAX is not installed.
 import numpy as np
 import pytest
 import torch
+from _torch_cases import (COND_CASES, KHOP_CASES, NE, cond_case,
+                          khop_edge_case)
 
 import repro_torch.core as TC
 from repro_torch.configs import get_config
@@ -32,6 +34,7 @@ from repro_torch.kernels.flash_attention import ops as AO
 from repro_torch.kernels.flash_attention import ref as AR
 from repro_torch.kernels.label_filter import kernel as LK
 from repro_torch.kernels.label_filter import ops as LO
+from repro_torch.kernels.label_filter import ref as LR
 from repro_torch.kernels.pac_decode import kernel as PK
 from repro_torch.kernels.pac_decode import ops as PO
 from repro_torch.kernels.pac_decode import ref as PR
@@ -101,10 +104,50 @@ def test_khop_kernel_equals_plain(dev, graph, hops, padded):
     got = K.khop_scan(ks, voff, seeds, fw, N)
     want = R.khop_scan(ks, voff, seeds, fw, N)
     torch.cuda.synchronize()
-    assert K.khop_scan.launches == before + hops
+    assert K.khop_scan.launches == before + hops + 1  # seeds, then hops
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(want[2].sum()) > 0
+
+
+@pytest.mark.parametrize("coarse", [False, True])
+@pytest.mark.parametrize("case", KHOP_CASES)
+def test_khop_kernel_edge_cases_equal_plain(dev, monkeypatch, case, coarse):
+    if coarse:          # a summary bit for every 8 frontier words
+        monkeypatch.setattr(K, "_summary_shape",
+                            lambda nw: (3, ((nw - 1) >> 3) // 32 + 1))
+    ks, voff, seeds, fw = (torch.from_numpy(a).to(dev)
+                           for a in khop_edge_case(case))
+    got = K.khop_scan(ks, voff, seeds, fw, NE)
+    want = R.khop_scan(ks, voff, seeds, fw, NE)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if case == "hub_last_row":
+        assert int(want[1][0, 5]) == 1
+
+
+def test_khop_kernel_refuses_misaligned_rows(dev):
+    ks, voff, seeds, fw = (torch.from_numpy(a).to(dev)
+                           for a in khop_edge_case("segments"))
+    shifted = torch.empty(ks.shape[0] + 1, dtype=torch.int32, device=dev)
+    shifted[1:] = ks            # the same rows, 4 bytes off 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.khop_scan(shifted[1:], voff, seeds, fw, NE)
+
+
+@pytest.mark.parametrize("past_count", [False, True])
+@pytest.mark.parametrize("case", COND_CASES)
+def test_cond_bitmap_kernel_equals_plain(dev, case, past_count):
+    pos, meta, ops = cond_case(case)
+    n_words = -(-int(meta[0, 1]) // 32) + (5 if past_count else 0)
+    pos, meta = torch.from_numpy(pos).to(dev), torch.from_numpy(meta).to(dev)
+    before = LK.cond_bitmap.launches
+    got = LK.cond_bitmap(pos, meta, ops, n_words)
+    want = LR.cond_bitmap(pos, meta, ops, n_words)
+    torch.cuda.synchronize()
+    assert LK.cond_bitmap.launches == before + 1
+    assert torch.equal(got, want) and bool(want.any())
 
 
 @pytest.mark.parametrize("padded", [False, True])

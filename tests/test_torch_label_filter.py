@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
+from _torch_cases import COND_CASES, DEPTH_64, cond_case
 
 import repro.core as RC
 import repro_torch.core as TC
@@ -161,3 +162,33 @@ def test_program_encoding_limits():
         LK.encode_program(TC.compile_cond(deep).ops)
     with pytest.raises(ValueError, match="malformed"):
         LK.encode_program((("and",),))
+
+
+@pytest.mark.parametrize("past_count", [False, True])
+@pytest.mark.parametrize("case", COND_CASES)
+def test_cond_bitmap_edge_cases_match_jnp_ref(case, past_count):
+    pos, meta, ops = cond_case(case)
+    n_words = -(-int(meta[0, 1]) // 32) + (5 if past_count else 0)
+    got = LK.cond_bitmap(torch.from_numpy(pos), torch.from_numpy(meta), ops,
+                         n_words)
+    want = RLR.cond_bitmap_ref(jnp.asarray(pos), jnp.asarray(meta),
+                               n_words=n_words, ops=ops)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.asarray(want))
+    assert got.numpy().any()
+
+
+def test_device_program_is_cached_per_device_and_program():
+    ops = (("leaf", 0), ("leaf", 1), ("and",))
+    opcodes, depth = LK.device_program(ops, "cpu")
+    assert opcodes.tolist() == [0, 1, -2] and depth == 2
+    again, _ = LK.device_program(ops, torch.device("cpu"))
+    assert again is opcodes
+    other, depth = LK.device_program(DEPTH_64, "cpu")
+    assert other is not opcodes and depth == 64
+    assert LK.device_program(DEPTH_64, "cpu")[0] is other
+    deeper = tuple([("leaf", 0)] * 65 + [("or",)] * 64)
+    with pytest.raises(ValueError, match="stack of 65 > 64"):
+        LK.device_program(deeper, "cpu")
+    with pytest.raises(ValueError, match="stack of 65 > 64"):
+        LK.encode_program(deeper)

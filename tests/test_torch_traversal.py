@@ -12,6 +12,7 @@ counts, IOMeter and LRU counters must be identical (exact equality).
 import numpy as np
 import pytest
 import torch
+from _torch_cases import KHOP_CASES, NE, khop_edge_case
 
 import repro.core as RC
 import repro_torch.core as TC
@@ -113,6 +114,23 @@ def test_khop_scan_equals_reference(plan, hops, padded):
     for w, g in zip(want, got):
         np.testing.assert_array_equal(_np(g), _np(w))
     assert _np(got[1]).sum() > 0            # the hops discovered something
+
+
+@pytest.mark.parametrize("case", KHOP_CASES)
+def test_khop_scan_edge_cases_equal_reference(case):
+    ks, voff, seeds, fw = khop_edge_case(case)
+    want = JR.khop_scan_ref(_jnp(ks), _jnp(voff), _jnp(seeds),
+                            _jnp(fw.view(np.uint32)), n_out=NE)
+    got = TR.khop_scan(_t(ks), _t(voff), _t(seeds), _t(fw), NE)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(_np(g), _np(w))
+    sizes = _np(got[2])
+    if case == "segments":
+        assert sizes.min() > 0
+    elif case == "hub_last_row":
+        assert _np(got[1])[0, 5] == 1
+    else:
+        assert sizes.sum() == 0
 
 
 @pytest.mark.parametrize("padded", [False, True])
