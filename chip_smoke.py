@@ -42,7 +42,8 @@ process; the LM profile runs last):
      against their plain versions on the card, bit for bit, at the
      traversal path's shapes and with padding keys, sentinel seeds and
      intervals, overlapping intervals and an end equal to ``n_key``; timed
-     against the plain version and against the bound.
+     against the plain version and against the bound.  (Row 7b,
+     ``count_hop`` at BI-2's shape, is measured after phase 8.)
   7. per-dispatch: the configurations of phase 4 again, on the
      per-dispatch pack route (``pac_decode.ops.DEVICE_RESIDENT`` off for
      the phase: pages shipped packed with every dispatch), each run held
@@ -56,7 +57,11 @@ process; the LM profile runs last):
      the resident route and then the per-dispatch one, each run held
      against the numpy engine (result and IOMeter) and the acero baseline
      (result), timed (host ms, median of 3) beside acero; each route's
-     kernels must have launched;
+     kernels must have launched; profiled (host cProfile, device busy by
+     kernel, ``count_hop``'s device ms for BI-2); then, outside the counted
+     run, row 7b: ``count_hop`` at BI-2's shape (the ``message-hasTag-tag``
+     plan, 3,200,000 messages to 64 tags, over TagClass3's intervals)
+     against its plain version bit for bit, timed beside it and its bound;
   9. per-dispatch kernels: ``delta_decode``, ``fused_decode_bitmap_batch``
      and ``fused_decode_filter_bitmap_batch`` against their plain versions
      on the card, bit for bit, at phase 7's batch-16384 cold-LRU shapes,
@@ -153,6 +158,8 @@ PER_DISPATCH_KERNELS = ("delta_decode", "fused_decode_bitmap_batch",
 LDBC_KERNELS = {"resident": ("gather_decode", "cond_bitmap", "two_hop",
                              "count_hop"),
                 "per-dispatch": ("cond_bitmap",) + PER_DISPATCH_KERNELS}
+#: the CUDA kernels of ``count_hop`` as the profiler names them
+COUNT_HOP_KERNELS = ("interval_words_kernel", "count_tiles_kernel")
 #: kernels of the single-range, RLE-label and selection entries (phase 10)
 ENTRY_KERNELS = ("bitmap", "fused_decode_bitmap", "rle_to_bitmap",
                  "bitmap_select")
@@ -994,9 +1001,14 @@ def ldbc_phase(torch, card, wrappers):
     # call) and the device's busy share (torch.profiler, 3 calls)
     is3, ic8_label = queries[0], ic8_fused_label  # top degree, fused hop 2
     bi2 = ("BI-2", "TagClass3", None)
-    starts, _ = TC.LabelFilter(g.vertex("message"),
-                               TC.L(bi2[1])).intervals("numpy")
+    starts, ends = TC.LabelFilter(g.vertex("message"),
+                                  TC.L(bi2[1])).intervals("numpy")
     log(f"ldbc: {bi2[1]} labels {len(starts)} intervals of messages")
+    from repro_torch.kernels.traversal import ops as TO
+    results["bi2_inputs"] = {
+        "plan": TO.traversal_plan(g.adjacency("message-hasTag-tag",
+                                              TC.BY_SRC), ENGINE),
+        "intervals": (starts, ends)}
     results["profiles"] = []
     for resident, q in ((True, is3), (False, ic8_label), (True, bi2),
                         (False, bi2)):
@@ -1004,18 +1016,67 @@ def ldbc_phase(torch, card, wrappers):
         hot = host_profile(lambda: graphar(q, ENGINE))
         wall, busy = profile_ms(torch, lambda: graphar(q, ENGINE), 3)
         regime = "resident" if resident else "per-dispatch"
+        hop_ms = sum(v for k, v in busy.items()
+                     if any(c in k for c in COUNT_HOP_KERNELS))
         results["profiles"].append({"query": list(q), "regime": regime,
                                     "host_top": hot, "wall_ms": wall,
-                                    "device_ms": busy})
+                                    "device_ms": busy,
+                                    "count_hop_ms": hop_ms})
         top_dev = sorted(busy.items(), key=lambda kv: -kv[1])[:4]
         log(f"ldbc: profile {q[0]} {q[1]} label={q[2]} {regime}: "
             f"{wall:.3f} ms per call, device busy "
             f"{sum(busy.values()):.3f} ms ("
             + ", ".join(f"{k[:48]} {v:.3f}" for k, v in top_dev)
+            + (f"; count_hop {hop_ms:.4f}" if q[0] == "BI-2" else "")
             + "); host tottime: "
             + ", ".join(f"{name} {ms:.1f} ms" for name, ms in hot))
     pac_ops.DEVICE_RESIDENT = True
     return results
+
+
+def bi2_count_hop_row(torch, inputs):
+    """Row 7b: ``count_hop`` at BI-2's shape -- ``ldbc_like(40)``'s
+    ``message-hasTag-tag`` plan (3,200,000 messages to 64 tags) over
+    TagClass3's intervals of messages, padded as ``frontier_edge_counts``
+    pads them -- against its plain version bit for bit, timed beside it
+    and its bound (counted as phase 6 counts row 7).  It runs after phase
+    8's launch counts are read, so its launches do not count."""
+    import numpy as np
+    from repro_torch.kernels._pad import size_class
+    from repro_torch.kernels.traversal import kernel as TK
+    from repro_torch.kernels.traversal import ops as TO
+    from repro_torch.kernels.traversal import ref as TR
+    dev = torch.device(DEVICE)
+    plan, (starts, ends) = inputs["plan"], inputs["intervals"]
+    ks, voff = plan.device(dev)
+    n = plan.n_value
+    i_pad = size_class(len(starts), TO.INTERVAL_CLASS_MIN)
+    s_ = np.full(i_pad, plan.n_key + 1, np.int32)
+    e_ = np.full(i_pad, plan.n_key + 1, np.int32)
+    s_[:len(starts)] = starts
+    e_[:len(ends)] = ends
+    s_, e_ = torch.from_numpy(s_).to(dev), torch.from_numpy(e_).to(dev)
+    kw = dict(n_key=plan.n_key, n_out=n)
+    want = TR.count_hop(ks, voff, s_, e_, **kw)
+    got = TK.count_hop(ks, voff, s_, e_, **kw)
+    require(torch.equal(got, want), "count_hop differs at BI-2's shape")
+    nbytes = 4 * (int(voff[-1]) + (n + 1) + s_.numel() + e_.numel() + n)
+    each = cuda_ms_each(torch, lambda: TK.count_hop(ks, voff, s_, e_, **kw),
+                        10)
+    row = kernel_row(
+        "count_hop@BI-2", "src/repro_torch/kernels/csrc/traversal.cu",
+        "src/repro/kernels/traversal/kernel.py:113", max_err(got, want),
+        statistics.fmean(each),
+        cuda_ms(torch, lambda: TR.count_hop(ks, voff, s_, e_, **kw), 2),
+        nbytes)
+    log(f"8. count_hop at BI-2's shape equal to its plain version: "
+        f"{plan.n_key} messages, {n} tags, {int(voff[-1])} rows, "
+        f"{len(starts)} intervals (i_pad {i_pad}), {int(want.sum())} edges; "
+        f"kernel {row['ms']:.4f} ms (each "
+        + ", ".join(f"{t:.4f}" for t in each)
+        + f"), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+        f"ms")
+    return row
 
 
 def host_profile(fn, top: int = 6):
@@ -2007,7 +2068,8 @@ def main() -> int:
         lm_profile_phase(torch, lm)
         log(f"12p. lm profile ({time.perf_counter() - t0:.1f} s)")
     for r in rows:
-        r["launches"] = sum(c[r["name"]] for c in counts)
+        # a row named "kernel@shape" times a kernel at another shape
+        r["launches"] = sum(c[r["name"].split("@")[0]] for c in counts)
 
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -2073,6 +2135,7 @@ def graph_phases(torch, drive, wrappers, card, traversal_only=False):
     log(f"8. ldbc: {len(ldbc['queries'])} query runs equal to the numpy "
         f"engine and to acero, launches {l_launches} "
         f"({time.perf_counter() - t0:.1f} s) on {card}")
+    rows.append(bi2_count_hop_row(torch, ldbc["bi2_inputs"]))
 
     t0 = time.perf_counter()
     pd_rows, host = per_dispatch_kernel_phase(torch, adj, vt, batches)

@@ -42,11 +42,14 @@ SIGNATURES = {
                                              _I, _I, _P, _P, _I, _P, _P),
     "rt_cond_bitmap": (_P, _P, _I, _I, _P, _I, _I, _P, _I, _P),
     "rt_launch_floor": (_P,),
-    "rt_khop_seed": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P),
+    "rt_seed_words": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P),
     "rt_khop_hop": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                     _P, _P, _P),
-    "rt_two_hop": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I, _P),
-    "rt_count_hop": (_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P),
+    "rt_expand_words": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P,
+                        _P, _P),
+    "rt_interval_words": (_P, _I, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
+                          _P, _P),
+    "rt_count_tiles": (_P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P),
     "rt_delta_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     "rt_fused_decode_bitmap_batch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _P, _I, _P, _I, _P, _P, _P, _I, _P),

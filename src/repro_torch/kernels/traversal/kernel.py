@@ -4,15 +4,14 @@ As in :mod:`repro_torch.kernels.pac_decode.kernel`: CUDA tensors launch
 the kernels, CPU tensors run the plain versions in :mod:`.ref`, and there
 is no fallback from one to the other.  Each wrapper counts the CUDA
 kernels it launches in a plain integer attribute, ``launches``: one for
-the seeds and one per hop for :func:`khop_scan`, two (one per expansion)
-for :func:`two_hop` and for :func:`count_hop` (the interval plane, then
-the count).
+the seeds and one per hop for :func:`khop_scan`; three for
+:func:`two_hop` (the seeds, expansion A, expansion B); two for
+:func:`count_hop` (the interval words, then the row tiles).
 
-``khop_scan``'s seeds go into the zeroed visited plane and frontier
-words by a launch of their own, where JAX builds its seed plane outside
-the ``pallas_call``; ``two_hop``'s seed plane is a zero fill plus a
-masked scatter, and the interval bounds are sorted once per call, small
-torch ops around the kernels.
+The seeds of ``khop_scan`` and ``two_hop`` go into zeroed frontier words
+by a launch of their own (``rt_seed_words``), where JAX builds its seed
+plane outside the ``pallas_call``; ``count_hop``'s interval bounds are
+sorted by one ``torch.sort`` a call.
 """
 from __future__ import annotations
 
@@ -51,6 +50,12 @@ def _check_plan(ks: torch.Tensor, voff: torch.Tensor, n: int,
     _check_index(ks.shape[0], n)
 
 
+def _check_aligned(ks: torch.Tensor, name: str) -> None:
+    """The kernels read ``key_sorted`` with 16-byte loads."""
+    if ks.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned")
+
+
 def _check_words(words: torch.Tensor, name: str, shape: Tuple[int, ...],
                  n: int, device: torch.device) -> None:
     B.check(words, name, device, len(shape))
@@ -63,14 +68,23 @@ def _check_words(words: torch.Tensor, name: str, shape: Tuple[int, ...],
 #: memory (24 KB): one bit for each 2**g frontier words, g as small as fits
 SUMMARY_WORDS = 6144
 
+#: count_hop's summary takes two bits for each 2**g frontier words (some
+#: set, not all set): at most 2 * COUNT_SUMMARY_WORDS words (40 KB) in a
+#: tile block's shared memory
+COUNT_SUMMARY_WORDS = 5120
 
-def _summary_shape(n_words: int) -> Tuple[int, int]:
+#: rows of one count_hop tile (``kTile`` in ``csrc/traversal.cu``)
+COUNT_TILE = 8192
+
+
+def _summary_shape(n_words: int, cap: int = SUMMARY_WORDS
+                   ) -> Tuple[int, int]:
     """``(g, n_sum)``: the frontier summary's bit ``w >> g`` covers
-    frontier word ``w``, in ``n_sum <= SUMMARY_WORDS`` words."""
+    frontier word ``w``, in ``n_sum <= cap`` words."""
     if n_words == 0:
         return 0, 0
     g = 0
-    while ((n_words - 1) >> g) // 32 + 1 > SUMMARY_WORDS:
+    while ((n_words - 1) >> g) // 32 + 1 > cap:
         g += 1
     return g, ((n_words - 1) >> g) // 32 + 1
 
@@ -88,8 +102,7 @@ def khop_scan(key_sorted: torch.Tensor, voff: torch.Tensor,
         return R.khop_scan(key_sorted, voff, seed_ids, filt_words, n_out)
     dev = seed_ids.device
     _check_plan(key_sorted, voff, n_out, dev)
-    if key_sorted.data_ptr() % 16:
-        raise ValueError("key_sorted is not 16-byte aligned")
+    _check_aligned(key_sorted, "key_sorted")
     B.check(seed_ids, "seed_ids", dev, 1)
     hops = filt_words.shape[0] if filt_words.dim() == 2 else -1
     n_words = -(-n_out // 32)
@@ -107,7 +120,7 @@ def khop_scan(key_sorted: torch.Tensor, voff: torch.Tensor,
     s = B.stream(dev)
     # the C entries launch nothing with no seed and no hop, or no id
     if max(seed_ids.shape[0], hops) > 0:
-        B.launch("rt_khop_seed", B.ptr(seed_ids), seed_ids.shape[0], n_out,
+        B.launch("rt_seed_words", B.ptr(seed_ids), seed_ids.shape[0], n_out,
                  B.ptr(visited), B.ptr(words[0]), B.ptr(words[2]),
                  B.ptr(sums[0]), g, B.ptr(sizes), hops, s)
         khop_scan.launches += 1
@@ -128,8 +141,8 @@ khop_scan.launches = 0
 def two_hop(ks_a, voff_a, ks_b, voff_b, seed_ids: torch.Tensor,
             filt_words: torch.Tensor, *, n_key: int, n_mid: int, n_out: int,
             n_words: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Heterogeneous two-hop chain (see :func:`.ref.two_hop`): the two
-    expansions are two launches on the current stream.  Returns
+    """Heterogeneous two-hop chain (see :func:`.ref.two_hop`): a seed
+    launch and the two expansions, queued on the current stream.  Returns
     ``(mid_plane, out_words)``."""
     note_shape("two_hop", ks_a.shape[0], ks_b.shape[0], seed_ids.shape[0],
                n_key, n_mid, n_out, n_words)
@@ -140,38 +153,50 @@ def two_hop(ks_a, voff_a, ks_b, voff_b, seed_ids: torch.Tensor,
     dev = seed_ids.device
     _check_plan(ks_a, voff_a, n_mid, dev, "_a")
     _check_plan(ks_b, voff_b, n_out, dev, "_b")
+    _check_aligned(ks_a, "key_sorted_a")
+    _check_aligned(ks_b, "key_sorted_b")
     B.check(seed_ids, "seed_ids", dev, 1)
     _check_words(filt_words, "filt_words", (n_words,), n_out, dev)
     _check_index(32 * n_words, n_key)
-    f0 = R._seed_plane(seed_ids, n_key)
+    nw_key, nw_mid = -(-n_key // 32), -(-n_mid // 32)
+    g_key, ns_key = _summary_shape(nw_key)
+    g_mid, ns_mid = _summary_shape(nw_mid)
+    # the seed words and their summary, the mid words and their summary
+    buf = torch.zeros(nw_key + ns_key + nw_mid + ns_mid, dtype=torch.int32,
+                      device=dev)
+    seed_words, seed_sum, mid_words, mid_sum = buf.split(
+        [nw_key, ns_key, nw_mid, ns_mid])
     mid = torch.empty(n_mid, dtype=torch.int32, device=dev)
     words = torch.empty(n_words, dtype=torch.int32, device=dev)
-    B.launch("rt_two_hop", B.ptr(ks_a), B.ptr(voff_a), n_key, B.ptr(f0),
-             B.ptr(mid), n_mid, B.ptr(ks_b), B.ptr(voff_b), n_out,
-             B.ptr(filt_words), B.ptr(words), n_words, B.stream(dev))
-    two_hop.launches += 2
+    s = B.stream(dev)
+    if seed_ids.shape[0] > 0:
+        B.launch("rt_seed_words", B.ptr(seed_ids), seed_ids.shape[0], n_key,
+                 None, B.ptr(seed_words), None, B.ptr(seed_sum), g_key, None,
+                 0, s)
+        two_hop.launches += 1
+    if n_mid > 0:
+        B.launch("rt_expand_words", B.ptr(ks_a), B.ptr(voff_a), n_mid,
+                 nw_mid, B.ptr(seed_words), B.ptr(seed_sum), n_key, ns_key,
+                 g_key, B.ptr(mid_sum), g_mid, None, B.ptr(mid_words),
+                 B.ptr(mid), s)
+        two_hop.launches += 1
+    if n_words > 0:
+        B.launch("rt_expand_words", B.ptr(ks_b), B.ptr(voff_b), n_out,
+                 n_words, B.ptr(mid_words), B.ptr(mid_sum), n_mid, ns_mid,
+                 g_mid, None, 0, B.ptr(filt_words), B.ptr(words), None, s)
+        two_hop.launches += 1
     return mid, words
 
 
 two_hop.launches = 0
 
 
-def _sorted_bounds(x: torch.Tensor, n_key: int) -> torch.Tensor:
-    """Interval bounds as the kernel reads them: ``mode="drop"`` indices
-    into ``n_key + 1`` slots (negatives normalised once, the rest mapped
-    to the sentinel ``n_key + 1``, which is never <= a key), sorted."""
-    i = x.long()
-    size = n_key + 1
-    i = torch.where(i < 0, i + size, i)
-    i = torch.where((i < 0) | (i >= size), size, i)
-    return torch.sort(i).values.to(torch.int32)
-
-
 def count_hop(key_sorted: torch.Tensor, voff: torch.Tensor,
               starts: torch.Tensor, ends: torch.Tensor, *, n_key: int,
               n_out: int) -> torch.Tensor:
     """Counting expansion (see :func:`.ref.count_hop`): per-target edge
-    counts int32[n_out] of an interval frontier."""
+    counts int32[n_out] of an interval frontier, by two launches: the
+    interval words (and zeroed counts), then the row tiles."""
     note_shape("count_hop", key_sorted.shape[0], starts.shape[0],
                ends.shape[0], n_key, n_out)
     if not B.on_cuda(starts):
@@ -179,15 +204,35 @@ def count_hop(key_sorted: torch.Tensor, voff: torch.Tensor,
                            n_out=n_out)
     dev = starts.device
     _check_plan(key_sorted, voff, n_out, dev)
+    _check_aligned(key_sorted, "key_sorted")
     B.check(starts, "starts", dev, 1)
     B.check(ends, "ends", dev, 1)
     _check_index(n_key + 1)
-    s, e = _sorted_bounds(starts, n_key), _sorted_bounds(ends, n_key)
-    plane = torch.empty(n_key, dtype=torch.int32, device=dev)
     counts = torch.empty(n_out, dtype=torch.int32, device=dev)
-    B.launch("rt_count_hop", B.ptr(key_sorted), B.ptr(voff), n_key,
-             B.ptr(s), s.shape[0], B.ptr(e), e.shape[0], B.ptr(plane),
-             B.ptr(counts), n_out, B.stream(dev))
+    if n_out == 0:
+        return counts
+    # the bounds sorted as they came: the first launch reads them as the
+    # plain version's mode="drop" scatter does (negatives from the end)
+    if starts.shape == ends.shape:
+        s, e = torch.sort(torch.stack([starts, ends])).values
+    else:
+        s, e = torch.sort(starts).values, torch.sort(ends).values
+    n_words = -(-n_key // 32)
+    g, n_sum = _summary_shape(n_words, COUNT_SUMMARY_WORDS)
+    # tile 0 runs even with no row: it stores the empty segments' counts
+    n_tiles = max(1, -(-key_sorted.shape[0] // COUNT_TILE))
+    # the frontier words, their two-bit summary (zeroed: the first launch
+    # ORs into it), each tile's first segment
+    words, table, tile_seg = torch.zeros(
+        n_words + 2 * n_sum + n_tiles + 1, dtype=torch.int32,
+        device=dev).split([n_words, 2 * n_sum, n_tiles + 1])
+    st = B.stream(dev)
+    B.launch("rt_interval_words", B.ptr(s), s.shape[0], B.ptr(e),
+             e.shape[0], n_key, B.ptr(words), B.ptr(table), g, B.ptr(voff),
+             n_out, B.ptr(tile_seg), n_tiles, B.ptr(counts), st)
+    B.launch("rt_count_tiles", B.ptr(key_sorted), B.ptr(voff), n_out,
+             B.ptr(tile_seg), n_tiles, COUNT_TILE, B.ptr(words),
+             B.ptr(table), n_sum, g, n_key, B.ptr(counts), st)
     count_hop.launches += 2
     return counts
 

@@ -1,6 +1,7 @@
-"""Edge-case inputs of kernels 5 (``khop_scan``) and 3 (``cond_bitmap``),
-shared by their CPU tests against the JAX refs and their card tests
-against the plain versions, so both hold the same cases.
+"""Edge-case inputs of kernels 5 (``khop_scan``), 6 (``two_hop``), 7
+(``count_hop``) and 3 (``cond_bitmap``), shared by their CPU tests against
+the JAX refs and their card tests against the plain versions, so both hold
+the same cases.
 
 numpy only: ``test_torch_cuda.py`` imports it where JAX is not installed.
 """
@@ -11,25 +12,36 @@ NE = 1013          # ids (rows of a label column), not a multiple of 32
 KHOP_CASES = ["segments", "hub_last_row", "zero_filter", "all_visited"]
 
 
-def edge_plan(rng):
-    """``(key_sorted, voff)`` of a plan over ``NE`` ids: segments of 0, 1,
-    31, 32, 33 and 4096 rows, segments that straddle a 32-id word, padding
-    keys (``NE`` and above) among the rows and after them, and the last
+def edge_plan(rng, n_key=NE, n_value=NE):
+    """``(key_sorted, voff)`` of a plan from ``n_key`` to ``n_value`` ids
+    (more than 64): segments of 0, 1, 31, 32, 33 and 4096 rows, segments
+    that straddle a 32-id word (and a tile of the counting kernel), padding
+    keys (``n_key`` and above) among the rows and after them, and the last
     segment running to ``rows_pad``."""
-    lens = rng.integers(0, 20, NE)
-    lens[rng.random(NE) < 0.2] = 0
+    lens = rng.integers(0, 20, n_value)
+    lens[rng.random(n_value) < 0.2] = 0
     for v, length in {0: 0, 1: 1, 2: 31, 3: 32, 4: 33, 5: 4096, 30: 40,
                       31: 300, 32: 5, 33: 0, 63: 33, 64: 31,
-                      NE - 1: 33}.items():
+                      n_value - 1: 33}.items():
         lens[v] = length
+    return plan_of(rng, lens, n_key, to_rows_pad=True)
+
+
+def plan_of(rng, lens, n_key, to_rows_pad=False, n_pad=60):
+    """``(key_sorted, voff)`` with segments of ``lens`` rows of random keys
+    in ``[0, n_key)``, ``n_pad`` of them padding keys (``n_key`` and
+    above), padded to a multiple of 32 plus 32 rows; with ``to_rows_pad``
+    the last segment runs to ``rows_pad``, else the padding rows lie past
+    every segment."""
     voff = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
     rows = int(voff[-1])
-    ks = np.full(-(-rows // 32) * 32 + 32, NE, np.int32)
-    ks[:rows] = rng.integers(0, NE, rows)
-    pad = rng.choice(rows, 60, replace=False)
-    ks[pad[:30]] = NE
-    ks[pad[30:]] = NE + 7
-    voff[-1] = len(ks)
+    ks = np.full(-(-rows // 32) * 32 + 32, n_key, np.int32)
+    ks[:rows] = rng.integers(0, n_key, rows)
+    pad = rng.choice(rows, n_pad, replace=False)
+    ks[pad[:n_pad // 2]] = n_key
+    ks[pad[n_pad // 2:]] = n_key + 7
+    if to_rows_pad:
+        voff[-1] = len(ks)
     return ks, voff
 
 
@@ -58,6 +70,84 @@ def khop_edge_case(case):
     else:                                   # every id already visited
         seeds = np.arange(NE, dtype=np.int32)
     return ks, voff, seeds, fw
+
+
+#: the heterogeneous chain of kernel 6's cases: A from N_KEY to NE ids, B
+#: from NE to N_OUT ids (none a multiple of 32)
+N_KEY = 700
+N_OUT = 389
+#: BI-2's shape at small size: a few targets with thousands of rows each,
+#: two with none (one last), one across three counting tiles of 8192 rows
+FEW_LENS = [3000, 0, 4096, 5000, 3500, 17000, 0]
+
+TWO_HOP_CASES = ["segments", "few_targets", "hub_last_row", "zero_filter",
+                 "every_key"]
+
+
+def two_hop_edge_case(case):
+    """``(ks_a, voff_a, ks_b, voff_b, seed_ids, filt_words, kw)`` of one of
+    :data:`TWO_HOP_CASES`, ``kw`` the size keywords: a chain with
+    ``n_key != n_mid != n_out``, padding keys in both plans, duplicate,
+    negative and sentinel seeds, filter bits set past ``n_out``."""
+    rng = np.random.default_rng(100 + TWO_HOP_CASES.index(case))
+    ks_a, voff_a = edge_plan(rng, N_KEY, NE)
+    n_out = len(FEW_LENS) if case == "few_targets" else N_OUT
+    if case == "few_targets":           # and words past the last target
+        ks_b, voff_b = plan_of(rng, FEW_LENS, NE)
+        n_words = 3
+    else:
+        ks_b, voff_b = edge_plan(rng, NE, n_out)
+        n_words = -(-n_out // 32)
+    seeds = np.array([5, 5, 17, N_KEY - 1, -3, N_KEY, N_KEY, 4 * N_KEY,
+                      N_KEY], np.int32)
+    fw = rng.integers(0, 1 << 32, n_words, dtype=np.uint64).astype(np.uint32)
+    fw[0] = np.uint32(0xFFFFFFFF)
+    fw[-1] |= np.uint32(0xFFFF0000)     # bits set past n_out
+    if case == "hub_last_row":          # 4096 rows, one hit, the last
+        ks_a[voff_a[5]:voff_a[6]] = 600
+        ks_a[voff_a[6] - 1] = 17
+        seeds = np.array([17, N_KEY, N_KEY], np.int32)
+    elif case == "zero_filter":
+        fw[:] = 0
+    elif case == "every_key":
+        seeds = np.arange(N_KEY, dtype=np.int32)
+    kw = dict(n_key=N_KEY, n_mid=NE, n_out=n_out, n_words=n_words)
+    return ks_a, voff_a, ks_b, voff_b, seeds, fw.view(np.int32), kw
+
+
+COUNT_HOP_CASES = ["segments", "few_targets", "hub_last_row", "every_key",
+                   "overlap_end", "no_interval"]
+
+
+def count_hop_edge_case(case):
+    """``(key_sorted, voff, starts, ends, kw)`` of one of
+    :data:`COUNT_HOP_CASES`: intervals over ``N_KEY`` keys padded with the
+    sentinel ``N_KEY + 1`` to a power of two, with negative bounds (counted
+    from the end once) among them; ``kw`` the size keywords."""
+    rng = np.random.default_rng(200 + COUNT_HOP_CASES.index(case))
+    n_out = NE
+    if case == "few_targets":
+        n_out = len(FEW_LENS)
+        ks, voff = plan_of(rng, FEW_LENS, N_KEY)
+    else:
+        ks, voff = edge_plan(rng, N_KEY, NE)
+    s = [3, 100, 333, 500, -60]
+    e = [40, 290, 334, 530, -2]
+    if case == "hub_last_row":          # 4096 rows, one in the frontier
+        ks[voff[5]:voff[6]] = 650
+        ks[voff[6] - 1] = 17
+        s, e = [10], [20]
+    elif case == "every_key":
+        s, e = [0], [N_KEY]
+    elif case == "overlap_end":
+        s, e = [3, 20, 100, 110, 690, -9999], [50, 30, 400, 120, N_KEY, 12]
+    elif case == "no_interval":
+        s, e = [], []
+    starts = np.full(8, N_KEY + 1, np.int32)
+    ends = np.full(8, N_KEY + 1, np.int32)
+    starts[:len(s)] = s
+    ends[:len(e)] = e
+    return ks, voff, starts, ends, dict(n_key=N_KEY, n_out=n_out)
 
 
 def rle_rows(rng, count, k):

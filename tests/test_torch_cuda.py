@@ -19,8 +19,9 @@ This file imports nothing of JAX, so it runs where JAX is not installed.
 import numpy as np
 import pytest
 import torch
-from _torch_cases import (COND_CASES, KHOP_CASES, NE, cond_case,
-                          khop_edge_case)
+from _torch_cases import (COND_CASES, COUNT_HOP_CASES, KHOP_CASES, NE,
+                          TWO_HOP_CASES, cond_case, count_hop_edge_case,
+                          khop_edge_case, two_hop_edge_case)
 
 import repro_torch.core as TC
 from repro_torch.configs import get_config
@@ -156,11 +157,70 @@ def test_two_hop_kernel_equals_plain(dev, graph, padded):
     seeds = torch.tensor(SEEDS, dtype=torch.int32, device=dev)
     fw = _words(dev, 2)[1]
     kw = dict(n_key=N, n_mid=N, n_out=N, n_words=-(-N // 32))
+    before = K.two_hop.launches
     got = K.two_hop(ks, voff, ks, voff, seeds, fw, **kw)
     want = R.two_hop(ks, voff, ks, voff, seeds, fw, **kw)
     torch.cuda.synchronize()
+    assert K.two_hop.launches == before + 3     # seeds, A, B
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert bool(want[1].any())
+
+
+def _coarse(monkeypatch, coarse):
+    """With ``coarse``, a frontier summary bit for every 8 words."""
+    if coarse:
+        monkeypatch.setattr(K, "_summary_shape",
+                            lambda nw, *cap: (3, ((nw - 1) >> 3) // 32 + 1)
+                            if nw else (0, 0))
+
+
+@pytest.mark.parametrize("coarse", [False, True])
+@pytest.mark.parametrize("case", TWO_HOP_CASES)
+def test_two_hop_kernel_edge_cases_equal_plain(dev, monkeypatch, case,
+                                               coarse):
+    _coarse(monkeypatch, coarse)
+    ks_a, voff_a, ks_b, voff_b, seeds, fw, kw = (
+        torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+        for a in two_hop_edge_case(case))
+    before = K.two_hop.launches
+    got = K.two_hop(ks_a, voff_a, ks_b, voff_b, seeds, fw, **kw)
+    want = R.two_hop(ks_a, voff_a, ks_b, voff_b, seeds, fw, **kw)
+    torch.cuda.synchronize()
+    assert K.two_hop.launches == before + 3
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("coarse", [False, True])
+@pytest.mark.parametrize("case", COUNT_HOP_CASES)
+def test_count_hop_kernel_edge_cases_equal_plain(dev, monkeypatch, case,
+                                                 coarse):
+    _coarse(monkeypatch, coarse)
+    ks, voff, starts, ends, kw = (
+        torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+        for a in count_hop_edge_case(case))
+    before = K.count_hop.launches
+    got = K.count_hop(ks, voff, starts, ends, **kw)
+    want = R.count_hop(ks, voff, starts, ends, **kw)
+    torch.cuda.synchronize()
+    assert K.count_hop.launches == before + 2   # interval words, tiles
+    assert torch.equal(got, want)
+
+
+def test_traversal_kernels_refuse_misaligned_rows(dev):
+    ks_a, voff_a, ks_b, voff_b, seeds, fw, kw = (
+        torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+        for a in two_hop_edge_case("segments"))
+    shifted = torch.empty(ks_b.shape[0] + 1, dtype=torch.int32, device=dev)
+    shifted[1:] = ks_b          # the same rows, 4 bytes off 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.two_hop(ks_a, voff_a, shifted[1:], voff_b, seeds, fw, **kw)
+    ks, voff, starts, ends, kw = (
+        torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+        for a in count_hop_edge_case("segments"))
+    shifted = torch.empty(ks.shape[0] + 1, dtype=torch.int32, device=dev)
+    shifted[1:] = ks
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.count_hop(shifted[1:], voff, starts, ends, **kw)
 
 
 @pytest.mark.parametrize("bounds", [
@@ -176,9 +236,11 @@ def test_count_hop_kernel_equals_plain(dev, graph, bounds):
     s[:len(bounds[0])] = bounds[0]
     e[:len(bounds[1])] = bounds[1]
     s, e = torch.from_numpy(s).to(dev), torch.from_numpy(e).to(dev)
+    before = K.count_hop.launches
     got = K.count_hop(ks, voff, s, e, n_key=N, n_out=N)
     want = R.count_hop(ks, voff, s, e, n_key=N, n_out=N)
     torch.cuda.synchronize()
+    assert K.count_hop.launches == before + 2
     assert torch.equal(got, want) and int(want.max()) > 1
 
 

@@ -12,7 +12,9 @@ counts, IOMeter and LRU counters must be identical (exact equality).
 import numpy as np
 import pytest
 import torch
-from _torch_cases import KHOP_CASES, NE, khop_edge_case
+from _torch_cases import (COUNT_HOP_CASES, KHOP_CASES, NE, TWO_HOP_CASES,
+                          count_hop_edge_case, khop_edge_case,
+                          two_hop_edge_case)
 
 import repro.core as RC
 import repro_torch.core as TC
@@ -149,6 +151,45 @@ def test_two_hop_equals_reference(plan, padded):
     np.testing.assert_array_equal(_np(got[1]).view(np.uint32),
                                   _np(want[1]))
     assert _np(want[1]).any()
+
+
+@pytest.mark.parametrize("case", TWO_HOP_CASES)
+def test_two_hop_edge_cases_equal_reference(case):
+    ks_a, voff_a, ks_b, voff_b, seeds, fw, kw = two_hop_edge_case(case)
+    want = JR.two_hop_ref(_jnp(ks_a), _jnp(voff_a), _jnp(ks_b), _jnp(voff_b),
+                          _jnp(seeds), _jnp(fw.view(np.uint32)), **kw)
+    got = TR.two_hop(_t(ks_a), _t(voff_a), _t(ks_b), _t(voff_b), _t(seeds),
+                     _t(fw), **kw)
+    np.testing.assert_array_equal(_np(got[0]), _np(want[0]))
+    np.testing.assert_array_equal(_np(got[1]).view(np.uint32),
+                                  _np(want[1]))
+    mid, words = _np(got[0]), _np(got[1]).view(np.uint32)
+    if case == "zero_filter":
+        assert mid.any() and not words.any()
+    else:
+        assert words.any()
+    if case == "hub_last_row":
+        assert mid[5] == 1
+    if case == "few_targets":           # the words past the targets
+        assert not words[1:].any()
+
+
+@pytest.mark.parametrize("case", COUNT_HOP_CASES)
+def test_count_hop_edge_cases_equal_reference(case):
+    ks, voff, starts, ends, kw = count_hop_edge_case(case)
+    want = JR.count_hop_ref(_jnp(ks), _jnp(voff), _jnp(starts), _jnp(ends),
+                            **kw)
+    got = TR.count_hop(_t(ks), _t(voff), _t(starts), _t(ends), **kw)
+    np.testing.assert_array_equal(_np(got), _np(want))
+    counts = _np(got)
+    if case == "no_interval":
+        assert not counts.any()
+    else:
+        assert counts.max() > 1
+    if case == "hub_last_row":
+        assert counts[5] >= 1
+    if case == "every_key":     # every row with a key in range counts
+        assert counts.sum() == (ks[:voff[-1]] < kw["n_key"]).sum()
 
 
 @pytest.mark.parametrize("case", ["disjoint", "overlap", "end_at_n_key",
