@@ -4,7 +4,9 @@
 Run from the root of the repository:  python3 chip_smoke.py
 (``--lm`` runs phases 1-2, 12-13 and the LM profile only; ``--traversal``
 phases 1-3, 5 and 6, which hold and time kernels 3 and 5 and drive the
-traversal path that launches them.)
+traversal path that launches them; ``--per-dispatch`` phases 1-2, the
+soc-LiveJournal1 set-up and phase 9, which hold and time kernels 8-10,
+with no slice phase, so that their rows count no launches.)
 
 Phases, each of which exits non-zero when it fails (12 and 13 run right
 after 2, so that their host timings come before any profiler in the
@@ -13,8 +15,8 @@ process; the LM profile runs last):
   2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` (timed); print
      ptxas's registers and spills, and count the tensor-core instructions
      (HGMMA) of each bf16 flash kernel in the library's SASS
-     (``cuobjdump -sass``): each must have some, and no flash kernel may
-     spill;
+     (``cuobjdump -sass``): each must have some, and no flash kernel and
+     no per-dispatch kernel may spill;
   set-up: a soc-LiveJournal1-sized graph (4,847,571 vertices, ~69.0M
      edges) from ``powerlaw_graph`` and 8 ``clustered_labels``, ``by_src``
      adjacency at page size 2048;
@@ -67,7 +69,12 @@ process; the LM profile runs last):
      on the card, bit for bit, at phase 7's batch-16384 cold-LRU shapes,
      warm (no miss page), with ``gidx`` rows past ``gcount`` and past the
      matrix and under two programs; timed against the plain version and
-     the bound, the host pack and the copy to the card timed apart.
+     the bound (each row's time a call beside the device's own time with
+     the calls queued behind the host), the host pack and the copy to the
+     card timed apart; then each launch's device time in the fused calls
+     (kernel 8: decode and scatter; kernel 9: decode and the filtered
+     scatter that evaluates the predicate) from a ``torch.profiler``
+     window.
  10. entries: ``ids_to_bitmap`` (phase 4's batch-16384 PAC, the sorted
      ``<src>`` ids and a window of them), ``decode_range_to_bitmap`` (the
      whole ``<src>`` and the whole unsorted ``<dst>`` column, and a
@@ -704,6 +711,13 @@ def profile_ms(torch, fn, reps: int = 5):
     return wall, busy
 
 
+def kernel_name(name: str) -> str:
+    """A profiler's kernel name without its namespace, return type and
+    arguments."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].removeprefix("void ").strip()
+
+
 def host_timed(torch, fn):
     """``(fn(), host wall milliseconds of the call)``, synchronised on both
     ends."""
@@ -1153,17 +1167,25 @@ def per_dispatch_kernel_phase(torch, adj, vt, batches):
         f"{h2d_ms:.3f} ms")
     page_in = page_bytes(args, m)
 
+    def timed(fn):
+        """A call's device ms (events around back-to-back calls) and the
+        device's own ms with the calls queued behind the host."""
+        call = cuda_ms(torch, fn, 10)
+        device = queued_ms(torch, fn, 10)
+        return call, device
+
     # -- 10: delta_decode over the miss pages
     k = PK.delta_decode(*pages_t, page_size=ps)
     r = PR.decode_pages(*pages_t, page_size=ps)
     require(torch.equal(k, r), f"delta_decode differs ({max_err(k, r)})")
+    call, device = timed(lambda: PK.delta_decode(*pages_t, page_size=ps))
     rows.append(kernel_row(
         "delta_decode", "src/repro_torch/kernels/csrc/per_dispatch.cu",
-        "src/repro/kernels/pac_decode/kernel.py:110", max_err(k, r),
-        cuda_ms(torch, lambda: PK.delta_decode(*pages_t, page_size=ps), 10),
+        "src/repro/kernels/pac_decode/kernel.py:110", max_err(k, r), call,
         cuda_ms(torch, lambda: PR.decode_pages(*pages_t, page_size=ps), 2),
         page_in + 4 * m * ps))
-    log(f"kernels: delta_decode equal over {m_pad} pages")
+    log(f"kernels: delta_decode equal over {m_pad} pages; {call:.4f} ms a "
+        f"call, {device:.4f} ms of device queued")
     decoded = k
 
     # -- 8: cold (no hits), then warm (no misses) with junk gidx rows
@@ -1208,16 +1230,18 @@ def per_dispatch_kernel_phase(torch, adj, vt, batches):
                        device=dev))
     check(fused, fused_plain, warm, "fused_decode_bitmap_batch warm")
     t = len(gidx)
+    call, device = timed(lambda: fused(*cold))
     rows.append(kernel_row(
         "fused_decode_bitmap_batch",
         "src/repro_torch/kernels/csrc/per_dispatch.cu",
-        "src/repro/kernels/pac_decode/kernel.py:321", err,
-        cuda_ms(torch, lambda: fused(*cold), 10),
+        "src/repro/kernels/pac_decode/kernel.py:321", err, call,
         cuda_ms(torch, lambda: fused_plain(*cold), 2),
         page_in + 4 * m * ps + 4 * t + 4 + 4 * n_words))
     log(f"kernels: fused_decode_bitmap_batch equal cold ({m_pad} pages, 1 "
         f"zero cached row), with rows past gcount and past the matrix, "
-        f"and warm (1 zero page, {hits} cached rows)")
+        f"and warm (1 zero page, {hits} cached rows); {call:.4f} ms a "
+        f"call, {device:.4f} ms of device queued")
+    splits = {"fused_decode_bitmap_batch": lambda: fused(*cold)}
 
     # -- 9: the phase's filter, and a NOT-first program, cold and warm
     progs = [(TC.L("L0") & TC.L("L1")) | ~TC.L("L2"),
@@ -1242,22 +1266,46 @@ def per_dispatch_kernel_phase(torch, adj, vt, batches):
                         "fused_decode_filter_bitmap_batch cold")
             nbytes = (page_bytes(fa, fm) + 4 * fm * ps + 4 * len(fg) + 4
                       + 4 * n_words + plan.pos.nbytes + plan.meta.nbytes)
+            call, device = timed(lambda: ffused(*fcold))
             row = kernel_row(
                 "fused_decode_filter_bitmap_batch",
                 "src/repro_torch/kernels/csrc/per_dispatch.cu",
-                "src/repro/kernels/label_filter/kernel.py:147", err,
-                cuda_ms(torch, lambda: ffused(*fcold), 10),
+                "src/repro/kernels/label_filter/kernel.py:147", err, call,
                 cuda_ms(torch, lambda: fplain(*fcold), 2), nbytes)
+            splits["fused_decode_filter_bitmap_batch"] = \
+                lambda: ffused(*fcold)
         else:
             check(ffused, fplain, cold,
                   "fused_decode_filter_bitmap_batch NOT-first")
         check(ffused, fplain, warm, "fused_decode_filter_bitmap_batch warm")
     rows.append(row)
     log(f"kernels: fused_decode_filter_bitmap_batch equal cold and warm "
-        f"under {len(progs)} programs")
+        f"under {len(progs)} programs; {call:.4f} ms a call, {device:.4f} "
+        f"ms of device queued")
+    # each launch's device ms, from a profiler window after every timing;
+    # after earlier windows in the process, a window can come back with no
+    # device event
+    for name, fn in splits.items():
+        for _ in range(3):
+            _, busy = profile_ms(torch, fn, 5)
+            if busy:
+                break
+        log(f"kernels: {name} per launch: " + (", ".join(
+            f"{kernel_name(k)} {v:.4f} ms" for k, v in busy.items())
+            or "not measured"))
     return rows, {"pack_ms": pack_ms, "h2d_ms": h2d_ms,
                   "shipped_mb": shipped_mb, "m": m, "m_pad": m_pad,
                   "rows": total}
+
+
+def per_dispatch_rows(torch, adj, vt, batches):
+    """Phase 9, logged; returns its kernel rows."""
+    t0 = time.perf_counter()
+    rows, host = per_dispatch_kernel_phase(torch, adj, vt, batches)
+    log(f"9. per-dispatch kernels: all three equal to their plain versions "
+        f"({time.perf_counter() - t0:.1f} s); host pack {host['pack_ms']:.3f}"
+        f" ms, host-to-device copy {host['h2d_ms']:.3f} ms")
+    return rows
 
 
 def dense_words(np, bits, n_words):
@@ -1942,17 +1990,23 @@ def flash_gqa_call(torch, gen):
         f"{bound:.4f} ms")
 
 
+def spill_free(report, marker: str, what: str) -> None:
+    """Fail unless every kernel whose mangled name holds ``marker``
+    compiled without spills (ptxas's report)."""
+    lines = report.read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and marker in line:
+            props = " ".join(lines[i + 1:i + 4])
+            require(" 0 bytes spill stores" in props,
+                    f"{what} spills: {line.strip()} {props}")
+
+
 def flash_build_check(report, lib) -> None:
     """Phase 2's check of kernel 15's build: no flash kernel spills, and
     each bf16 (``flash_wgmma_kernel``) instantiation holds tensor-core
     instructions, counted in the library's SASS."""
     import os
-    lines = report.read_text().splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry" in line and "flash_" in line:
-            props = " ".join(lines[i + 1:i + 4])
-            require(" 0 bytes spill stores" in props,
-                    f"a flash kernel spills: {line.strip()} {props}")
+    spill_free(report, "flash_", "a flash kernel")
     from repro_torch.kernels import _build
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
@@ -1982,7 +2036,12 @@ def main() -> int:
     only.add_argument("--traversal", action="store_true",
                       help="run phases 1-3, 5 and 6 only (kernels 3 and 5 "
                       "and the traversal path)")
+    only.add_argument("--per-dispatch", action="store_true",
+                      help="run phases 1-2 and 9 only (kernels 8-10 over "
+                      "the soc-LiveJournal1 graph)")
     args = ap.parse_args()
+    graph_only = "traversal" if args.traversal else (
+        "per-dispatch" if args.per_dispatch else None)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2012,6 +2071,7 @@ def main() -> int:
                                        "spill")):
                 log(f"   ptxas: {line.strip()}")
     flash_build_check(report, lib)
+    spill_free(report, "_per_dispatch_cu_", "a per-dispatch kernel")
 
     wrappers = {"gather_decode": PK.gather_decode,
                 "fused_gather_decode_bitmap_batch":
@@ -2040,7 +2100,7 @@ def main() -> int:
         return out, {n: w.launches for n, w in wrappers.items()}
 
     rows, counts = [], []
-    if not args.traversal:
+    if not graph_only:
         # the LM slice first: its host timings come before any profiler in
         # the process (phases 5 and 8 profile); its own profile runs last
         t0 = time.perf_counter()
@@ -2060,10 +2120,10 @@ def main() -> int:
 
     if not args.lm:
         graph_rows, graph_counts = graph_phases(torch, drive, wrappers, card,
-                                                args.traversal)
+                                                graph_only)
         rows = graph_rows + rows
         counts += graph_counts
-    if not args.traversal:
+    if not graph_only:
         t0 = time.perf_counter()
         lm_profile_phase(torch, lm)
         log(f"12p. lm profile ({time.perf_counter() - t0:.1f} s)")
@@ -2079,11 +2139,15 @@ def main() -> int:
     return 0
 
 
-def graph_phases(torch, drive, wrappers, card, traversal_only=False):
+def graph_phases(torch, drive, wrappers, card, only=None):
     """Phases 3-11 over the soc-LiveJournal1 graph and ``ldbc_like(40)``
-    (with ``traversal_only``, phases 3, 5 and 6); returns their kernel
-    rows and the launch counts of their slice phases."""
+    (``only="traversal"``: phases 3, 5 and 6; ``only="per-dispatch"``:
+    phase 9); returns their kernel rows and the launch counts of their
+    slice phases."""
     adj, vt, batches, truth = build_graph()
+    if only == "per-dispatch":
+        return per_dispatch_rows(torch, adj, vt, batches), []
+    traversal_only = only == "traversal"
     t0 = time.perf_counter()
     rows = kernel_phase(torch, adj, vt, batches)
     log(f"3. kernels: the four retrieval kernels equal to their plain "
@@ -2137,12 +2201,7 @@ def graph_phases(torch, drive, wrappers, card, traversal_only=False):
         f"({time.perf_counter() - t0:.1f} s) on {card}")
     rows.append(bi2_count_hop_row(torch, ldbc["bi2_inputs"]))
 
-    t0 = time.perf_counter()
-    pd_rows, host = per_dispatch_kernel_phase(torch, adj, vt, batches)
-    rows += pd_rows
-    log(f"9. per-dispatch kernels: all three equal to their plain versions "
-        f"({time.perf_counter() - t0:.1f} s); host pack {host['pack_ms']:.3f}"
-        f" ms, host-to-device copy {host['h2d_ms']:.3f} ms")
+    rows += per_dispatch_rows(torch, adj, vt, batches)
 
     t0 = time.perf_counter()
     ent, e_launches = drive(entries_phase, torch, adj, truth, batches,

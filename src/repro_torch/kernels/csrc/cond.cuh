@@ -1,8 +1,8 @@
-// The label-predicate interpreter shared by cond_bitmap.cu and the
-// filtered per-dispatch retrieval (per_dispatch.cu), and the RLE leaf
-// evaluated a word at a time (rle_word, for rle_filter.cu).  The word-wide
-// pieces at the end (leaf_word, lanes_below, WordStack, apply_word_op)
-// run the same program on whole 32-lane words (cond_bitmap.cu).
+// The label-predicate interpreter of the filtered per-dispatch retrieval
+// (run_program, for per_dispatch.cu), and the RLE leaf evaluated a word at
+// a time (rle_word, for rle_filter.cu).  The word-wide pieces at the end
+// (leaf_word, lanes_below, WordStack, apply_word_op) run the same program
+// on whole 32-lane words (cond_bitmap.cu).
 //
 // pos int32[k, n_pos] holds each label's RLE interval position list,
 // padded with the row count; meta int32[k, 2] = (first_value, count); ops
@@ -57,19 +57,18 @@ __device__ __forceinline__ unsigned rle_word(const int* __restrict__ pos,
   return out;
 }
 
-__device__ __forceinline__ bool eval_cond(const int* __restrict__ pos,
-                                          const int* __restrict__ meta,
-                                          int n_pos,
-                                          const int* __restrict__ ops,
-                                          int n_ops, int lane) {
+// Run the postfix program `ops` at one lane: leaf(i) gives leaf i's bit
+// there (first_value ^ (run & 1) == 1), NOT, AND and OR combine the stack
+// (any opcode but NOT and AND is OR), and the top of the stack is the
+// result.  A thread calls leaf once for each leaf opcode, in order.
+template <class Leaf>
+__device__ __forceinline__ bool run_program(const int* __restrict__ ops,
+                                            int n_ops, Leaf&& leaf) {
   unsigned long long stack = 0;
   for (int o = 0; o < n_ops; ++o) {
     const int op = ops[o];
     if (op >= 0) {
-      const int* row = pos + static_cast<size_t>(op) * n_pos;
-      const int run = upper_bound(row, n_pos, lane) - 1;
-      const unsigned long long leaf = (meta[2 * op] ^ (run & 1)) == 1;
-      stack = (stack << 1) | leaf;
+      stack = (stack << 1) | (leaf(op) ? 1ull : 0ull);
     } else if (op == kOpNot) {
       stack ^= 1ull;
     } else {
@@ -78,7 +77,7 @@ __device__ __forceinline__ bool eval_cond(const int* __restrict__ pos,
       stack = ((stack >> 2) << 1) | (op == kOpAnd ? (a & b) : (a | b));
     }
   }
-  return (stack & 1ull) && lane < meta[1];
+  return stack & 1ull;
 }
 
 

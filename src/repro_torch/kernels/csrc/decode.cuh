@@ -3,8 +3,9 @@
 // A page of ids is `first` followed by `first + inclusive_scan(delta)`, all
 // in int32 with wraparound.  Both decode layouts -- the resident unpack
 // plan (gather_decode.cu, bitmap_scatter.cu) and the raw miniblock arrays
-// of PackedPages (per_dispatch.cu, single_range.cu) -- produce one delta
-// per lane and hand the row to decode_row, which scans it with one block.
+// of PackedPages (single_range.cu) -- produce one delta per lane and hand
+// the row to decode_row, which scans it with one block.  per_dispatch.cu
+// decodes the raw arrays with a kernel of its own (extract_bits only).
 #pragma once
 
 #include <cuda_runtime.h>

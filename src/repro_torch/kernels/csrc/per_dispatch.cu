@@ -13,8 +13,9 @@
 //
 // Inputs of a batch of n pages: first/counts int32[n,1], min_deltas,
 // bit_widths and word_offsets int32[n,n_mini], packed uint32[n,max_words].
-// Delta j (j < page_size - 1) of a page lives in miniblock m = j / 32 at bit
-// (j % 32) * bw of the miniblock's word region:
+// Delta j (j < page_size - 1) of a page lives in miniblock
+// m = min(j / 32, n_mini - 1) at bit (j % 32) * bw of the miniblock's word
+// region:
 //   word  = packed[clamp(word_offsets[m] + bit / 32, 0, max_words - 1)]
 //   delta = ((word >> bit % 32) & mask(bw)) + min_deltas[m]  if j < count - 1
 //           0                                                 otherwise
@@ -44,93 +45,367 @@
 // 4 * page_size per cached row, 4 per requested row and 4 * n_words for
 // the words.  The arithmetic is a shift, a mask and a scan step per delta.
 //
-// Design: the decode is one block of 256 threads per page (rt::decode_row,
-// shared with gather_decode.cu); the words are zeroed with
-// cudaMemsetAsync; the scatter is one thread per requested row.  The ids
-// output is written whether or not the caller keeps it, as the TPU kernel
-// returns it.
+// Design of the decode (page_decode_kernel; PERF.md has the layouts it
+// was timed against): thread s of a page owns the 8 output positions and
+// the 8 deltas [8s, 8s + 8), so that
+//   out[8s + i] = first + (deltas before 8s) + delta(8s) + ... +
+//                 delta(8s + i - 1).
+// Its 8 deltas lie in one miniblock (8 divides 32): it loads the
+// miniblock's header once, beside the page's count, and then the words
+// that hold them, bw / 4 whole words for a width of 4 or more (16-byte
+// loads where aligned) or one word for widths 1 and 2.  The bits are cut
+// out with the width known at compile time (a switch over the packer's
+// widths 0, 1, 2, 4, 8, 16 and 32), so every index is a register.  Any
+// other width, or a word outside the row, reads each delta's word on its
+// own, clamped, as the plain version does; a thread whose deltas all lie
+// at or past count - 1 (the padding pages) reads no word.  The scan is
+// warp shuffles and one exchange of warp totals in shared memory.  The
+// outputs then pass through shared memory, so that each warp's stores
+// are 512 contiguous bytes: stored straight from the thread that owns
+// them (32 bytes each, a warp's 16-byte stores each half of 32 sectors),
+// the same kernel took 2.6x as long.  A block of 256 threads decodes a
+// page of 2048 in one pass; pages of 256 positions or fewer share a
+// block, a warp or more each, and longer pages loop with a carry.  The
+// same launch zeroes the fused entries' target words.
+//
+// The scatter is one thread per requested row with an atomic OR.  The
+// filtered one runs the program per row; each leaf's search first finds
+// the row's stretch of the position list in a sample of every stride-th
+// position staged in shared memory, so it ends with a search of one
+// stretch.  The ids output is written whether or not the caller keeps
+// it, as the TPU kernel returns it.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "cond.cuh"
 #include "decode.cuh"
 
 namespace {
 
+constexpr int kThreads = 256;           // a decode block
+constexpr int kWarps = kThreads / 32;
+constexpr int kItems = 8;               // positions (and deltas) a thread
 constexpr int kScatterThreads = 256;
+constexpr int kFilterThreads = 512;     // a filtered scatter block
+constexpr int kSamples = 512;           // sampled positions a leaf
 
-__global__ void __launch_bounds__(rt::kDecodeThreads)
-delta_decode_kernel(const int* __restrict__ first,
-                    const int* __restrict__ mind, const int* __restrict__ bw,
-                    const int* __restrict__ woff,
-                    const unsigned* __restrict__ packed,
-                    const int* __restrict__ counts, int n_mini,
-                    int max_words, int page_size, int* __restrict__ out) {
-  const size_t row = blockIdx.x;
-  const rt::MiniblockDelta delta{mind + row * n_mini, bw + row * n_mini,
-                             woff + row * n_mini, packed + row * max_words,
-                             n_mini, max_words, counts[row] - 1};
-  rt::decode_row(delta, static_cast<unsigned>(first[row]), page_size - 1,
-                 out + row * page_size);
+// A batch of shipped pages (the C entries' arrays and sizes).
+struct Pages {
+  const int* first;
+  const int* mind;
+  const int* bw;
+  const int* woff;
+  const unsigned* packed;
+  const int* counts;
+  int n;
+  int n_mini;
+  int max_words;
+  int page_size;
+};
+
+// Deltas 8s .. 8s + 7 of a thread of width W (compile time, a power of
+// two up to 32, as the packer writes them: no delta straddles a word), plus
+// md.  W >= 4: they fill the W / 4 words from `words` (bit offset 0);
+// W <= 2: they lie in words[0] from bit `shift`.
+template <int W>
+__device__ __forceinline__ void unpack8(const unsigned* __restrict__ words,
+                                        int shift, unsigned md,
+                                        unsigned (&d)[kItems]) {
+  if constexpr (W == 0) {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) d[i] = md;
+  } else {
+    constexpr int kN = W >= 4 ? W / 4 : 1;
+    unsigned r[kN];
+    if constexpr (kN >= 4) {
+      if ((reinterpret_cast<uintptr_t>(words) & 15) == 0) {
+#pragma unroll
+        for (int c = 0; c < kN / 4; ++c) {
+          const uint4 v = __ldg(reinterpret_cast<const uint4*>(words) + c);
+          r[4 * c] = v.x;
+          r[4 * c + 1] = v.y;
+          r[4 * c + 2] = v.z;
+          r[4 * c + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kN; ++k) r[k] = __ldg(words + k);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kN; ++k) r[k] = __ldg(words + k);
+    }
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      unsigned v;
+      if constexpr (W >= 4) {
+        v = r[(i * W) >> 5] >> ((i * W) & 31);
+      } else {
+        v = r[0] >> (shift + i * W);
+      }
+      if constexpr (W < 32) v &= (1u << W) - 1u;
+      d[i] = v + md;
+    }
+  }
 }
 
-template <bool kFilter>
+#define RT_WIDTHS(X) X(0) X(1) X(2) X(4) X(8) X(16) X(32)
+
+// The thread's 8 deltas j0 .. j0 + 7 of page `row` (0 at or past `last` =
+// count - 1).  The miniblock's header is loaded once; a width of the
+// packer's with its words inside the row takes unpack8, anything else
+// reads each delta's word on its own, clamped, as the plain version does.
+__device__ __forceinline__ void thread_deltas(const Pages& p, size_t row,
+                                              int j0, int last,
+                                              unsigned (&d)[kItems]) {
+  const size_t h = row * p.n_mini + min(j0 >> 5, p.n_mini - 1);
+  const int w = __ldg(p.bw + h);
+  const int wo = __ldg(p.woff + h);
+  const unsigned md = static_cast<unsigned>(__ldg(p.mind + h));
+  if (j0 >= last) {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) d[i] = 0u;
+    return;
+  }
+  const unsigned* rw = p.packed + row * p.max_words;
+  const int b0 = (j0 & 31) * w;
+  const int nw = w >= 4 ? w / 4 : (w > 0 ? 1 : 0);
+  const long long lo = static_cast<long long>(wo) + (b0 >> 5);
+  if (w >= 0 && w <= 32 && (w & (w - 1)) == 0 && lo >= 0 &&
+      lo + nw <= p.max_words) {
+    switch (w) {
+#define RT_CASE(W)                           \
+  case W:                                    \
+    unpack8<W>(rw + lo, b0 & 31, md, d);     \
+    break;
+      RT_WIDTHS(RT_CASE)
+#undef RT_CASE
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int bit = ((j0 + i) & 31) * w;
+      const long long widx =
+          min(max(wo + static_cast<long long>(bit >> 5), 0LL),
+              static_cast<long long>(p.max_words) - 1);
+      d[i] = rt::extract_bits(__ldg(rw + widx), bit & 31, w) + md;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    if (j0 + i >= last) d[i] = 0u;
+  }
+}
+
+// Decode the pages of every page group g of this block, pages
+// [g * ppb, (g + 1) * ppb) with ppb = kThreads >> tpp_log2 and 2^tpp_log2
+// threads a page; zero[0, n_zero) is set to 0 on the way.  A pass covers
+// kItems << tpp_log2 positions of each of the group's pages.
+__global__ void __launch_bounds__(kThreads)
+page_decode_kernel(Pages p, int tpp_log2, int* __restrict__ out,
+                   unsigned* __restrict__ zero, int n_zero) {
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n_zero;
+       i += gridDim.x * kThreads) {
+    zero[i] = 0u;
+  }
+  __shared__ unsigned warp_sums[kWarps];
+  __shared__ uint4 stage[kThreads * kItems / 4];  // the pass's outputs
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int tpp = 1 << tpp_log2;
+  const int slot = threadIdx.x & (tpp - 1);
+  const int group0 = (threadIdx.x >> tpp_log2) << (tpp_log2 - 5);
+  const int ppb = kThreads >> tpp_log2;
+  const int span = kItems << tpp_log2;
+  const bool vec = (p.page_size & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  for (long long g = blockIdx.x; g * ppb < p.n; g += gridDim.x) {
+    const long long row = g * ppb + (threadIdx.x >> tpp_log2);
+    const bool live = row < p.n;
+    unsigned carry = live ? static_cast<unsigned>(__ldg(p.first + row)) : 0u;
+    const int last =
+        live ? min(__ldg(p.counts + row) - 1, p.page_size - 1) : 0;
+    for (int base = 0; base < p.page_size; base += span) {
+      const int j0 = base + kItems * slot;
+      unsigned d[kItems];
+      thread_deltas(p, live ? row : 0, j0, last, d);
+      unsigned tot = 0;
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) tot += d[i];
+      unsigned x = tot;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned y = __shfl_up_sync(0xFFFFFFFFu, x, o);
+        if (lane >= o) x += y;
+      }
+      __syncthreads();  // the last pass's readers of warp_sums and stage
+      if (lane == 31) warp_sums[warp] = x;
+      __syncthreads();
+      unsigned acc = carry + x - tot;
+      for (int w = group0; w < group0 + (tpp >> 5); ++w) {
+        const unsigned t = warp_sums[w];
+        if (w < warp) acc += t;
+        carry += t;
+      }
+      unsigned v[kItems];
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        v[i] = acc;
+        acc += d[i];
+      }
+      stage[2 * threadIdx.x] = make_uint4(v[0], v[1], v[2], v[3]);
+      stage[2 * threadIdx.x + 1] = make_uint4(v[4], v[5], v[6], v[7]);
+      __syncthreads();
+      // the block's outputs leave in order: a warp's stores are contiguous
+      // (page k of the group holds stage[k * span / 4 ..][0 .. span / 4))
+      if (vec) {
+        for (int u = threadIdx.x; u < kThreads * kItems / 4; u += kThreads) {
+          const long long r = g * ppb + u / (span >> 2);
+          const int pos = base + 4 * (u % (span >> 2));
+          if (r < p.n && pos < p.page_size) {
+            *reinterpret_cast<uint4*>(out + r * p.page_size + pos) = stage[u];
+          }
+        }
+      } else {
+        const unsigned* st = reinterpret_cast<const unsigned*>(stage);
+        for (int q = threadIdx.x; q < kThreads * kItems; q += kThreads) {
+          const long long r = g * ppb + q / span;
+          const int pos = base + q % span;
+          if (r < p.n && pos < p.page_size) {
+            out[r * p.page_size + pos] = static_cast<int>(st[q]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// log2 of the threads a page takes: 8 positions a thread, at least a warp,
+// at most the block (longer pages loop).
+int page_threads_log2(int page_size) {
+  int lg = 5;
+  while (lg < 8 && (kItems << lg) < page_size) ++lg;
+  return lg;
+}
+
+// Decode p into out, zeroing zero[0, n_zero) in the same launch.
+int launch_page_decode(const Pages& p, int* out, int* zero, int n_zero,
+                       cudaStream_t stream) {
+  const int lg = page_threads_log2(p.page_size);
+  const int ppb = kThreads >> lg;
+  long long blocks = (static_cast<long long>(p.n) + ppb - 1) / ppb;
+  if (blocks == 0) blocks = min((n_zero + kThreads - 1) / kThreads, 1024);
+  if (blocks > 0) {
+    page_decode_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                         stream>>>(p, lg, out,
+                                   reinterpret_cast<unsigned*>(zero), n_zero);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The row's id, or -1 where the row is past gcount or its id lies outside
+// the target space.
+__device__ __forceinline__ int requested_id(const int* __restrict__ ids,
+                                            long long n_ids,
+                                            const int* __restrict__ cached,
+                                            long long n_cached,
+                                            const int* __restrict__ gidx,
+                                            const int* __restrict__ gcount,
+                                            int t, int n_words, int k) {
+  if (k >= t || k >= *gcount) return -1;
+  const long long g =
+      min(max(static_cast<long long>(gidx[k]), 0LL), n_ids + n_cached - 1);
+  const int id = g < n_ids ? ids[g] : cached[g - n_ids];
+  return id >= 0 && static_cast<long long>(id) < 32LL * n_words ? id : -1;
+}
+
 __global__ void __launch_bounds__(kScatterThreads)
 rows_to_bitmap_kernel(const int* __restrict__ ids, long long n_ids,
                       const int* __restrict__ cached, long long n_cached,
                       const int* __restrict__ gidx,
                       const int* __restrict__ gcount, int t,
-                      unsigned* __restrict__ words, int n_words,
-                      const int* __restrict__ fpos,
-                      const int* __restrict__ fmeta, int n_pos,
-                      const int* __restrict__ ops, int n_ops) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= t || k >= *gcount) return;
-  const long long g =
-      min(max(static_cast<long long>(gidx[k]), 0LL), n_ids + n_cached - 1);
-  const int id = g < n_ids ? ids[g] : cached[g - n_ids];
-  if (id < 0 || static_cast<long long>(id) >= 32LL * n_words) return;
-  if (kFilter && !rt::eval_cond(fpos, fmeta, n_pos, ops, n_ops, id)) return;
-  atomicOr(words + (id >> 5), 1u << (id & 31));
+                      unsigned* __restrict__ words, int n_words) {
+  const int id = requested_id(ids, n_ids, cached, n_cached, gidx, gcount, t,
+                              n_words, blockIdx.x * blockDim.x + threadIdx.x);
+  if (id >= 0) atomicOr(words + (id >> 5), 1u << (id & 31));
 }
 
-int launch_delta_decode(const int* first, const int* mind, const int* bw,
-                        const int* woff, const int* packed, const int* counts,
-                        int n, int n_mini, int max_words, int page_size,
-                        int* out, cudaStream_t stream) {
-  if (n > 0) {
-    delta_decode_kernel<<<n, rt::kDecodeThreads, 0, stream>>>(
-        first, mind, bw, woff, reinterpret_cast<const unsigned*>(packed),
-        counts, n_mini, max_words, page_size, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+// The filtered scatter: the program runs per requested row
+// (rt::run_program).  Leaf `op`'s search: the block stages
+// every stride-th position of the leaf's list (ns <= kSamples of them),
+// the row finds the count c of samples <= id in shared memory, and the
+// answer upper_bound(row, n_pos, id) lies in ((c - 1) * stride,
+// min(c * stride, n_pos)]: one search of at most stride entries.
+__global__ void __launch_bounds__(kFilterThreads)
+filter_rows_kernel(const int* __restrict__ ids, long long n_ids,
+                   const int* __restrict__ cached, long long n_cached,
+                   const int* __restrict__ gidx,
+                   const int* __restrict__ gcount, int t,
+                   unsigned* __restrict__ words, int n_words,
+                   const int* __restrict__ fpos,
+                   const int* __restrict__ fmeta, int n_pos,
+                   const int* __restrict__ ops, int n_ops) {
+  __shared__ int sample[kSamples];
+  int id = requested_id(ids, n_ids, cached, n_cached, gidx, gcount, t,
+                        n_words, blockIdx.x * blockDim.x + threadIdx.x);
+  if (id >= fmeta[1]) id = -1;  // lanes at or past the count are false
+  const int stride = max(1, (n_pos + kSamples - 1) / kSamples);
+  const int ns = (n_pos + stride - 1) / stride;
+  // every thread runs the same opcodes, so each leaf's staging is
+  // block-wide
+  const bool hit = rt::run_program(ops, n_ops, [&](int op) {
+    const int* row = fpos + static_cast<size_t>(op) * n_pos;
+    __syncthreads();  // the last leaf's readers are done
+    for (int i = threadIdx.x; i < ns; i += blockDim.x) {
+      sample[i] = row[static_cast<size_t>(i) * stride];
+    }
+    __syncthreads();
+    int ub = 0;  // upper_bound(row, n_pos, id)
+    if (id >= 0) {
+      const int c = rt::upper_bound(sample, ns, id);
+      if (c > 0) {
+        const int lo = (c - 1) * stride + 1;
+        const int hi = min(c * stride, n_pos);
+        ub = lo + rt::upper_bound(row + lo, hi - lo, id);
+      }
+    }
+    return (fmeta[2 * op] ^ ((ub - 1) & 1)) == 1;
+  });
+  if (id >= 0 && hit) atomicOr(words + (id >> 5), 1u << (id & 31));
 }
 
 template <bool kFilter>
-int fused_decode_bitmap_batch(const int* first, const int* mind,
-                              const int* bw, const int* woff,
-                              const int* packed, const int* counts, int m,
-                              int n_mini, int max_words, int page_size,
-                              const int* cached, int c, const int* gidx,
-                              int t, const int* gcount, int* ids, int* words,
-                              int n_words, const int* fpos, const int* fmeta,
-                              int n_pos, const int* ops, int n_ops,
-                              void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  int err = launch_delta_decode(first, mind, bw, woff, packed, counts, m,
-                                n_mini, max_words, page_size, ids, stream);
-  if (err != 0) return err;
-  err = static_cast<int>(
-      cudaMemsetAsync(words, 0, sizeof(unsigned) * n_words, stream));
-  if (err != 0) return err;
-  if (t > 0) {
-    const int blocks = (t + kScatterThreads - 1) / kScatterThreads;
-    rows_to_bitmap_kernel<kFilter><<<blocks, kScatterThreads, 0, stream>>>(
-        ids, static_cast<long long>(m) * page_size, cached,
-        static_cast<long long>(c) * page_size, gidx, gcount, t,
-        reinterpret_cast<unsigned*>(words), n_words, fpos, fmeta, n_pos, ops,
-        n_ops);
+int fused_decode_bitmap_batch(const Pages& p, const int* cached, int c,
+                              const int* gidx, int t, const int* gcount,
+                              int* ids, int* words, int n_words,
+                              const int* fpos, const int* fmeta, int n_pos,
+                              const int* ops, int n_ops,
+                              cudaStream_t stream) {
+  const int err = launch_page_decode(p, ids, words, n_words, stream);
+  if (err != 0 || t <= 0) return err;
+  const long long n_ids = static_cast<long long>(p.n) * p.page_size;
+  const long long n_cached = static_cast<long long>(c) * p.page_size;
+  unsigned* w = reinterpret_cast<unsigned*>(words);
+  if (kFilter) {
+    filter_rows_kernel<<<(t + kFilterThreads - 1) / kFilterThreads,
+                         kFilterThreads, 0, stream>>>(
+        ids, n_ids, cached, n_cached, gidx, gcount, t, w, n_words, fpos,
+        fmeta, n_pos, ops, n_ops);
+  } else {
+    rows_to_bitmap_kernel<<<(t + kScatterThreads - 1) / kScatterThreads,
+                            kScatterThreads, 0, stream>>>(
+        ids, n_ids, cached, n_cached, gidx, gcount, t, w, n_words);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+Pages pages_of(const int* first, const int* mind, const int* bw,
+               const int* woff, const int* packed, const int* counts, int n,
+               int n_mini, int max_words, int page_size) {
+  return Pages{first, mind, bw, woff,
+               reinterpret_cast<const unsigned*>(packed), counts, n, n_mini,
+               max_words, page_size};
 }
 
 }  // namespace
@@ -140,9 +415,10 @@ extern "C" int rt_delta_decode(const int* first, const int* mind,
                                const int* packed, const int* counts, int n,
                                int n_mini, int max_words, int page_size,
                                int* out, void* stream) {
-  return launch_delta_decode(first, mind, bw, woff, packed, counts, n, n_mini,
-                             max_words, page_size, out,
-                             static_cast<cudaStream_t>(stream));
+  return launch_page_decode(
+      pages_of(first, mind, bw, woff, packed, counts, n, n_mini, max_words,
+               page_size),
+      out, nullptr, 0, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int rt_fused_decode_bitmap_batch(
@@ -151,9 +427,10 @@ extern "C" int rt_fused_decode_bitmap_batch(
     int page_size, const int* cached, int c, const int* gidx, int t,
     const int* gcount, int* ids, int* words, int n_words, void* stream) {
   return fused_decode_bitmap_batch<false>(
-      first, mind, bw, woff, packed, counts, m, n_mini, max_words, page_size,
+      pages_of(first, mind, bw, woff, packed, counts, m, n_mini, max_words,
+               page_size),
       cached, c, gidx, t, gcount, ids, words, n_words, nullptr, nullptr, 0,
-      nullptr, 0, stream);
+      nullptr, 0, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int rt_fused_decode_filter_bitmap_batch(
@@ -163,7 +440,8 @@ extern "C" int rt_fused_decode_filter_bitmap_batch(
     const int* gcount, int* ids, int* words, int n_words, const int* fpos,
     const int* fmeta, int n_pos, const int* ops, int n_ops, void* stream) {
   return fused_decode_bitmap_batch<true>(
-      first, mind, bw, woff, packed, counts, m, n_mini, max_words, page_size,
+      pages_of(first, mind, bw, woff, packed, counts, m, n_mini, max_words,
+               page_size),
       cached, c, gidx, t, gcount, ids, words, n_words, fpos, fmeta, n_pos,
-      ops, n_ops, stream);
+      ops, n_ops, static_cast<cudaStream_t>(stream));
 }

@@ -154,8 +154,8 @@ def fused_decode_filter_bitmap_batch(
     note_shape("fused_decode_filter_bitmap_batch", tuple(packed.shape),
                tuple(cached.shape), gidx.shape[0], n_words,
                tuple(fpos.shape), tuple(ops))
-    encode_program(ops)
     if not B.on_cuda(first):
+        encode_program(ops)
         return R.fused_filter_batch(first, min_deltas, bit_widths,
                                     word_offsets, packed, counts, cached,
                                     gidx, gcount, fpos, fmeta, ops, n_words)

@@ -1,11 +1,15 @@
 """Edge-case inputs of kernels 5 (``khop_scan``), 6 (``two_hop``), 7
-(``count_hop``) and 3 (``cond_bitmap``), shared by their CPU tests against
-the JAX refs and their card tests against the plain versions, so both hold
-the same cases.
+(``count_hop``), 3 (``cond_bitmap``) and the per-dispatch kernels 8-10
+(``fused_decode_bitmap_batch``, ``fused_decode_filter_bitmap_batch``,
+``delta_decode``), shared by their CPU tests against the JAX refs and
+their card tests against the plain versions, so both hold the same cases.
 
-numpy only: ``test_torch_cuda.py`` imports it where JAX is not installed.
+No JAX: ``test_torch_cuda.py`` imports it where JAX is not installed.
 """
 import numpy as np
+import torch
+
+from repro_torch.kernels.pac_decode.ref import decode_pages
 
 NE = 1013          # ids (rows of a label column), not a multiple of 32
 
@@ -199,3 +203,125 @@ def cond_case(case):
                         .astype(np.int32)])
         meta = np.array([[1, count], [0, count]], np.int32)
     return pos, meta, ops
+
+
+# ------------------- shipped pages (kernels 8-10) ---------------------------
+
+#: page sizes of the shipped-page cases: two miniblocks, the tests' 256,
+#: the main path's 2048, and two with a ragged tail (99 is no multiple of
+#: 4; 4099 also spans three passes of 2048 positions)
+PAGE_SIZES = (64, 99, 256, 2048, 4099)
+#: the bit widths the packer writes (powers of two: no delta straddles a
+#: word)
+WIDTHS = (0, 1, 2, 4, 8, 16, 32)
+#: miniblock widths the packer never writes; the plain version reads one
+#: word per delta whatever the width
+ODD_WIDTHS = (3, 5, 17, 31)
+#: counts of the pages after the first (page_size - 1 and page_size added)
+COUNTS = (0, 1, 2, 31, 32, 33)
+MINI = 32
+
+
+def _page(rng, page_size, widths, count, first, small=True):
+    """One shipped page: ``(first, min_deltas, bit_widths, word_offsets,
+    packed, count)`` rows with each miniblock's words laid out after the
+    last (offsets are the running sum of the widths) in a row of
+    ``32 * n_mini`` words, and random words in them; with ``small`` every
+    field of width 8 or more keeps only its low 3 bits, so the ids stay
+    small."""
+    n_mini = -(-(page_size - 1) // MINI)
+    bw = np.resize(np.asarray(widths, np.int32), n_mini)
+    woff = np.concatenate([[0], np.cumsum(bw)[:-1]]).astype(np.int32)
+    packed = np.zeros(MINI * n_mini, np.uint32)
+    used = int(bw.sum())
+    packed[:used] = rng.integers(0, 1 << 32, used, dtype=np.uint64)
+    if small:
+        for m in np.nonzero(bw >= 8)[0]:
+            keep = {8: 0x07070707, 16: 0x00070007, 32: 0x7}.get(
+                int(bw[m]), 0xFFFFFFFF)
+            packed[woff[m]:woff[m] + bw[m]] &= np.uint32(keep)
+    mind = rng.integers(0, 4, n_mini).astype(np.int32)
+    return first, mind, bw, woff, packed, count
+
+
+def _rows(pages, rows):
+    """The six arrays of ``pages`` zero-padded to ``rows`` pages."""
+    out = []
+    for i, dtype in enumerate((np.int32, np.int32, np.int32, np.int32,
+                               np.uint32, np.int32)):
+        a = np.stack([np.asarray(p[i], dtype).reshape(-1) for p in pages])
+        out.append(np.concatenate(
+            [a, np.zeros((rows - len(a),) + a.shape[1:], dtype)]))
+    return tuple(out)
+
+
+def page_case(page_size):
+    """The six arrays of a batch of shipped pages at ``page_size``
+    (``packed`` uint32, the rest int32; ``first`` and ``counts`` [n, 1]),
+    zero-padded to 16 pages: page 0 takes every width of :data:`WIDTHS`
+    in turn, miniblock by miniblock, so the word offsets leave 16-byte
+    alignment after a width of 1 or 2; pages 1-8 hold the counts of
+    :data:`COUNTS`, ``page_size - 1`` and ``page_size`` over random
+    widths; page 9's offsets point past its row from miniblock 2 on
+    (count 40: only zeroed deltas read there); page 10 wraps int32 (its
+    first id near 2**31, width 32, large min deltas); page 11 has the
+    widths of :data:`ODD_WIDTHS` and negative min deltas."""
+    rng = np.random.default_rng(page_size)
+    pages = [_page(rng, page_size, WIDTHS, page_size, 17)]
+    for count in COUNTS + (page_size - 1, page_size):
+        pages.append(_page(rng, page_size, rng.choice(WIDTHS, 64), count,
+                           int(rng.integers(0, 1000))))
+    past = list(_page(rng, page_size, (32,), 40, 5))
+    past[3] = past[3].copy()
+    past[3][2:] = len(past[4]) + 100
+    pages.append(tuple(past))
+    wrap = list(_page(rng, page_size, (32,), page_size, (1 << 31) - 100,
+                      small=False))
+    wrap[1] = np.full_like(wrap[1], 1 << 30)
+    pages.append(tuple(wrap))
+    odd = list(_page(rng, page_size, ODD_WIDTHS, page_size, 900,
+                     small=False))
+    odd[1] = -rng.integers(0, 1 << 20, len(odd[1])).astype(np.int32)
+    pages.append(tuple(odd))
+    return _rows(pages, 16)
+
+
+#: label programs of the filtered per-dispatch kernel: depth 1, a NOT
+#: first, a NOT in the middle, depth 64
+FUSED_PROGRAMS = {
+    "depth_1": (("leaf", 2),),
+    "not_first": (("leaf", 1), ("not",), ("leaf", 0), ("and",)),
+    "mix": (("leaf", 0), ("leaf", 1), ("and",), ("leaf", 2), ("not",),
+            ("or",)),
+    "depth_64": DEPTH_64,
+}
+#: target words of the fused cases: the small pages' ids run past them
+FUSED_WORDS = 300
+
+
+def fused_case(page_size, warm=False):
+    """``(pages, cached, gidx, gcount)`` of a fused per-dispatch call at
+    ``page_size``: :func:`page_case`'s pages and 4 cached rows of ids from
+    -40 to past the :data:`FUSED_WORDS` target words (``warm``: one zero
+    page, m_pad = 1, and the 12 real pages' rows arriving in ``cached``,
+    decoded by the plain version), and requested rows over the matrix:
+    600 random positions, a negative one, one past the matrix and its
+    last, then 29 past ``gcount``."""
+    rng = np.random.default_rng(page_size + warm)
+    pages = page_case(page_size)
+    extra = rng.integers(-40, 32 * FUSED_WORDS + 40, (4, page_size))
+    if warm:
+        decoded = decode_pages(*(torch.from_numpy(a.view(np.int32))
+                                 for a in pages), page_size).numpy()
+        cached = np.concatenate([decoded[:12], extra])
+        pages = _rows([tuple(np.zeros_like(a[0]) for a in pages)], 1)
+    else:
+        cached = extra
+    cached = cached.astype(np.int32)
+    end = (len(pages[0]) + len(cached)) * page_size
+    pos = list(rng.integers(0, end, 600)) + [-7, end + 5, end - 1]
+    total = len(pos)
+    pos += list(rng.integers(-50, end + 50, 29))
+    return (pages, cached, np.asarray(pos, np.int32),
+            np.full((1, 1), total, np.int32))
+

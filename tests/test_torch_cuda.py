@@ -19,9 +19,11 @@ This file imports nothing of JAX, so it runs where JAX is not installed.
 import numpy as np
 import pytest
 import torch
-from _torch_cases import (COND_CASES, COUNT_HOP_CASES, KHOP_CASES, NE,
+from _torch_cases import (COND_CASES, COUNT_HOP_CASES, FUSED_PROGRAMS,
+                          FUSED_WORDS, KHOP_CASES, NE, PAGE_SIZES,
                           TWO_HOP_CASES, cond_case, count_hop_edge_case,
-                          khop_edge_case, two_hop_edge_case)
+                          fused_case, khop_edge_case, page_case, rle_rows,
+                          two_hop_edge_case)
 
 import repro_torch.core as TC
 from repro_torch.configs import get_config
@@ -338,6 +340,46 @@ def test_delta_decode_kernel_equals_plain(dev, graph):
     for i, page in enumerate(enc.pages):
         assert got[i, :page.count].tolist() == \
             TC.delta_decode_page(page).tolist()
+
+
+def _on(dev, arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+            for a in arrays]
+
+
+@pytest.mark.parametrize("page_size", PAGE_SIZES)
+def test_delta_decode_kernel_page_cases_equal_plain(dev, page_size):
+    shipped = _on(dev, page_case(page_size))
+    got, want = _held(PK.delta_decode, PR.decode_pages, *shipped,
+                      page_size=page_size)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("page_size", PAGE_SIZES)
+def test_fused_decode_kernel_page_cases_equal_plain(dev, page_size, warm):
+    pages, cached, gidx, gcount = fused_case(page_size, warm)
+    shipped = _on(dev, (*pages, cached, gidx, gcount))
+    got, want = _held(PK.fused_decode_bitmap_batch, PR.fused_batch,
+                      *shipped, n_words=FUSED_WORDS)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(want[0].any())
+
+
+@pytest.mark.parametrize("program", sorted(FUSED_PROGRAMS))
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("page_size", PAGE_SIZES)
+def test_fused_filter_kernel_page_cases_equal_plain(dev, page_size, warm,
+                                                    program):
+    pages, cached, gidx, gcount = fused_case(page_size, warm)
+    pos, meta = rle_rows(np.random.default_rng(page_size),
+                         32 * FUSED_WORDS - 50, 3)
+    shipped = _on(dev, (*pages, cached, gidx, gcount, pos, meta))
+    got, want = _held(LK.fused_decode_filter_bitmap_batch,
+                      LR.fused_filter_batch, *shipped,
+                      FUSED_PROGRAMS[program], FUSED_WORDS)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(want[0].any())
 
 
 @pytest.mark.parametrize("cond", [None, "mix", "not_tail"])

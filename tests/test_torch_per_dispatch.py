@@ -9,8 +9,12 @@ jnp refs -- ``decode_pages_ref``, ``fused_batch_ref`` and
 padding edge of the route: a warm dispatch with no miss pages (one zero
 page), no LRU hits (one zero cached row), ``gidx`` entries past
 ``gcount`` and past the matrix, reads past a page's packed words, lanes
-past the filter's row count, and a NOT that is not the program's last op.
-One tiny case each also runs the Pallas kernels in interpret mode.
+past the filter's row count, and a NOT that is not the program's last op;
+and on the shipped-page cases that the card tests share
+(``_torch_cases.page_case``/``fused_case``: every width, counts at the
+miniblock and page edges, page sizes from 64 to 4099, int32 wraparound,
+programs of depth 1 to 64).  One tiny case each also runs the Pallas
+kernels in interpret mode.
 
 Route: ``retrieve_neighbors_batch(resident=False)``, ``decode_page_list``
 with the module switch off and ``k_hop(resident=False)`` run on the JAX
@@ -22,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
+from _torch_cases import (FUSED_PROGRAMS, FUSED_WORDS, PAGE_SIZES,
+                          fused_case, page_case, rle_rows)
 
 import repro.core as RC
 import repro_torch.core as TC
@@ -195,6 +201,48 @@ def test_fused_kernels_match_pallas_interpret(column, labels):
         *map(jnp.asarray, (*args, cached, gidx, gcount, plan.pos,
                            plan.meta)),
         page_size=PAGE, n_words=NW, ops=plan.program.ops)
+    np.testing.assert_array_equal(gw.numpy().view(np.uint32), np.asarray(ww))
+
+
+@pytest.mark.parametrize("page_size", PAGE_SIZES)
+def test_decode_page_cases_match_jnp_ref(page_size):
+    args = page_case(page_size)
+    got = K.delta_decode(*_torch(args), page_size=page_size)
+    want = RR.decode_pages_ref(*map(jnp.asarray, args), page_size=page_size)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("page_size", PAGE_SIZES)
+def test_fused_batch_cases_match_jnp_ref(page_size, warm):
+    pages, cached, gidx, gcount = fused_case(page_size, warm)
+    gw, gi = K.fused_decode_bitmap_batch(
+        *_torch(pages), *_torch([cached, gidx, gcount]),
+        n_words=FUSED_WORDS)
+    ww, wi = RR.fused_batch_ref(
+        *map(jnp.asarray, (*pages, cached, gidx, gcount)),
+        page_size=page_size, n_words=FUSED_WORDS)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gw.numpy().view(np.uint32), np.asarray(ww))
+    assert np.asarray(ww).any()
+
+
+@pytest.mark.parametrize("program", sorted(FUSED_PROGRAMS))
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("page_size", PAGE_SIZES)
+def test_fused_filter_batch_cases_match_jnp_ref(page_size, warm, program):
+    pages, cached, gidx, gcount = fused_case(page_size, warm)
+    # a row count below the target space: the lanes past it are off
+    pos, meta = rle_rows(np.random.default_rng(page_size),
+                         32 * FUSED_WORDS - 50, 3)
+    ops = FUSED_PROGRAMS[program]
+    gw, gi = LK.fused_decode_filter_bitmap_batch(
+        *_torch(pages), *_torch([cached, gidx, gcount, pos, meta]), ops,
+        FUSED_WORDS)
+    ww, wi = RLR.fused_filter_batch_ref(
+        *map(jnp.asarray, (*pages, cached, gidx, gcount, pos, meta)),
+        page_size=page_size, n_words=FUSED_WORDS, ops=ops)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
     np.testing.assert_array_equal(gw.numpy().view(np.uint32), np.asarray(ww))
 
 
