@@ -6,7 +6,9 @@ Run from the root of the repository:  python3 chip_smoke.py
 phases 1-3, 5 and 6, which hold and time kernels 3 and 5 and drive the
 traversal path that launches them; ``--per-dispatch`` phases 1-2, the
 soc-LiveJournal1 set-up and phase 9, which hold and time kernels 8-10,
-with no slice phase, so that their rows count no launches.)
+with no slice phase, so that their rows count no launches; ``--resident``
+phases 1-4, which hold and time kernels 1-4 and drive the resident
+retrieval slice that launches them.)
 
 Phases, each of which exits non-zero when it fails (12 and 13 run right
 after 2, so that their host timings come before any profiler in the
@@ -15,15 +17,21 @@ process; the LM profile runs last):
   2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` (timed); print
      ptxas's registers and spills, and count the tensor-core instructions
      (HGMMA) of each bf16 flash kernel in the library's SASS
-     (``cuobjdump -sass``): each must have some, and no flash kernel and
-     no per-dispatch kernel may spill;
+     (``cuobjdump -sass``): each must have some, and no flash kernel, no
+     per-dispatch kernel and no resident fused kernel may spill;
   set-up: a soc-LiveJournal1-sized graph (4,847,571 vertices, ~69.0M
      edges) from ``powerlaw_graph`` and 8 ``clustered_labels``, ``by_src``
      adjacency at page size 2048;
   3. kernels: an empty kernel's launch-to-completion time (the launch
      floor); each of the four kernels against its plain PyTorch version
      on the card, at the shapes the main path gives it, bit for bit;
-     timed against the plain version and against its bound;
+     timed against the plain version and against its bound.  The fused
+     kernels (1 and 4) are held with ``want_ids`` both ways and with junk
+     rows past ``total``; each logs its call time beside its device time
+     queued behind the host, the mean ``need / page_size`` of the real
+     rows (the prefix a row is decoded to) and its bound beside the
+     whole-row bound; row ``fused_gather_decode_bitmap_batch@want_ids``
+     times kernel 1's cold-LRU call, which returns the decoded matrix;
   4. slice: ``retrieve_neighbors_batch(engine="cuda")`` over batches of
      8 / 16 / 1024 / 16384 vertices, unfiltered and filtered by
      ``(L0 & L1) | ~L2``, with no page cache and with a 4096-page LRU
@@ -117,7 +125,7 @@ process; the LM profile runs last):
      heads as strided views of [b, s, h, d] tensors, bf16 causal, against
      the plain version (0.1, and elementwise 2^-8 (|want| + max|v|)),
      timed beside it, the bound and ``scaled_dot_product_attention`` with
-     ``enable_gqa=True``;
+     ``enable_gqa=True`` (row ``flash_attention@gqa``);
  12p. lm profile: ``torch.profiler`` over one forward, prefill and decode
      step of the bf16 model: device busy ms by kernel, idle share against
      phase 12's unprofiled host wall.
@@ -427,6 +435,30 @@ def kernel_phase(torch, adj, vt, batches):
         f"{flips} run boundaries); {rows[-1]['ms']:.4f} ms a call back to "
         f"back, {queued:.4f} ms of device queued behind the host")
 
+    host_pos = col.packed_cache.unpack_plan()[1]
+
+    def need_bytes(staged, p_pad, total):
+        """What a call without want_ids must read of the plan: for each
+        page a request lands in, ``first``, ``pos`` and ``mind`` of its
+        deltas before its last requested position (``need - 1`` of them),
+        and the distinct packed words that those deltas of a non-zero
+        width name.  Returns the bytes and each row's ``need``."""
+        f = np.clip(staged[p_pad:p_pad + total].astype(np.int64), 0,
+                    p_pad * ps - 1)
+        need = np.zeros(p_pad, np.int64)
+        np.maximum.at(need, f // ps, f % ps + 1)
+        pages = np.clip(staged[:p_pad], 0, n_pages - 1)
+        per_page = np.zeros(n_pages, np.int64)
+        np.maximum.at(per_page, pages, need)
+        used = np.nonzero(per_page)[0]
+        deltas = per_page[used] - 1
+        pos = host_pos[used]
+        named = (np.arange(d) < deltas[:, None]) & ((pos & 63) != 0)
+        key = np.nonzero(named)[0] * (1 << 21) + (pos[named] >> 11)
+        nbytes = 4 * (len(used) + 2 * int(deltas.sum())
+                      + len(np.unique(key)))
+        return nbytes, need
+
     for name, fwords in (("fused_gather_decode_bitmap_batch", None),
                          ("fused_gather_decode_filter_bitmap_batch", fw)):
         staged, p_pad, n_real, total = staged_for(
@@ -448,6 +480,7 @@ def kernel_phase(torch, adj, vt, batches):
         kw, kids = kern(True)
         require(torch.equal(kw, rw) and torch.equal(kids, rids),
                 f"{name} (want_ids) differs")
+        ids_err = max(max_err(kw, rw), max_err(kids, rids))
         kw = kern(False)
         require(torch.equal(kw, rw), f"{name} differs")
         # rows past `total` must be ignored whatever they point at
@@ -462,17 +495,44 @@ def kernel_phase(torch, adj, vt, batches):
         require(dups > 0 and len(staged) - p_pad - 1 > total
                 and p_pad > n_real,
                 f"{name}: the case lacks duplicates or padding")
-        nbytes = (plan_bytes(staged[:n_real]) + 4 * len(staged)
-                  + 4 * n_words + (4 * n_words if fwords is not None else 0))
+        # the bound counts what these inputs need (the rows' requested
+        # prefixes); the whole-row bound of earlier runs is logged beside
+        nbytes, need = need_bytes(staged, p_pad, total)
+        tail_bytes = 4 * len(staged) + 4 * n_words
+        if fwords is not None:
+            live = ids_req[(ids_req >= 0) & (ids_req < 32 * n_words)]
+            tail_bytes += 4 * int(torch.unique(live >> 5).numel())
+        whole = plan_bytes(staged[:n_real]) + 4 * len(staged) \
+            + 4 * n_words + (4 * n_words if fwords is not None else 0)
+        call = cuda_ms(torch, lambda: kern(False), 20)
+        device = queued_ms(torch, lambda: kern(False), 100)
+        plain_ms = cuda_ms(torch, plain, 3)
         entry(name, "src/repro_torch/kernels/csrc/bitmap_scatter.cu",
               "src/repro/kernels/pac_decode/kernel.py:540"
               if fwords is None else
               "src/repro/kernels/label_filter/kernel.py:231",
-              max_err(kw, rw), cuda_ms(torch, lambda: kern(False), 20),
-              cuda_ms(torch, plain, 3), nbytes)
+              max_err(kw, rw), call, plain_ms, nbytes + tail_bytes)
         log(f"kernels: {name} equal (want_ids both ways) at p_pad={p_pad}, "
             f"{n_real} pages, {total} rows, {dups} duplicate ids, "
-            f"{len(staged) - p_pad - 1 - total} padding rows")
+            f"{len(staged) - p_pad - 1 - total} padding rows; mean "
+            f"need / page_size {need[:n_real].mean() / ps:.4f} over the "
+            f"real rows; {call:.4f} ms a call back to back, {device:.4f} ms "
+            f"of device queued behind the host; bound "
+            f"{rows[-1]['bound_ms']:.4f} ms ({nbytes + tail_bytes} B), "
+            f"whole rows {whole / HBM_BYTES_PER_S * 1e3:.4f} ms "
+            f"({whole} B)")
+        if fwords is None:
+            # the cold-LRU call: every row decoded whole and returned
+            call = cuda_ms(torch, lambda: kern(True), 20)
+            device = queued_ms(torch, lambda: kern(True), 100)
+            entry(name + "@want_ids",
+                  "src/repro_torch/kernels/csrc/bitmap_scatter.cu",
+                  "src/repro/kernels/pac_decode/kernel.py:540", ids_err,
+                  call, plain_ms,
+                  plan_bytes(staged[:n_real]) + 4 * p_pad * ps + tail_bytes)
+            log(f"kernels: {name}@want_ids {call:.4f} ms a call back to "
+                f"back, {device:.4f} ms of device queued behind the host; "
+                f"bound {rows[-1]['bound_ms']:.4f} ms")
     return rows
 
 
@@ -1940,15 +2000,15 @@ def flash_kernel_phase(torch):
         f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
         f"scaled_dot_product_attention {row['library_ms']:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
-    flash_gqa_call(torch, gen)
-    return [row]
+    return [row, flash_gqa_call(torch, gen)]
 
 
 def flash_gqa_call(torch, gen):
     """The forward's own call of kernel 15: ``ops.mha`` on [4, 15, 2048,
     64] queries over 5 KV heads, each a [b, h, s, d] view of a [b, s, h,
     d] tensor, bf16 causal; held against the plain version and timed
-    beside it and ``scaled_dot_product_attention`` with GQA."""
+    beside it and ``scaled_dot_product_attention`` with GQA.  Returns its
+    row of the kernel table, ``flash_attention@gqa``."""
     from repro_torch.kernels.flash_attention import ops as FO
     dev = torch.device(DEVICE)
     h, h_kv, d = LM_HEADS, 5, 64
@@ -1975,19 +2035,19 @@ def flash_gqa_call(torch, gen):
         how = "KV heads repeated"
         kr, vr = (x.repeat_interleave(h // h_kv, 1) for x in (k, v))
         lib_fn = lambda: sdpa(q, kr, vr, is_causal=True)
-    ms = cuda_ms(torch, lambda: FO.mha(q, k, v, True), 10)
-    plain_ms = cuda_ms(torch, lambda: FO.mha(q, k, v, True,
-                                             use_kernel=False), 3)
-    lib_ms = cuda_ms(torch, lib_fn, 10)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, out, k, v
-    bound = max(nbytes / HBM_BYTES_PER_S,
-                4 * LM_BATCH * h * LM_SEQ * LM_SEQ * d / 2
-                / BF16_FLOPS_PER_S) * 1e3
+    row = kernel_row(
+        "flash_attention@gqa", FLASH_SOURCE, FLASH_REPLACES, err,
+        cuda_ms(torch, lambda: FO.mha(q, k, v, True), 10),
+        cuda_ms(torch, lambda: FO.mha(q, k, v, True, use_kernel=False), 3),
+        2 * (2 * q.numel() + k.numel() + v.numel()),   # q, out, k, v
+        4 * LM_BATCH * h * LM_SEQ * LM_SEQ * d / 2, BF16_FLOPS_PER_S)
+    row["library_ms"] = cuda_ms(torch, lib_fn, 10)
     log(f"13. mha [{LM_BATCH}, {h}, {LM_SEQ}, {d}] over {h_kv} KV heads, "
         f"strided views, bf16 causal: max|d| {err:.3e} (elementwise bound "
-        f"held); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention ({how}) {lib_ms:.4f} ms, bound "
-        f"{bound:.4f} ms")
+        f"held); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention ({how}) {row['library_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms")
+    return row
 
 
 def spill_free(report, marker: str, what: str) -> None:
@@ -2039,9 +2099,12 @@ def main() -> int:
     only.add_argument("--per-dispatch", action="store_true",
                       help="run phases 1-2 and 9 only (kernels 8-10 over "
                       "the soc-LiveJournal1 graph)")
+    only.add_argument("--resident", action="store_true",
+                      help="run phases 1-4 only (kernels 1-4 and the "
+                      "resident retrieval slice)")
     args = ap.parse_args()
-    graph_only = "traversal" if args.traversal else (
-        "per-dispatch" if args.per_dispatch else None)
+    graph_only = next((f for f in ("traversal", "per-dispatch", "resident")
+                       if getattr(args, f.replace("-", "_"))), None)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2072,6 +2135,7 @@ def main() -> int:
                 log(f"   ptxas: {line.strip()}")
     flash_build_check(report, lib)
     spill_free(report, "_per_dispatch_cu_", "a per-dispatch kernel")
+    spill_free(report, "_bitmap_scatter_cu_", "a resident fused kernel")
 
     wrappers = {"gather_decode": PK.gather_decode,
                 "fused_gather_decode_bitmap_batch":
@@ -2142,8 +2206,8 @@ def main() -> int:
 def graph_phases(torch, drive, wrappers, card, only=None):
     """Phases 3-11 over the soc-LiveJournal1 graph and ``ldbc_like(40)``
     (``only="traversal"``: phases 3, 5 and 6; ``only="per-dispatch"``:
-    phase 9); returns their kernel rows and the launch counts of their
-    slice phases."""
+    phase 9; ``only="resident"``: phases 3 and 4); returns their kernel
+    rows and the launch counts of their slice phases."""
     adj, vt, batches, truth = build_graph()
     if only == "per-dispatch":
         return per_dispatch_rows(torch, adj, vt, batches), []
@@ -2163,6 +2227,8 @@ def graph_phases(torch, drive, wrappers, card, only=None):
         log(f"4. slice: {len(results)} configurations equal to the numpy "
             f"oracle, launches {launches} ({time.perf_counter() - t0:.1f} "
             f"s) on {card}")
+        if only == "resident":
+            return rows, [launches]
 
     t0 = time.perf_counter()
     trav, t_launches = drive(traversal_slice_phase, torch, adj, vt, card)

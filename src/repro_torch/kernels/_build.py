@@ -37,9 +37,9 @@ _L = ctypes.c_int64
 SIGNATURES = {
     "rt_gather_decode": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P),
     "rt_fused_gather_decode_bitmap": (_P, _P, _P, _P, _I, _I, _I, _P, _I, _I,
-                                      _P, _P, _I, _P),
+                                      _P, _P, _P, _I, _P),
     "rt_fused_gather_decode_filter_bitmap": (_P, _P, _P, _P, _I, _I, _I, _P,
-                                             _I, _I, _P, _P, _I, _P, _P),
+                                             _I, _I, _P, _P, _P, _I, _P, _P),
     "rt_cond_bitmap": (_P, _P, _I, _I, _P, _I, _I, _P, _I, _P),
     "rt_launch_floor": (_P,),
     "rt_seed_words": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P),

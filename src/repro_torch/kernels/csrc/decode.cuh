@@ -2,10 +2,11 @@
 //
 // A page of ids is `first` followed by `first + inclusive_scan(delta)`, all
 // in int32 with wraparound.  Both decode layouts -- the resident unpack
-// plan (gather_decode.cu, bitmap_scatter.cu) and the raw miniblock arrays
-// of PackedPages (single_range.cu) -- produce one delta per lane and hand
-// the row to decode_row, which scans it with one block.  per_dispatch.cu
-// decodes the raw arrays with a kernel of its own (extract_bits only).
+// plan (gather_decode.cu) and the raw miniblock arrays of PackedPages
+// (single_range.cu) -- produce one delta per lane and hand the row to
+// decode_row, which scans it with one block.  per_dispatch.cu (the raw
+// arrays) and bitmap_scatter.cu (the plan) decode with kernels of their
+// own (extract_bits only).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -124,11 +125,3 @@ struct MiniblockDelta {
 };
 
 }  // namespace rt
-
-// Decode the resident unpack-plan rows named by idx[0 .. n_rows) into
-// out[n_rows, d + 1] (int32, row-major).  Each idx entry is clamped to
-// [0, n_pages - 1].  Defined in gather_decode.cu.
-void launch_gather_decode(const int* first, const int* pos, const int* mind,
-                          const unsigned* packed, int n_pages, int d,
-                          int max_words, const int* idx, int n_rows, int* out,
-                          cudaStream_t stream);

@@ -63,8 +63,9 @@ gather_decode_kernel(const int* __restrict__ first, const int* __restrict__ pos,
                  out + static_cast<size_t>(row) * (d + 1));
 }
 
-}  // namespace
-
+// Decode the resident unpack-plan rows named by idx[0 .. n_rows) into
+// out[n_rows, d + 1] (int32, row-major).  Each idx entry is clamped to
+// [0, n_pages - 1].
 void launch_gather_decode(const int* first, const int* pos, const int* mind,
                           const unsigned* packed, int n_pages, int d,
                           int max_words, const int* idx, int n_rows, int* out,
@@ -73,6 +74,8 @@ void launch_gather_decode(const int* first, const int* pos, const int* mind,
   gather_decode_kernel<<<n_rows, rt::kDecodeThreads, 0, stream>>>(
       first, pos, mind, packed, n_pages, d, max_words, idx, out);
 }
+
+}  // namespace
 
 extern "C" int rt_gather_decode(const int* first, const int* pos,
                                 const int* mind, const int* packed,

@@ -135,8 +135,9 @@ def fused_gather_decode_filter_bitmap_batch(
         words.copy_(w)
         return (words, ids) if want_ids else words
     ids = PK.fused_launch("rt_fused_gather_decode_filter_bitmap", first,
-                          pos, mind, packed, staged, words, p_pad, fwords)
-    fused_gather_decode_filter_bitmap_batch.launches += 1
+                          pos, mind, packed, staged, words, p_pad, fwords,
+                          want_ids)
+    fused_gather_decode_filter_bitmap_batch.launches += PK.FUSED_LAUNCHES
     return (words, ids) if want_ids else words
 
 

@@ -74,6 +74,11 @@ def check_staged(staged: torch.Tensor, words: torch.Tensor, p_pad: int,
     return t
 
 
+#: kernel launches of one resident fused call (``csrc/bitmap_scatter.cu``:
+#: the mark, then the decode that ORs the requested ids' bits)
+FUSED_LAUNCHES = 2
+
+
 def fused_gather_decode_bitmap_batch(
         first, pos, mind, packed, staged: torch.Tensor, words: torch.Tensor,
         p_pad: int, want_ids: bool
@@ -90,8 +95,8 @@ def fused_gather_decode_bitmap_batch(
         words.copy_(w)
         return (words, ids) if want_ids else words
     ids = fused_launch("rt_fused_gather_decode_bitmap", first, pos, mind,
-                       packed, staged, words, p_pad, None)
-    fused_gather_decode_bitmap_batch.launches += 1
+                       packed, staged, words, p_pad, None, want_ids)
+    fused_gather_decode_bitmap_batch.launches += FUSED_LAUNCHES
     return (words, ids) if want_ids else words
 
 
@@ -99,12 +104,18 @@ fused_gather_decode_bitmap_batch.launches = 0
 
 
 def fused_launch(name: str, first, pos, mind, packed, staged, words,
-                 p_pad: int, fwords: Optional[torch.Tensor]) -> torch.Tensor:
-    """Check and launch one fused C entry; returns the decoded matrix
-    (the ids output, or the scratch the bitmap is scattered from)."""
+                 p_pad: int, fwords: Optional[torch.Tensor],
+                 want_ids: bool) -> Optional[torch.Tensor]:
+    """Check and launch one resident fused C entry; returns the decoded
+    int32[p_pad, page_size] matrix under ``want_ids``, else None (no
+    matrix is written)."""
     dev = staged.device
     check_plan(first, pos, mind, packed, dev)
     t = check_staged(staged, words, p_pad, dev)
+    page_size = pos.shape[1] + 1
+    if p_pad * page_size >= 1 << 31 or 32 * words.shape[0] >= 1 << 31:
+        raise ValueError(f"p_pad={p_pad} rows of {page_size} or "
+                         f"{words.shape[0]} words overflow int32 indices")
     extra = ()
     if fwords is not None:
         B.check(fwords, "fwords", dev, 1)
@@ -112,11 +123,14 @@ def fused_launch(name: str, first, pos, mind, packed, staged, words,
             raise ValueError(f"fwords {tuple(fwords.shape)} != words "
                              f"{tuple(words.shape)}")
         extra = (B.ptr(fwords),)
-    ids = torch.empty((p_pad, pos.shape[1] + 1), dtype=torch.int32,
-                      device=dev)
+    # each row's last requested position + 1, then its request mask
+    work = torch.zeros(p_pad * (1 + -(-page_size // 32)), dtype=torch.int32,
+                       device=dev)
+    ids = torch.empty((p_pad, page_size), dtype=torch.int32, device=dev) \
+        if want_ids else None
     B.launch(name, *_plan_args(first, pos, mind, packed), B.ptr(staged),
-             p_pad, t, B.ptr(ids), B.ptr(words), words.shape[0], *extra,
-             B.stream(dev))
+             p_pad, t, None if ids is None else B.ptr(ids), B.ptr(work),
+             B.ptr(words), words.shape[0], *extra, B.stream(dev))
     return ids
 
 

@@ -1,14 +1,18 @@
 """Edge-case inputs of kernels 5 (``khop_scan``), 6 (``two_hop``), 7
-(``count_hop``), 3 (``cond_bitmap``) and the per-dispatch kernels 8-10
+(``count_hop``), 3 (``cond_bitmap``), the per-dispatch kernels 8-10
 (``fused_decode_bitmap_batch``, ``fused_decode_filter_bitmap_batch``,
-``delta_decode``), shared by their CPU tests against the JAX refs and
-their card tests against the plain versions, so both hold the same cases.
+``delta_decode``) and the resident kernels 1, 2 and 4
+(``fused_gather_decode_bitmap_batch``, ``gather_decode``,
+``fused_gather_decode_filter_bitmap_batch``), shared by their CPU tests
+against the JAX refs and their card tests against the plain versions, so
+both hold the same cases.
 
 No JAX: ``test_torch_cuda.py`` imports it where JAX is not installed.
 """
 import numpy as np
 import torch
 
+from repro_torch.core.encoding import packed_from_arrays
 from repro_torch.kernels.pac_decode.ref import decode_pages
 
 NE = 1013          # ids (rows of a label column), not a multiple of 32
@@ -325,3 +329,91 @@ def fused_case(page_size, warm=False):
     return (pages, cached, np.asarray(pos, np.int32),
             np.full((1, 1), total, np.int32))
 
+
+
+# -------------------- the resident plan (kernels 1, 2 and 4) -----------------
+
+#: a call with requested rows, one whose ``total`` is 0 (every row junk),
+#: one with no requested row at all
+RESIDENT_CASES = ["rows", "total_0", "empty"]
+#: predicate words of kernel 4's cases: none set, all set, random with bits
+#: set past the id space's last 13 ids
+FWORDS_KINDS = ["zeros", "ones", "random"]
+#: rows of the resident cases' matrix: 18 real rows, 14 padding rows
+RESIDENT_P_PAD = 32
+
+
+def resident_plan(page_size):
+    """``(first, pos, mind, packed)``: the unpack plan of
+    :func:`page_case`'s 16 pages (``packed`` uint32, the rest int32), with
+    12 deltas of page 0 rewritten: 4 whose word index lies past the row's
+    words (the kernels clamp it), 4 of width 40 and 4 of width 63 (read as
+    all 32 bits of the word)."""
+    plan = packed_from_arrays(*page_case(page_size),
+                              page_size=page_size).unpack_plan()
+    first, pos, mind, packed = (np.array(a) for a in plan)
+    rng = np.random.default_rng(300 + page_size)
+    n_words = packed.shape[1]
+    j = rng.choice(pos.shape[1], 12, replace=False)
+    shift = rng.integers(0, 32, 12)
+    widx = np.r_[np.full(4, n_words + 5), rng.integers(0, n_words, 8)]
+    bw = np.r_[np.full(4, 8), np.full(4, 40), np.full(4, 63)]
+    pos[0, j] = (widx << 11) | (shift << 6) | bw
+    return first, pos, mind, packed
+
+
+def resident_case(page_size, case="rows"):
+    """``(plan, staged, p_pad, n_words)`` of one resident fused call at
+    ``page_size`` (one of :data:`RESIDENT_CASES`): :func:`resident_plan`,
+    and the staged vector ``[idx | gidx | total]``.  ``idx`` names the 16
+    pages in a shuffled order, pages 3 and 10 twice (equal ids in two rows;
+    the zero pages 12-15 give equal ids too), then padding entries -7 and
+    ``n_pages + 5``.  The requested rows, in no sorted order: none in row
+    4, only position 0 of row 1, only the last position of row 2, one
+    position of row 3 forty times, runs of consecutive positions in rows
+    5-17 (row 5 whole), scattered positions in row 0 and rows 5 and up,
+    the padding rows included, and the flat positions -7 (row 0's first),
+    ``p_pad * page_size + 5`` and ``p_pad * page_size - 1``; then 29 junk
+    entries past ``total``.  The ids run from below 0 (page 10 wraps
+    int32) to past the :data:`FUSED_WORDS` target words."""
+    plan = resident_plan(page_size)
+    n_pages = plan[0].shape[0]
+    rng = np.random.default_rng(page_size + RESIDENT_CASES.index(case))
+    idx = [3, 0, 1, 2, 5, 4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 10, 3]
+    p_pad = RESIDENT_P_PAD
+    idx += [-7, n_pages + 5] * ((p_pad - len(idx)) // 2)
+    ps = page_size
+    end = p_pad * ps
+    runs = [[ps], [3 * ps - 1], [3 * ps + 5] * 40,
+            list(range(5 * ps, 6 * ps))]
+    for row in range(6, 18):
+        lo = int(rng.integers(0, ps))
+        hi = min(ps, lo + int(rng.integers(1, ps + 1)))
+        runs.append(list(range(row * ps + lo, row * ps + hi)))
+    scattered = rng.integers(0, end, 300)
+    keep = (scattered < ps) | (scattered >= 5 * ps)    # not rows 1-4
+    runs.append(list(scattered[keep]))
+    runs.append([-7, end + 5, end - 1])
+    order = rng.permutation(len(runs))
+    pos = [int(q) for r in order for q in runs[r]]
+    total = len(pos)
+    pos += [int(q) for q in rng.integers(-50, end + 50, 29)]
+    if case == "total_0":
+        total = 0
+    elif case == "empty":
+        pos, total = [], 0
+    staged = np.asarray(idx + pos + [total], np.int32)
+    return plan, staged, p_pad, FUSED_WORDS
+
+
+def resident_fwords(kind, n_words=FUSED_WORDS):
+    """Predicate words of kind ``kind`` (:data:`FWORDS_KINDS`) over
+    ``32 * n_words`` ids, as int32."""
+    if kind == "zeros":
+        return np.zeros(n_words, np.int32)
+    if kind == "ones":
+        return np.full(n_words, -1, np.int32)
+    rng = np.random.default_rng(n_words)
+    fw = rng.integers(0, 1 << 32, n_words, dtype=np.uint64).astype(np.uint32)
+    fw[-1] |= np.uint32(0xFFF80000)     # the last 13 ids, past the vertices
+    return fw.view(np.int32)

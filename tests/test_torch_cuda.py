@@ -1,5 +1,5 @@
-"""The traversal, per-dispatch and single-range kernels on the card, at
-the CPU tests' small sizes.
+"""The resident, traversal, per-dispatch and single-range kernels on the
+card, at the CPU tests' small sizes.
 
 Each CUDA kernel is held bit for bit against its plain PyTorch version on
 the same CUDA tensors, and the cuda engine's ``k_hop``, ``two_hop_pac``,
@@ -20,10 +20,11 @@ import numpy as np
 import pytest
 import torch
 from _torch_cases import (COND_CASES, COUNT_HOP_CASES, FUSED_PROGRAMS,
-                          FUSED_WORDS, KHOP_CASES, NE, PAGE_SIZES,
-                          TWO_HOP_CASES, cond_case, count_hop_edge_case,
-                          fused_case, khop_edge_case, page_case, rle_rows,
-                          two_hop_edge_case)
+                          FUSED_WORDS, FWORDS_KINDS, KHOP_CASES, NE,
+                          PAGE_SIZES, RESIDENT_CASES, TWO_HOP_CASES,
+                          cond_case, count_hop_edge_case, fused_case,
+                          khop_edge_case, page_case, resident_case,
+                          resident_fwords, rle_rows, two_hop_edge_case)
 
 import repro_torch.core as TC
 from repro_torch.configs import get_config
@@ -293,6 +294,69 @@ def test_two_hop_pac_and_counts_equal_oracle(dev, graph):
     rows = TC.decode_edge_ranges(adj, off[starts], off[ends], m_o, "numpy")
     assert counts.tolist() == np.bincount(rows, minlength=N).tolist()
     assert (m_k.nbytes, m_k.nrequests) == (m_o.nbytes, m_o.nrequests)
+
+
+# --------------------- the resident route (kernels 1, 2, 4) -----------------
+
+def _resident(dev, page_size, case):
+    """A resident fused call's tensors on the card: the plan (uint32 words
+    as int32 bit patterns), the staged vector, p_pad and n_words."""
+    plan, staged, p_pad, n_words = resident_case(page_size, case)
+    return ([torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+             for a in plan], torch.from_numpy(staged).to(dev), p_pad,
+            n_words)
+
+
+@pytest.mark.parametrize("page_size", PAGE_SIZES)
+def test_gather_decode_kernel_resident_cases_equal_plain(dev, page_size):
+    plan, staged, p_pad, _ = _resident(dev, page_size, "rows")
+    idx = staged[:p_pad].clone()      # with padding -7 and n_pages + 5
+    got, want = _held(PK.gather_decode, PR.gather_decode, *plan, idx)
+    assert torch.equal(got, want)
+
+
+def _fused_held(dev, page_size, case, want_ids, fwords=None):
+    """Launch a resident fused kernel (kernel 1, or kernel 4 with predicate
+    words of kind ``fwords``) into a words buffer of junk and its plain
+    version on the same tensors, and hold them equal; returns the plain
+    words."""
+    plan, staged, p_pad, n_words = _resident(dev, page_size, case)
+    words = torch.full((n_words,), -1, dtype=torch.int32, device=dev)
+    if fwords is None:
+        fn, fw, extra = PK.fused_gather_decode_bitmap_batch, None, ()
+    else:
+        fn = LK.fused_gather_decode_filter_bitmap_batch
+        fw = torch.from_numpy(resident_fwords(fwords, n_words)).to(dev)
+        extra = (fw,)
+    before = fn.launches
+    got = fn(*plan, staged, *extra, words, p_pad=p_pad, want_ids=want_ids)
+    want = PR.fused_gather_batch(*plan, staged, n_words, p_pad, fw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + PK.FUSED_LAUNCHES
+    if want_ids:
+        assert torch.equal(got[1], want[1])
+        got = got[0]
+    assert got is words and torch.equal(got, want[0])
+    return want[0]
+
+
+@pytest.mark.parametrize("want_ids", [True, False])
+@pytest.mark.parametrize("case", RESIDENT_CASES)
+@pytest.mark.parametrize("page_size", PAGE_SIZES)
+def test_fused_gather_kernel_resident_cases_equal_plain(dev, page_size, case,
+                                                        want_ids):
+    want = _fused_held(dev, page_size, case, want_ids)
+    assert bool(want.any()) == (case == "rows")
+
+
+@pytest.mark.parametrize("want_ids", [True, False])
+@pytest.mark.parametrize("fwords", FWORDS_KINDS)
+@pytest.mark.parametrize("case", RESIDENT_CASES)
+@pytest.mark.parametrize("page_size", PAGE_SIZES)
+def test_fused_gather_filter_kernel_resident_cases_equal_plain(
+        dev, page_size, case, fwords, want_ids):
+    want = _fused_held(dev, page_size, case, want_ids, fwords)
+    assert bool(want.any()) == (case == "rows" and fwords != "zeros")
 
 
 # ------------------------ the per-dispatch pack route ----------------------

@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
-from _torch_cases import COND_CASES, DEPTH_64, cond_case
+from _torch_cases import (COND_CASES, DEPTH_64, FWORDS_KINDS, PAGE_SIZES,
+                          RESIDENT_CASES, cond_case, resident_case,
+                          resident_fwords)
 
 import repro.core as RC
 import repro_torch.core as TC
@@ -192,3 +194,31 @@ def test_device_program_is_cached_per_device_and_program():
         LK.device_program(deeper, "cpu")
     with pytest.raises(ValueError, match="stack of 65 > 64"):
         LK.encode_program(deeper)
+
+
+@pytest.mark.parametrize("fwords", FWORDS_KINDS)
+@pytest.mark.parametrize("case", RESIDENT_CASES)
+@pytest.mark.parametrize("page_size", PAGE_SIZES)
+def test_fused_filter_resident_cases_match_jnp_ref(page_size, case, fwords):
+    plan, staged, p_pad, n_words = resident_case(page_size, case)
+    fw = resident_fwords(fwords, n_words)
+    tplan = [torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+             for a in plan]
+    for want_ids in (True, False):
+        got = LK.fused_gather_decode_filter_bitmap_batch(
+            *tplan, torch.from_numpy(staged), torch.from_numpy(fw),
+            torch.full((n_words,), -1, dtype=torch.int32), p_pad=p_pad,
+            want_ids=want_ids)
+        want = RLR.fused_gather_filter_batch_ref(
+            *map(jnp.asarray, plan), jnp.asarray(staged),
+            jnp.asarray(fw.view(np.uint32)), jnp.zeros(n_words, jnp.uint32),
+            page_size=page_size, n_words=n_words, p_pad=p_pad,
+            want_ids=want_ids)
+        if want_ids:
+            (gw, gi), (ww, wi) = got, want
+            np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+        else:
+            gw, ww = got, want
+        np.testing.assert_array_equal(gw.numpy().view(np.uint32),
+                                      np.asarray(ww))
+        assert gw.numpy().any() == (case == "rows" and fwords != "zeros")

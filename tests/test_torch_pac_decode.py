@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
+from _torch_cases import PAGE_SIZES, RESIDENT_CASES, resident_case
 
 import repro.core as RC
 import repro_torch.core as TC
@@ -183,3 +184,44 @@ def test_size_classes_match_the_reference():
     assert O.FUSED_MIN_RANGES == RO.FUSED_MIN_RANGES == 16
     assert (O.PAGE_CLASS_MIN, O.RANGE_CLASS_MIN) == \
         (RO.PAGE_CLASS_MIN, RO.RANGE_CLASS_MIN) == (8, 64)
+
+
+def _plan_tensors(plan):
+    """The resident case's plan as the port's CPU tensors (uint32 words as
+    int32 bit patterns)."""
+    return [torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+            for a in plan]
+
+
+@pytest.mark.parametrize("case", RESIDENT_CASES)
+@pytest.mark.parametrize("page_size", PAGE_SIZES)
+def test_fused_bitmap_resident_cases_match_jnp_ref(page_size, case):
+    plan, staged, p_pad, n_words = resident_case(page_size, case)
+    for want_ids in (True, False):
+        words = torch.full((n_words,), -1, dtype=torch.int32)
+        got = K.fused_gather_decode_bitmap_batch(
+            *_plan_tensors(plan), torch.from_numpy(staged), words,
+            p_pad=p_pad, want_ids=want_ids)
+        want = RR.fused_gather_batch_ref(
+            *map(jnp.asarray, plan), jnp.asarray(staged),
+            jnp.zeros(n_words, jnp.uint32), page_size=page_size,
+            n_words=n_words, p_pad=p_pad, want_ids=want_ids)
+        if want_ids:
+            (gw, gi), (ww, wi) = got, want
+            assert gi.shape == (p_pad, page_size)
+            np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+        else:
+            gw, ww = got, want
+        np.testing.assert_array_equal(gw.numpy().view(np.uint32),
+                                      np.asarray(ww))
+        assert gw.numpy().any() == (case == "rows")
+
+
+@pytest.mark.parametrize("page_size", PAGE_SIZES)
+def test_gather_decode_resident_cases_match_jnp_ref(page_size):
+    plan, staged, p_pad, _ = resident_case(page_size)
+    idx = staged[:p_pad]              # with padding -7 and n_pages + 5
+    got = K.gather_decode(*_plan_tensors(plan), torch.from_numpy(idx))
+    want = RR.gather_decode_ref(*map(jnp.asarray, plan), jnp.asarray(idx),
+                                page_size=page_size)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
