@@ -8,7 +8,10 @@ traversal path that launches them; ``--per-dispatch`` phases 1-2, the
 soc-LiveJournal1 set-up and phase 9, which hold and time kernels 8-10,
 with no slice phase, so that their rows count no launches; ``--resident``
 phases 1-4, which hold and time kernels 1-4 and drive the resident
-retrieval slice that launches them.)
+retrieval slice that launches them; ``--entries`` phases 1-2, the
+soc-LiveJournal1 set-up and phases 10-11, which drive the entries and hold
+and time kernels 11-14, phase 10's batch-16384 PAC then from the numpy
+engine.)
 
 Phases, each of which exits non-zero when it fails (12 and 13 run right
 after 2, so that their host timings come before any profiler in the
@@ -18,14 +21,18 @@ process; the LM profile runs last):
      ptxas's registers and spills, and count the tensor-core instructions
      (HGMMA) of each bf16 flash kernel in the library's SASS
      (``cuobjdump -sass``): each must have some, and no flash kernel, no
-     per-dispatch kernel and no resident fused kernel may spill;
+     per-dispatch kernel, no resident fused kernel and no single-range
+     kernel may spill;
   set-up: a soc-LiveJournal1-sized graph (4,847,571 vertices, ~69.0M
      edges) from ``powerlaw_graph`` and 8 ``clustered_labels``, ``by_src``
      adjacency at page size 2048;
   3. kernels: an empty kernel's launch-to-completion time (the launch
      floor); each of the four kernels against its plain PyTorch version
      on the card, at the shapes the main path gives it, bit for bit;
-     timed against the plain version and against its bound.  The fused
+     timed against the plain version and against its bound
+     (``gather_decode`` at 8 rows, a launch's overhead, and as row
+     ``gather_decode@16384`` at the retrieval slice's p_pad-16384 page
+     list, each beside its device time queued behind the host).  The fused
      kernels (1 and 4) are held with ``want_ids`` both ways and with junk
      rows past ``total``; each logs its call time beside its device time
      queued behind the host, the mean ``need / page_size`` of the real
@@ -99,7 +106,10 @@ process; the LM profile runs last):
  11. entry kernels: ``bitmap``, ``fused_decode_bitmap``, ``rle_to_bitmap``
      and ``bitmap_select`` against their plain versions on the card, bit
      for bit, at phase 10's shapes; timed against the plain version, the
-     bound and, for ``bitmap_select``, ``torch.masked_select``.
+     bound and, for ``bitmap_select``, ``torch.masked_select``; kernels 11
+     and 12 each beside their device time queued behind the host, and
+     ``fused_decode_bitmap`` over the sorted ``<src>`` as row
+     ``fused_decode_bitmap@src``.
  12. lm: smollm-360m at full width (32 layers, d_model 960, 15 query and
      5 KV heads of 64, d_ff 2560, vocab 49152, tied, bf16), weights from
      the port's ``init(seed=0)`` on the card.  (a) ``forward`` of 4 x 2048
@@ -386,13 +396,25 @@ def kernel_phase(torch, adj, vt, batches):
         k, r = PK.gather_decode(*plan, idx), PR.gather_decode(*plan, idx)
         require(torch.equal(k, r), f"gather_decode differs at {len(idx)} "
                 f"rows ({max_err(k, r)})")
-    err = max_err(PK.gather_decode(*plan, idx8), PR.gather_decode(*plan, idx8))
-    uniq = np.unique(np.clip(idx8.cpu().numpy(), 0, n_pages - 1))
-    entry("gather_decode", "src/repro_torch/kernels/csrc/gather_decode.cu",
-          "src/repro/kernels/pac_decode/kernel.py:453", err,
-          cuda_ms(torch, lambda: PK.gather_decode(*plan, idx8), 50),
-          cuda_ms(torch, lambda: PR.gather_decode(*plan, idx8), 10),
-          plan_bytes(uniq) + 4 * len(idx8) + 4 * len(idx8) * ps)
+    # row 2 at 8 rows (a launch's overhead), row 2@16384 at the retrieval
+    # slice's p_pad-16384 call: each distinct page's plan row read once,
+    # the ids written
+    for idx, suffix, reps in ((idx8, "", 50), (idx_big, "@16384", 20)):
+        err = max_err(PK.gather_decode(*plan, idx),
+                      PR.gather_decode(*plan, idx))
+        uniq = np.unique(np.clip(idx.cpu().numpy(), 0, n_pages - 1))
+        entry("gather_decode" + suffix,
+              "src/repro_torch/kernels/csrc/gather_decode.cu",
+              "src/repro/kernels/pac_decode/kernel.py:453", err,
+              cuda_ms(torch, lambda: PK.gather_decode(*plan, idx), reps),
+              cuda_ms(torch, lambda: PR.gather_decode(*plan, idx),
+                      reps // 5),
+              plan_bytes(uniq) + 4 * len(idx) + 4 * len(idx) * ps)
+        device = queued_ms(torch, lambda: PK.gather_decode(*plan, idx), reps)
+        log(f"kernels: {rows[-1]['name']} at {len(idx)} rows "
+            f"({len(uniq)} distinct pages): {rows[-1]['ms']:.4f} ms a call, "
+            f"{device:.4f} ms of device queued; bound "
+            f"{rows[-1]['bound_ms']:.4f} ms")
     # other page sizes: one pass of the block scan (256) and several (8192)
     rng = np.random.default_rng(2)
     for page_size in (256, 8192):
@@ -1405,8 +1427,12 @@ def entries_phase(torch, adj, truth, batches, oracle, card):
     n_words = -(-N_VERTICES // 32)
     res = {}
 
-    # (a) ids_to_bitmap
-    pac = pac_from_key(oracle[(BATCHES[-1], False, "none")][0][0])
+    # (a) ids_to_bitmap; the batch-16384 PAC from phase 4's oracle, or
+    #     from the numpy engine where phase 4 has not run (--entries)
+    key = (BATCHES[-1], False, "none")
+    pac = pac_from_key(oracle[key][0][0]) if key in oracle else \
+        TC.retrieve_neighbors_batch(adj, batches[BATCHES[-1]], PAGE_SIZE,
+                                    None, engine="numpy")
     wpp = PAGE_SIZE // 32
     pac_words = np.zeros(-(-N_VERTICES // PAGE_SIZE) * wpp, np.uint32)
     for p, w in pac.bitmaps.items():
@@ -1576,8 +1602,12 @@ def entry_kernel_phase(torch, adj, inputs):
         cuda_ms(torch, lambda: PK.bitmap(src_t, n_src, 0, words_out), 20),
         cuda_ms(torch, lambda: PR.bitmap(src_t, n_src, 0, words_out), 2),
         4 * n_src + 4 * words_out))
+    device = queued_ms(torch, lambda: PK.bitmap(src_t, n_src, 0, words_out),
+                       50)
     log(f"kernels: bitmap equal over {n_src} <src> ids, "
-        f"{pac_t.shape[0]} PAC ids and a window")
+        f"{pac_t.shape[0]} PAC ids and a window; {rows[-1]['ms']:.4f} ms a "
+        f"call, {device:.4f} ms of device queued; bound "
+        f"{rows[-1]['bound_ms']:.4f} ms")
     del src_t
 
     # -- 12: fused_decode_bitmap over the whole <dst> and <src> columns and
@@ -1600,15 +1630,21 @@ def entry_kernel_phase(torch, adj, inputs):
             equal(fused(PK.fused_decode_bitmap, part, sub_base, sub_nw),
                   fused(PR.fused_decode_bitmap, part, sub_base, sub_nw),
                   "fused_decode_bitmap on a sub-range")
-            n_pages, n_mini = args[1].shape
-            rows.append(kernel_row(
-                "fused_decode_bitmap",
-                "src/repro_torch/kernels/csrc/single_range.cu",
-                "src/repro/kernels/pac_decode/kernel.py:570", err12,
-                cuda_ms(torch, lambda: fused(PK.fused_decode_bitmap), 20),
-                cuda_ms(torch, lambda: fused(PR.fused_decode_bitmap), 2),
-                4 * (n_pages * (2 + 3 * n_mini) + int(args[2].sum()))
-                + 4 * words_out))
+        # the whole unsorted <dst> is row 12; the sorted <src>, whose ids
+        # repeat in runs, its row @src
+        n_pages, n_mini = args[1].shape
+        rows.append(kernel_row(
+            "fused_decode_bitmap" + ("" if name == "<dst>" else "@src"),
+            "src/repro_torch/kernels/csrc/single_range.cu",
+            "src/repro/kernels/pac_decode/kernel.py:570", err12,
+            cuda_ms(torch, lambda: fused(PK.fused_decode_bitmap), 20),
+            cuda_ms(torch, lambda: fused(PR.fused_decode_bitmap), 2),
+            4 * (n_pages * (2 + 3 * n_mini) + int(args[2].sum()))
+            + 4 * words_out))
+        device = queued_ms(torch, lambda: fused(PK.fused_decode_bitmap), 50)
+        log(f"kernels: {rows[-1]['name']} over {name}: {rows[-1]['ms']:.4f} "
+            f"ms a call, {device:.4f} ms of device queued; bound "
+            f"{rows[-1]['bound_ms']:.4f} ms")
         del shipped
     log(f"kernels: fused_decode_bitmap equal over the whole <dst> and <src> "
         f"columns ({len(adj.table['<dst>'].encoded.pages)} pages each) and "
@@ -2102,8 +2138,12 @@ def main() -> int:
     only.add_argument("--resident", action="store_true",
                       help="run phases 1-4 only (kernels 1-4 and the "
                       "resident retrieval slice)")
+    only.add_argument("--entries", action="store_true",
+                      help="run phases 1-2, 10 and 11 only (kernels 11-14 "
+                      "and the entries that launch them)")
     args = ap.parse_args()
-    graph_only = next((f for f in ("traversal", "per-dispatch", "resident")
+    graph_only = next((f for f in ("traversal", "per-dispatch", "resident",
+                                   "entries")
                        if getattr(args, f.replace("-", "_"))), None)
     import torch
     if not torch.cuda.is_available():
@@ -2136,6 +2176,7 @@ def main() -> int:
     flash_build_check(report, lib)
     spill_free(report, "_per_dispatch_cu_", "a per-dispatch kernel")
     spill_free(report, "_bitmap_scatter_cu_", "a resident fused kernel")
+    spill_free(report, "_single_range_cu_", "a single-range kernel")
 
     wrappers = {"gather_decode": PK.gather_decode,
                 "fused_gather_decode_bitmap_batch":
@@ -2206,11 +2247,16 @@ def main() -> int:
 def graph_phases(torch, drive, wrappers, card, only=None):
     """Phases 3-11 over the soc-LiveJournal1 graph and ``ldbc_like(40)``
     (``only="traversal"``: phases 3, 5 and 6; ``only="per-dispatch"``:
-    phase 9; ``only="resident"``: phases 3 and 4); returns their kernel
-    rows and the launch counts of their slice phases."""
+    phase 9; ``only="resident"``: phases 3 and 4; ``only="entries"``:
+    phases 10 and 11); returns their kernel rows and the launch counts of
+    their slice phases."""
     adj, vt, batches, truth = build_graph()
     if only == "per-dispatch":
         return per_dispatch_rows(torch, adj, vt, batches), []
+    if only == "entries":
+        rows, e_launches = entry_phases(torch, drive, adj, truth, batches, {},
+                                        card)
+        return rows, [e_launches]
     traversal_only = only == "traversal"
     t0 = time.perf_counter()
     rows = kernel_phase(torch, adj, vt, batches)
@@ -2269,6 +2315,15 @@ def graph_phases(torch, drive, wrappers, card, only=None):
 
     rows += per_dispatch_rows(torch, adj, vt, batches)
 
+    e_rows, e_launches = entry_phases(torch, drive, adj, truth, batches,
+                                      oracle, card)
+    return rows + e_rows, [launches, t_launches, p_launches, l_launches,
+                           e_launches]
+
+
+def entry_phases(torch, drive, adj, truth, batches, oracle, card):
+    """Phases 10 (counted) and 11; returns phase 11's kernel rows and
+    phase 10's launch counts."""
     t0 = time.perf_counter()
     ent, e_launches = drive(entries_phase, torch, adj, truth, batches,
                             oracle, card)
@@ -2280,10 +2335,10 @@ def graph_phases(torch, drive, wrappers, card, only=None):
         f"{e_launches} ({time.perf_counter() - t0:.1f} s) on {card}")
 
     t0 = time.perf_counter()
-    rows += entry_kernel_phase(torch, adj, ent["inputs"])
+    rows = entry_kernel_phase(torch, adj, ent["inputs"])
     log(f"11. entry kernels: all four equal to their plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
-    return rows, [launches, t_launches, p_launches, l_launches, e_launches]
+    return rows, e_launches
 
 
 if __name__ == "__main__":

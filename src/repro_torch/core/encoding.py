@@ -434,13 +434,16 @@ def build_packed(pages: "List[DeltaPage]", page_size: int,
                  version: int = 0) -> PackedPages:
     """Pack an arbitrary page list into the kernels' batch-array layout.
 
-    Pads miniblock metadata to ``page_size // MINIBLOCK`` and packed words
-    to the worst case (bw=32) -- exactly the layout the pac_decode kernels
-    read.  Per-page min/max id statistics ride along from the pages'
-    encode-time stats.
+    Pads miniblock metadata to ``ceil((page_size - 1) / MINIBLOCK)``
+    columns, the most miniblocks a page's ``page_size - 1`` deltas fill
+    (the reference pads to ``page_size // MINIBLOCK``, which is the same
+    wherever ``page_size % 32`` is 0 or 1 and too few elsewhere), and packed
+    words to the worst case (bw=32) -- exactly the layout the pac_decode
+    kernels read.  Per-page min/max id statistics ride along from the
+    pages' encode-time stats.
     """
     ps = page_size
-    n_mini = max(1, ps // MINIBLOCK)
+    n_mini = max(1, -(-(ps - 1) // MINIBLOCK))
     max_words = ps  # worst case: 32-bit deltas -> one word per delta
     n = len(pages)
     first = np.zeros((n, 1), np.int32)

@@ -1,12 +1,12 @@
 // Shared pieces of the delta-decode CUDA kernels.
 //
 // A page of ids is `first` followed by `first + inclusive_scan(delta)`, all
-// in int32 with wraparound.  Both decode layouts -- the resident unpack
-// plan (gather_decode.cu) and the raw miniblock arrays of PackedPages
-// (single_range.cu) -- produce one delta per lane and hand the row to
-// decode_row, which scans it with one block.  per_dispatch.cu (the raw
-// arrays) and bitmap_scatter.cu (the plan) decode with kernels of their
-// own (extract_bits only).
+// in int32 with wraparound.  decode_row scans one row of deltas with one
+// block; gather_decode.cu feeds it the resident unpack plan, one delta per
+// lane.  The raw miniblock arrays of PackedPages are read 8 deltas a
+// thread by miniblock.cuh (per_dispatch.cu, single_range.cu), and
+// bitmap_scatter.cu decodes the plan with a kernel of its own; both use
+// extract_bits only.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -98,30 +98,5 @@ __device__ __forceinline__ unsigned extract_bits(unsigned word, unsigned shift,
   const unsigned mask = bw >= 32 ? 0xFFFFFFFFu : ((1u << bw) - 1u);
   return (word >> shift) & mask;
 }
-
-// Delta j of one page shipped as raw miniblock arrays (per_dispatch.cu,
-// single_range.cu): delta j lives in miniblock m = j / 32 at bit
-// (j % 32) * bw of the miniblock's word region, plus the miniblock's min
-// delta; deltas at or past count - 1 are 0.  Word and miniblock indices
-// are clamped: the clamp only moves reads of deltas that the count zeroes.
-struct MiniblockDelta {
-  const int* mind;
-  const int* bw;
-  const int* woff;
-  const unsigned* words;
-  int n_mini;
-  int max_words;
-  int last;  // count - 1: deltas at or past it are 0
-
-  __device__ __forceinline__ unsigned operator()(int j) const {
-    if (j >= last) return 0u;
-    const int m = min(j >> 5, n_mini - 1);
-    const int w = bw[m];
-    const int bit = (j & 31) * w;
-    const int widx = min(max(woff[m] + (bit >> 5), 0), max_words - 1);
-    return extract_bits(words[widx], bit & 31, w) +
-           static_cast<unsigned>(mind[m]);
-  }
-};
 
 }  // namespace rt

@@ -241,7 +241,7 @@ fused_decode_bitmap_batch.launches = 0
 # single-range entries: ids -> bitmap, one page range -> bitmap
 # --------------------------------------------------------------------------
 
-#: largest page the fused single-range kernel scans in shared memory
+#: largest page the fused single-range kernel takes
 MAX_FUSED_PAGE = 1 << 15
 
 

@@ -417,3 +417,124 @@ def resident_fwords(kind, n_words=FUSED_WORDS):
     fw = rng.integers(0, 1 << 32, n_words, dtype=np.uint64).astype(np.uint32)
     fw[-1] |= np.uint32(0xFFF80000)     # the last 13 ids, past the vertices
     return fw.view(np.int32)
+
+
+# ------------- the single-range entries (kernels 11 and 12) ------------------
+
+#: page sizes of the single-range cases: one miniblock (32, 33), a ragged
+#: tail (99, 2047, 4099), the main path's 2048, and 16384 (64 passes of
+#: a warp's 256 positions)
+SINGLE_RANGE_PAGE_SIZES = (32, 33, 99, 2047, 2048, 4099, 16384)
+#: words of a warp's window in shared memory in kernels 11 and 12
+#: (``csrc/single_range.cu``: kWindow)
+WARP_WINDOW = 128
+#: target windows ``(base, n_words)``: one word at a negative base, 64
+#: words at a positive one, one word more than a warp's window at a
+#: negative base, and 409,601 words (13.1M ids) at a positive one
+SINGLE_RANGE_WINDOWS = {"one_word": (-64, 1), "64_words": (96, 64),
+                        "warp_window_plus_1": (-4096, WARP_WINDOW + 1),
+                        "wide": (1 << 12, 409_601)}
+#: every case page, the first page alone, no page, and 9,000 pages (more
+#: than the persistent grid has warps; page sizes 32 and 33 only)
+SINGLE_RANGE_KINDS = ("pages", "one_page", "no_page", "many_pages")
+#: kernel 11's ids: sorted with long runs of repeats, the same shuffled,
+#: all in one word (unsorted), every id in its own word
+SINGLE_IDS_KINDS = ("sorted_runs", "unsorted", "one_word", "own_word")
+
+
+def _const_page(page_size, first, step, count):
+    """A page of ids first, first + step, ... (width 0, min delta step)."""
+    n_mini = -(-(page_size - 1) // MINI)
+    return (first, np.full(n_mini, step, np.int32),
+            np.zeros(n_mini, np.int32), np.zeros(n_mini, np.int32),
+            np.zeros(MINI * n_mini, np.uint32), count)
+
+
+def single_range_case(page_size, window, kind="pages"):
+    """``(pages, base, n_words)`` of one fused_decode_bitmap call: the six
+    page arrays (``packed`` uint32, the rest int32) over the window
+    :data:`SINGLE_RANGE_WINDOWS` ``[window]``.  ``kind`` "pages":
+    :func:`page_case`'s 16 pages (every width in turn, counts 0, 1, 2, 31,
+    32, 33, ``page_size - 1`` and ``page_size``, word offsets past the row,
+    int32 wraparound, widths the packer never writes, ids below 0), then a
+    page whose count lies above ``page_size``, one whose ids run across
+    the window's end, 32 ids in the window's first word, and ids 32 apart
+    (each in its own word); "one_page": page 0 alone; "no_page": no page;
+    "many_pages": the 20 pages tiled to 9,000."""
+    base, n_words = SINGLE_RANGE_WINDOWS[window]
+    ps = page_size
+    end = base + 32 * n_words
+    rng = np.random.default_rng(ps + 7 * len(window))
+    extra = [_page(rng, ps, rng.choice(WIDTHS, 64), ps + 7,
+                   int(rng.integers(0, 1000))),
+             _const_page(ps, end - ps // 2, 1, ps),
+             _const_page(ps, base, 1, 32),
+             _const_page(ps, base + 5, 32, ps)]
+    pages = tuple(np.concatenate([a, b]) for a, b in
+                  zip(page_case(ps), _rows(extra, len(extra))))
+    if kind == "one_page":
+        pages = tuple(a[:1] for a in pages)
+    elif kind == "no_page":
+        pages = tuple(a[:0] for a in pages)
+    elif kind == "many_pages":
+        pages = tuple(np.resize(a, (9000,) + a.shape[1:]) for a in pages)
+    return pages, base, n_words
+
+
+def single_range_oracle(pages, base, page_size, n_words):
+    """numpy: uint32[n_words] with the bit of every valid id of ``pages``
+    in the window set (the rows' deltas read as the plain version reads
+    them: miniblock and word indices clamped, int32 wraparound)."""
+    first, mind, bw, woff, packed, counts = pages
+    n, n_mini = mind.shape
+    ids = np.zeros((n, page_size), np.int64)
+    if n:
+        j = np.arange(page_size - 1)
+        m = np.minimum(j // MINI, n_mini - 1)
+        w = bw[:, m].astype(np.int64)
+        bit = (j % MINI) * w
+        widx = np.clip(woff[:, m] + (bit >> 5), 0, packed.shape[1] - 1)
+        words = np.take_along_axis(packed.astype(np.int64), widx, 1)
+        mask = np.where(w >= 32, 0xFFFFFFFF, (1 << np.minimum(w, 31)) - 1)
+        d = ((words >> (bit & 31)) & mask) + mind[:, m]
+        d = np.where(j < counts.astype(np.int64) - 1, d, 0)
+        ids[:, 0] = first[:, 0]
+        ids[:, 1:] = first.astype(np.int64) + np.cumsum(d, 1)
+        ids = (ids + (1 << 31)) % (1 << 32) - (1 << 31)
+    valid = np.arange(page_size) < counts.astype(np.int64)
+    return ids_oracle(ids[valid], base, n_words)
+
+
+def ids_oracle(ids, base, n_words):
+    """numpy: uint32[n_words] over [base, base + 32 * n_words) with the
+    bit of every id in it set."""
+    rel = np.asarray(ids, np.int64) - base
+    plane = np.zeros(32 * n_words, bool)
+    plane[rel[(rel >= 0) & (rel < 32 * n_words)]] = True
+    return np.packbits(plane, bitorder="little").view(np.uint32)
+
+
+def single_ids_case(kind, window):
+    """``(ids, count, base, n_words)`` of one ids_bitmap call
+    (:data:`SINGLE_IDS_KINDS`) over :data:`SINGLE_RANGE_WINDOWS`
+    ``[window]``: int32 ids on both sides of the window, at its first and
+    last id and past its end; a length of 7 mod 16; ``count`` three below
+    it."""
+    base, n_words = SINGLE_RANGE_WINDOWS[window]
+    end = base + 32 * n_words
+    rng = np.random.default_rng(SINGLE_IDS_KINDS.index(kind) + len(window))
+    if kind in ("sorted_runs", "unsorted"):
+        vals = np.concatenate([rng.integers(base - 500, end + 500, 2000),
+                               [base - 1, base, end - 1, end]])
+        runs = rng.integers(1, 20, len(vals))
+        runs[rng.choice(len(vals), 5, replace=False)] = 2000
+        ids = np.repeat(np.sort(vals), runs)
+        if kind == "unsorted":
+            ids = rng.permutation(ids)
+    elif kind == "one_word":
+        ids = base + rng.integers(0, 32, 1001)
+    else:
+        ids = base + 32 * np.arange(min(n_words, 5000) + 23) \
+            + rng.integers(0, 32)
+    ids = ids[:len(ids) - (len(ids) - 7) % 16]
+    return ids.astype(np.int32), len(ids) - 3, base, n_words

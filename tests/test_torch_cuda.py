@@ -21,10 +21,13 @@ import pytest
 import torch
 from _torch_cases import (COND_CASES, COUNT_HOP_CASES, FUSED_PROGRAMS,
                           FUSED_WORDS, FWORDS_KINDS, KHOP_CASES, NE,
-                          PAGE_SIZES, RESIDENT_CASES, TWO_HOP_CASES,
-                          cond_case, count_hop_edge_case, fused_case,
-                          khop_edge_case, page_case, resident_case,
-                          resident_fwords, rle_rows, two_hop_edge_case)
+                          PAGE_SIZES, RESIDENT_CASES, SINGLE_IDS_KINDS,
+                          SINGLE_RANGE_KINDS, SINGLE_RANGE_PAGE_SIZES,
+                          SINGLE_RANGE_WINDOWS, TWO_HOP_CASES, cond_case,
+                          count_hop_edge_case, fused_case, khop_edge_case,
+                          page_case, resident_case, resident_fwords,
+                          rle_rows, single_ids_case, single_range_case,
+                          two_hop_edge_case)
 
 import repro_torch.core as TC
 from repro_torch.configs import get_config
@@ -550,7 +553,7 @@ def test_fused_decode_bitmap_kernel_equals_plain(dev, graph, column, base,
 
 @pytest.mark.parametrize("page_size", [32, 16384])
 def test_fused_decode_bitmap_kernel_page_sizes(dev, page_size):
-    # one page of 32 rows; pages of 16384 rows take 64 KB of shared memory
+    # one page of 32 rows; pages of 16384 rows take a warp 64 passes
     rng = np.random.default_rng(page_size)
     vals = np.concatenate([rng.integers(0, 1 << 20, 3 * page_size),
                            rng.integers(0, 1 << 20, 77)])
@@ -560,6 +563,93 @@ def test_fused_decode_bitmap_kernel_page_sizes(dev, page_size):
                       *shipped, base=0, page_size=page_size,
                       words_out=1 << 15)
     assert torch.equal(got, want) and bool(want.any())
+
+
+#: (page size, window, kind) of kernel 12's cases: 9,000 pages only at
+#: page sizes 32 and 33
+SINGLE_RANGE_CASES = [(ps, w, k) for ps in SINGLE_RANGE_PAGE_SIZES
+                      for w in sorted(SINGLE_RANGE_WINDOWS)
+                      for k in SINGLE_RANGE_KINDS
+                      if k != "many_pages" or ps <= 33]
+
+
+@pytest.mark.parametrize("page_size,window,kind", SINGLE_RANGE_CASES)
+def test_fused_decode_bitmap_kernel_cases_equal_plain(dev, page_size, window,
+                                                      kind):
+    pages, base, n_words = single_range_case(page_size, window, kind)
+    shipped = _on(dev, pages)
+    got, want = _held(PK.fused_decode_bitmap, PR.fused_decode_bitmap,
+                      *shipped, base=base, page_size=page_size,
+                      words_out=n_words)
+    assert torch.equal(got, want)
+    assert kind in ("one_page", "no_page") or bool(want.any())
+
+
+@pytest.mark.parametrize("window", sorted(SINGLE_RANGE_WINDOWS))
+@pytest.mark.parametrize("kind", SINGLE_IDS_KINDS)
+def test_ids_bitmap_kernel_cases_equal_plain(dev, kind, window):
+    ids, count, base, n_words = single_ids_case(kind, window)
+    t = torch.from_numpy(np.concatenate([[7], ids]).astype(np.int32)).to(dev)
+    for view in (t[1:].clone(), t[1:]):      # aligned, then at offset 1
+        got, want = _held(PK.bitmap, PR.bitmap, view, count, base, n_words)
+        assert torch.equal(got, want) and bool(want.any())
+
+
+@pytest.fixture(scope="module")
+def odd_graphs():
+    """page size -> (adjacency, vertex table) at page sizes that are no
+    multiple of 32 (the miniblock layout of ``build_packed``)."""
+    src, dst = powerlaw_graph(N, 5, locality=0.5, seed=1)
+    labels = clustered_labels(N, ["A", "B", "C"], density=0.4, run_scale=64,
+                              seed=2)
+    out = {}
+    for ps in (99, 2047):
+        adj = TC.build_adjacency(src, dst, N, N, TC.BY_SRC, TC.ENC_GRAPHAR,
+                                 page_size=ps)
+        out[ps] = (adj, TC.VertexTable.build(
+            TC.VertexTypeSchema("v", [], labels=["A", "B", "C"]), {},
+            labels, num_vertices=N))
+    return out
+
+
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("page_size", [99, 2047])
+def test_odd_page_sizes_cuda_equals_oracle(dev, odd_graphs, page_size,
+                                           resident):
+    adj, vt = odd_graphs[page_size]
+    enc = adj.table["<dst>"].encoded
+    vs = np.random.default_rng(page_size).integers(0, N, 40)
+    seeds = vs[:5]
+    out = {}
+    for engine in ("cuda", "numpy"):
+        runs = []
+        for cond in (None, (TC.L("A") & TC.L("B")) | ~TC.L("C")):
+            filt = TC.LabelFilter(vt, cond) if cond is not None else None
+            cache = TC.DecodedPageCache(16)
+            for c in (None, cache, cache):
+                enc.page_cache = c
+                meter = TC.IOMeter()
+                pac = TC.retrieve_neighbors_batch(
+                    adj, vs, 256, meter, engine, filter=filt,
+                    resident=resident)
+                runs.append((sorted((p, w.tolist())
+                                    for p, w in pac.bitmaps.items()),
+                             meter.nbytes, meter.nrequests,
+                             c and (c.hits, c.misses, c.evictions)))
+            enc.page_cache = None
+            meter = TC.IOMeter()
+            runs.append((TC.k_hop(adj, seeds, 2, meter, engine,
+                                  filter=filt).tolist(), meter.nbytes,
+                         meter.nrequests))
+        meter = TC.IOMeter()
+        runs.append((TC.neighbor_ids_batch(adj, vs, meter, engine).tolist(),
+                     meter.nbytes, meter.nrequests))
+        for name in ("<src>", "<dst>"):
+            col = adj.table[name].encoded
+            runs.append(PO.decode_range_to_bitmap(
+                col, 0, col.count, 0, -(-N // 32), engine).tolist())
+        out[engine] = runs
+    assert out["cuda"] == out["numpy"]
 
 
 @pytest.mark.parametrize("kind", ["random", "alternating", "empty",
