@@ -20,8 +20,8 @@ process; the LM profile runs last):
   2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` (timed); print
      ptxas's registers and spills, and count the tensor-core instructions
      (HGMMA) of each bf16 flash kernel in the library's SASS
-     (``cuobjdump -sass``): each must have some, and no flash kernel, no
-     per-dispatch kernel, no resident fused kernel and no single-range
+     (``cuobjdump -sass``): each must have some, and no flash,
+     per-dispatch, resident fused, single-range, RLE-label or selection
      kernel may spill;
   set-up: a soc-LiveJournal1-sized graph (4,847,571 vertices, ~69.0M
      edges) from ``powerlaw_graph`` and 8 ``clustered_labels``, ``by_src``
@@ -103,13 +103,15 @@ process; the LM profile runs last):
      held bit for bit against the numpy oracle (the raw edge arrays' id
      sets, the dense label planes, ``vals[pac.to_ids()]``, the numpy
      engine with its IOMeter and property-page counters);
- 11. entry kernels: ``bitmap``, ``fused_decode_bitmap``, ``rle_to_bitmap``
-     and ``bitmap_select`` against their plain versions on the card, bit
-     for bit, at phase 10's shapes; timed against the plain version, the
-     bound and, for ``bitmap_select``, ``torch.masked_select``; kernels 11
-     and 12 each beside their device time queued behind the host, and
-     ``fused_decode_bitmap`` over the sorted ``<src>`` as row
-     ``fused_decode_bitmap@src``.
+ 11. entry kernels: the launch floor; ``bitmap``, ``fused_decode_bitmap``,
+     ``rle_to_bitmap`` and ``bitmap_select`` against their plain versions
+     on the card, bit for bit, at phase 10's shapes; timed against the
+     plain version, the bound and, for ``bitmap_select``,
+     ``torch.masked_select``; each row's call time beside its device time
+     queued behind the host; ``fused_decode_bitmap`` over the sorted
+     ``<src>`` as row ``fused_decode_bitmap@src``, ``rle_to_bitmap`` over
+     the scattered column (row 13) and over the clustered label ``L0`` as
+     row ``rle_to_bitmap@label``.
  12. lm: smollm-360m at full width (32 layers, d_model 960, 15 query and
      5 KV heads of 64, d_ff 2560, vocab 49152, tied, bf16), weights from
      the port's ``init(seed=0)`` on the card.  (a) ``forward`` of 4 x 2048
@@ -1566,7 +1568,8 @@ def entry_kernel_phase(torch, adj, inputs):
     bit for bit, at phase 10's shapes (the whole unsorted ``<dst>``
     column among them); timed against the plain version, the bound and,
     for ``bitmap_select``, ``torch.masked_select`` with the mask
-    precomputed."""
+    precomputed; each row's call time beside its device time queued
+    behind the host, after the launch floor."""
     import numpy as np
     from repro_torch.kernels.bitmap_select import kernel as BK
     from repro_torch.kernels.bitmap_select import ops as BO
@@ -1580,6 +1583,10 @@ def entry_kernel_phase(torch, adj, inputs):
     dev = torch.device(DEVICE)
     rows = []
     words_out = -(-N_VERTICES // 2048) * 64
+    one, each = launch_floor_ms(torch, dev)
+    log(f"kernels: launch floor: an empty kernel takes {one:.4f} ms from "
+        f"launch to completion (median of 20), {each:.4f} ms each queued "
+        f"back to back")
 
     def equal(k, r, what):
         require(torch.equal(k, r), f"{what} differs ({max_err(k, r)})")
@@ -1651,7 +1658,8 @@ def entry_kernel_phase(torch, adj, inputs):
         f"<dst> rows [{lo}, {hi})")
 
     # -- 13: rle_to_bitmap over every column of phase 10, timed on the
-    #    scattered one
+    #    scattered one (row 13) and on the clustered label L0 (row @label,
+    #    the sparse lists of 16 of the entry's 18 launches)
     for name, rle in inputs["rles"].items():
         for want_value in (True, False):
             pos, meta, nw = FO.stage_rle(rle, want_value)
@@ -1660,17 +1668,26 @@ def entry_kernel_phase(torch, adj, inputs):
             err13 = equal(FK.rle_to_bitmap(pos_t, meta_t, nw),
                           FR.rle_to_bitmap(pos_t, meta_t, nw),
                           f"rle_to_bitmap on {name} == {want_value}")
-    n_pos = pos.shape[1]
-    steps = int(np.ceil(np.log2(n_pos + 1)))
-    rows.append(kernel_row(
-        "rle_to_bitmap", "src/repro_torch/kernels/csrc/rle_filter.cu",
-        "src/repro/kernels/rle_filter/kernel.py:47", err13,
-        cuda_ms(torch, lambda: FK.rle_to_bitmap(pos_t, meta_t, nw), 20),
-        cuda_ms(torch, lambda: FR.rle_to_bitmap(pos_t, meta_t, nw), 3),
-        4 * n_pos + 12 + 4 * nw, 32 * nw * steps))
     log(f"kernels: rle_to_bitmap equal on {len(inputs['rles'])} columns, "
-        f"want True and False (timed on the scattered one: {n_pos} "
-        f"positions, {nw} words)")
+        f"want True and False")
+    for name, suffix in (("scattered", ""), ("L0", "@label")):
+        pos, meta, nw = FO.stage_rle(inputs["rles"][name], False)
+        pos_t = torch.from_numpy(pos).to(dev)
+        meta_t = torch.from_numpy(meta).to(dev)
+        n_pos = pos.shape[1]
+        rows.append(kernel_row(
+            "rle_to_bitmap" + suffix,
+            "src/repro_torch/kernels/csrc/rle_filter.cu",
+            "src/repro/kernels/rle_filter/kernel.py:47", err13,
+            cuda_ms(torch, lambda: FK.rle_to_bitmap(pos_t, meta_t, nw), 20),
+            cuda_ms(torch, lambda: FR.rle_to_bitmap(pos_t, meta_t, nw), 3),
+            # a toggle per position, a word operation per lane
+            4 * n_pos + 12 + 4 * nw, n_pos + 32 * nw))
+        device = queued_ms(torch, lambda: FK.rle_to_bitmap(pos_t, meta_t, nw),
+                           50)
+        log(f"kernels: {rows[-1]['name']} on {name} ({n_pos} positions, "
+            f"{nw} words): {rows[-1]['ms']:.4f} ms a call, {device:.4f} ms "
+            f"of device queued; bound {rows[-1]['bound_ms']:.4f} ms")
 
     # -- 14: bitmap_select over the batch-16384 PAC's pages
     vals, words = BO.stage_pages(inputs["pac"], inputs["page_values"])
@@ -1694,9 +1711,13 @@ def entry_kernel_phase(torch, adj, inputs):
     row["library_ms"] = cuda_ms(
         torch, lambda: torch.masked_select(vals_t, mask), 50)
     rows.append(row)
+    device = queued_ms(torch, lambda: BK.bitmap_select(vals_t, words_t, ps),
+                       50)
     log(f"kernels: bitmap_select equal over {n} pages "
-        f"({int(k_cnt.sum())} values); library_ms is torch.masked_select "
-        f"with the mask precomputed")
+        f"({int(k_cnt.sum())} values): {row['ms']:.4f} ms a call, "
+        f"{device:.4f} ms of device queued; bound {row['bound_ms']:.4f} ms; "
+        f"library_ms {row['library_ms']:.4f} is torch.masked_select with "
+        f"the mask precomputed")
     return rows
 
 
@@ -2177,6 +2198,8 @@ def main() -> int:
     spill_free(report, "_per_dispatch_cu_", "a per-dispatch kernel")
     spill_free(report, "_bitmap_scatter_cu_", "a resident fused kernel")
     spill_free(report, "_single_range_cu_", "a single-range kernel")
+    spill_free(report, "_rle_filter_cu_", "the RLE-label kernel")
+    spill_free(report, "_bitmap_select_cu_", "the selection kernel")
 
     wrappers = {"gather_decode": PK.gather_decode,
                 "fused_gather_decode_bitmap_batch":

@@ -16,7 +16,8 @@ from repro_torch.kernels._pad import note_shape
 
 from . import ref as R
 
-#: largest page whose per-word slots fit the kernel's 48 KB of shared memory
+#: the largest page the wrapper takes; the kernel walks a page in tiles of
+#: 1024 lanes with a carry, so its shared memory does not grow with the page
 MAX_PAGE = 1 << 18
 
 

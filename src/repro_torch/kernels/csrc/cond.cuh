@@ -1,8 +1,9 @@
 // The label-predicate interpreter of the filtered per-dispatch retrieval
-// (run_program, for per_dispatch.cu), and the RLE leaf evaluated a word at
-// a time (rle_word, for rle_filter.cu).  The word-wide pieces at the end
-// (leaf_word, lanes_below, WordStack, apply_word_op) run the same program
-// on whole 32-lane words (cond_bitmap.cu).
+// (run_program, for per_dispatch.cu), the searches over a sorted position
+// list (upper_bound, one thread; warp_upper_bound, a warp together), and
+// the word-wide pieces (leaf_word, lanes_below, WordStack, apply_word_op)
+// that run a program on whole 32-lane words (cond_bitmap.cu) or turn one
+// RLE leaf's run parities into its bits (rle_filter.cu).
 //
 // pos int32[k, n_pos] holds each label's RLE interval position list,
 // padded with the row count; meta int32[k, 2] = (first_value, count); ops
@@ -38,23 +39,28 @@ __device__ __forceinline__ int upper_bound(const int* __restrict__ row,
   return lo;
 }
 
-// Word w of an RLE leaf's bitmap: bit b is set when lane 32 * w + b is
-// below count and its value, first_value ^ (run & 1), equals want.  One
-// search finds the run of the word's first lane; the walk then crosses the
-// run boundaries that fall inside the word's 32 lanes.
-__device__ __forceinline__ unsigned rle_word(const int* __restrict__ pos,
-                                             int n_pos, int first_value,
-                                             int count, int want, int w) {
-  const int lane0 = w << 5;
-  int lo = upper_bound(pos, n_pos, lane0);  // run = lo - 1
-  unsigned out = 0u;
-  for (int b = 0; b < 32; ++b) {
-    const int lane = lane0 + b;
-    if (lane >= count) break;
-    while (lo < n_pos && pos[lo] <= lane) ++lo;
-    if ((first_value ^ ((lo - 1) & 1)) == want) out |= 1u << b;
+constexpr unsigned kAllLanes = 0xFFFFFFFFu;
+
+// The number of entries of the sorted row[0, n) that are <= x, found by
+// the 32 lanes of a warp together: each step probes the last entry of
+// each of 32 near-equal parts of [lo, hi), so the range shrinks 32-fold.
+__device__ __forceinline__ int warp_upper_bound(const int* __restrict__ row,
+                                                int n, int x) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0;
+  int hi = n;  // the answer lies in [lo, hi]
+  while (lo < hi) {
+    const long long m = hi - lo;
+    const int idx = lo + static_cast<int>((m * (lane + 1)) >> 5) - 1;
+    const bool le = idx < lo || row[idx] <= x;
+    // sorted entries: the lanes that hold are a prefix
+    const int t = __popc(__ballot_sync(kAllLanes, le));
+    const int below = __shfl_sync(kAllLanes, idx, t > 0 ? t - 1 : 0);
+    const int above = __shfl_sync(kAllLanes, idx, t < 32 ? t : 31);
+    lo = t > 0 ? below + 1 : lo;
+    hi = t < 32 ? above : hi;
   }
-  return out;
+  return lo;
 }
 
 // Run the postfix program `ops` at one lane: leaf(i) gives leaf i's bit
@@ -80,15 +86,13 @@ __device__ __forceinline__ bool run_program(const int* __restrict__ ops,
   return stack & 1ull;
 }
 
-
-constexpr unsigned kAllLanes = 0xFFFFFFFFu;
-
 // A leaf's 32 bits from the parity of its lanes' runs (bit b of `odd`:
-// run & 1 at lane b): first_value ^ (run & 1) == 1, as eval_cond reads
-// it, for any first_value.
-__device__ __forceinline__ unsigned leaf_word(unsigned odd, int first_value) {
-  const unsigned if_even = first_value == 1 ? kAllLanes : 0u;
-  const unsigned if_odd = first_value == 0 ? kAllLanes : 0u;
+// run & 1 at lane b): first_value ^ (run & 1) == want, for any first_value
+// and want (eval_cond reads a leaf with want = 1).
+__device__ __forceinline__ unsigned leaf_word(unsigned odd, int first_value,
+                                              int want = 1) {
+  const unsigned if_even = first_value == want ? kAllLanes : 0u;
+  const unsigned if_odd = (first_value ^ 1) == want ? kAllLanes : 0u;
   return (odd & if_odd) | (~odd & if_even);
 }
 

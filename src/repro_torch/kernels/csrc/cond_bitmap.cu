@@ -26,7 +26,8 @@
 // odd ^= ~0u << (p - lane0), so the word costs one flip per boundary and
 // no search per lane.  The block first finds, for every label row, the
 // slice of pos that falls in its lanes, two warp-wide 32-ary searches
-// (all rows at once, spread over the warps); for each leaf of the program
+// (cond.cuh's rt::warp_upper_bound, which kernel 13 shares; all rows at
+// once, spread over the warps); for each leaf of the program
 // it then stages that slice into shared memory with coalesced loads, in
 // chunks of kChunk positions, so a dense list (a boundary every lane, as a
 // numeric predicate over a scattered column can give) streams through the
@@ -46,28 +47,6 @@ constexpr int kLanes = 32 * kThreads;  // bit lanes of one block
 constexpr int kChunk = 2048;           // positions staged at a time
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-// The number of entries of the sorted row[0, n) that are <= x, found by
-// the 32 lanes of a warp together: each step probes the last entry of
-// each of 32 near-equal parts of [lo, hi), so the range shrinks 32-fold.
-__device__ __forceinline__ int warp_upper_bound(const int* __restrict__ row,
-                                                int n, int x) {
-  const int lane = threadIdx.x & 31;
-  int lo = 0;
-  int hi = n;  // the answer lies in [lo, hi]
-  while (lo < hi) {
-    const long long m = hi - lo;
-    const int idx = lo + static_cast<int>((m * (lane + 1)) >> 5) - 1;
-    const bool le = idx < lo || row[idx] <= x;
-    // sorted entries: the lanes that hold are a prefix
-    const int t = __popc(__ballot_sync(kFull, le));
-    const int below = __shfl_sync(kFull, idx, t > 0 ? t - 1 : 0);
-    const int above = __shfl_sync(kFull, idx, t < 32 ? t : 31);
-    lo = t > 0 ? below + 1 : lo;
-    hi = t < 32 ? above : hi;
-  }
-  return lo;
-}
-
 template <int kDepth>
 __global__ void __launch_bounds__(kThreads)
 cond_words_kernel(const int* __restrict__ pos, const int* __restrict__ meta,
@@ -81,8 +60,9 @@ cond_words_kernel(const int* __restrict__ pos, const int* __restrict__ meta,
   const int last_lane = static_cast<int>(
       min(static_cast<long long>(first_lane) + kLanes, 32LL * n_words) - 1);
   for (int q = warp; q < 2 * k; q += kWarps) {
-    const int ub = warp_upper_bound(pos + static_cast<size_t>(q >> 1) * n_pos,
-                                    n_pos, q & 1 ? last_lane : first_lane);
+    const int ub = rt::warp_upper_bound(
+        pos + static_cast<size_t>(q >> 1) * n_pos, n_pos,
+        q & 1 ? last_lane : first_lane);
     if (lane == 0) bounds[q] = ub;
   }
   __syncthreads();

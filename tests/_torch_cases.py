@@ -3,7 +3,9 @@
 (``fused_decode_bitmap_batch``, ``fused_decode_filter_bitmap_batch``,
 ``delta_decode``) and the resident kernels 1, 2 and 4
 (``fused_gather_decode_bitmap_batch``, ``gather_decode``,
-``fused_gather_decode_filter_bitmap_batch``), shared by their CPU tests
+``fused_gather_decode_filter_bitmap_batch``), the single-range kernels 11
+and 12, and the RLE-label and selection kernels 13 (``rle_to_bitmap``)
+and 14 (``bitmap_select``), shared by their CPU tests
 against the JAX refs and their card tests against the plain versions, so
 both hold the same cases.
 
@@ -538,3 +540,114 @@ def single_ids_case(kind, window):
             + rng.integers(0, 32)
     ids = ids[:len(ids) - (len(ids) - 7) % 16]
     return ids.astype(np.int32), len(ids) - 3, base, n_words
+
+
+# ----------------- RLE label column and selection (13-14) ------------------
+
+#: kernel 13's cases (:func:`rle_case`)
+RLE_CASES = ("random", "every_lane", "padding", "late_start", "negative",
+             "empty_column", "one_run", "past_count", "past_end")
+
+
+def rle_case(case, want):
+    """``(pos, meta, n_words)`` of one ``rle_to_bitmap`` call: ``pos``
+    int32[1, n_pos] sorted and padded with the count, ``meta`` int32[1, 3]
+    = (first_value, want, count).  "random": stretches of runs of 1 to 3
+    lanes and of 30 to 3000 over 100,003 rows (13 blocks of 8192 lanes);
+    "every_lane": a boundary at every lane of 25,589 rows (several blocks,
+    and chunks of 2048 positions); "padding": "random" with 3,000 more
+    copies of the count, inside the last word; "late_start": lanes before
+    ``positions[0]`` (run -1); "negative": positions below 0 before the
+    rest; "empty_column": an empty column as ``stage_rle`` pads it (count
+    0); "one_run": the list ``[0]``; "past_count": words past
+    ``ceil(count / 32)`` across several blocks; "past_end": a count and
+    positions past ``32 * n_words``.  No count is a multiple of 32."""
+    rng = np.random.default_rng(RLE_CASES.index(case))
+    count, n_words, first = 100_003, None, int(rng.integers(0, 2))
+    if case == "every_lane":
+        count = 3 * 8192 + 1013
+        pos = np.arange(count)
+    elif case == "late_start":
+        count = 301
+        pos = np.array([5, 40, 41, 100, 250, 300])
+    elif case == "negative":
+        count = 5_001
+        pos = np.r_[-9, -4, -4, -1, np.sort(rng.choice(count, 700, False))]
+    elif case == "empty_column":
+        count, pos = 0, np.zeros(0, np.int64)
+    elif case == "one_run":
+        count, pos = 20_013, np.zeros(1, np.int64)
+    else:
+        # stretches of 500 to 8000 lanes, alternately dense (runs of 1 to 3
+        # lanes) and sparse (runs of 30 to 3000)
+        parts, at, dense = [], 0, True
+        while at < count:
+            end = at + int(rng.integers(500, 8000))
+            step = (1, 4) if dense else (30, 3000)
+            run = np.cumsum(rng.integers(*step, (end - at) // step[0] + 1))
+            parts.append(at + run[at + run < end])
+            at, dense = end, not dense
+        pos = np.concatenate([[0]] + parts)
+        pos = pos[pos < count]
+        if case == "past_count":
+            count = 5_001
+            pos = pos[pos < count]
+            n_words = 1024
+        elif case == "past_end":
+            n_words = 64 * 5
+    n_pos = -(-max(len(pos), 1) // 128) * 128
+    if case == "padding":
+        n_pos += 3000
+    padded = np.full((1, n_pos), count, np.int32)
+    padded[0, :len(pos)] = pos
+    meta = np.array([[first, int(want), count]], np.int32)
+    if n_words is None:
+        n_words = -(-(-(-count // 32) or 1) // 64) * 64
+    return padded, meta, n_words
+
+
+#: kernel 14's cases (:func:`select_case`): page sizes 32, 64, 2048 and
+#: 8192 with every kind of page, two pages of 2^18 lanes (past any tile of
+#: shared memory), and 5,000 pages (more than one wave of the card)
+SELECT_CASES = (("pages", 32), ("pages", 64), ("pages", 2048),
+                ("pages", 8192), ("huge", 1 << 18), ("many", 256))
+
+#: raw float32 patterns: a NaN with a payload, -0.0, the smallest and the
+#: largest denormal, a negative NaN, +inf
+SPECIAL_BITS = (0x7FC01234, 0x80000000, 0x00000001, 0x007FFFFF, 0xFFC00001,
+                0x7F800000)
+
+
+def select_case(kind, page_size):
+    """``(vals, words)`` of one ``bitmap_select`` call: ``vals``
+    float32[n, page_size] of random bit patterns (NaN payloads, -0.0 and
+    denormals among them, :data:`SPECIAL_BITS` in the first page's
+    selected lanes), ``words`` uint32[n, page_size / 32].  "pages": pages
+    that select at random (densities 0.04, 0.5 and 0.97), nothing,
+    everything, only the first lane, only the last lane, and one word;
+    "huge": two pages of ``page_size`` lanes, at density 0.3 and 0.001;
+    "many": 5,000 pages at densities from 0 to 1."""
+    rng = np.random.default_rng(page_size + len(kind))
+    wpp = page_size // 32
+    if kind == "pages":
+        dens = (0.5, 0.0, 1.0, None, None, 0.04, 0.97, None)
+    elif kind == "huge":
+        dens = (0.3, 0.001)
+    else:
+        dens = tuple(rng.random(5000) ** 2)
+    n = len(dens)
+    bits = np.zeros((n, page_size), bool)
+    for i, d in enumerate(dens):
+        if d is not None:
+            bits[i] = rng.random(page_size) < d
+    vals = rng.integers(0, 1 << 32, (n, page_size), dtype=np.uint64) \
+        .astype(np.uint32)
+    if kind == "pages":
+        bits[3, 0] = True                   # only the first lane
+        bits[4, -1] = True                  # only the last lane
+        bits[7, 32 * (wpp // 2):32 * (wpp // 2 + 1)] = True  # one word
+        bits[0, :len(SPECIAL_BITS)] = True
+        vals[0, :len(SPECIAL_BITS)] = SPECIAL_BITS
+    words = np.packbits(bits.reshape(n, wpp, 32), axis=2,
+                        bitorder="little").view(np.uint32)[..., 0]
+    return vals.view(np.float32), np.ascontiguousarray(words)

@@ -21,12 +21,13 @@ import pytest
 import torch
 from _torch_cases import (COND_CASES, COUNT_HOP_CASES, FUSED_PROGRAMS,
                           FUSED_WORDS, FWORDS_KINDS, KHOP_CASES, NE,
-                          PAGE_SIZES, RESIDENT_CASES, SINGLE_IDS_KINDS,
-                          SINGLE_RANGE_KINDS, SINGLE_RANGE_PAGE_SIZES,
-                          SINGLE_RANGE_WINDOWS, TWO_HOP_CASES, cond_case,
-                          count_hop_edge_case, fused_case, khop_edge_case,
-                          page_case, resident_case, resident_fwords,
-                          rle_rows, single_ids_case, single_range_case,
+                          PAGE_SIZES, RESIDENT_CASES, RLE_CASES, SELECT_CASES,
+                          SINGLE_IDS_KINDS, SINGLE_RANGE_KINDS,
+                          SINGLE_RANGE_PAGE_SIZES, SINGLE_RANGE_WINDOWS,
+                          TWO_HOP_CASES, cond_case, count_hop_edge_case,
+                          fused_case, khop_edge_case, page_case,
+                          resident_case, resident_fwords, rle_case, rle_rows,
+                          select_case, single_ids_case, single_range_case,
                           two_hop_edge_case)
 
 import repro_torch.core as TC
@@ -704,6 +705,34 @@ def test_bitmap_select_kernel_equals_plain(dev, page_size):
     pages = {p: allv[p * page_size:(p + 1) * page_size] for p in pac.pages()}
     got = BO.select_from_pages(pac, pages, "cuda")
     assert got.view(np.int32).tolist() == allv[ids].view(np.int32).tolist()
+
+
+@pytest.mark.parametrize("want", [0, 1])
+@pytest.mark.parametrize("case", RLE_CASES)
+def test_rle_to_bitmap_kernel_cases_equal_plain(dev, case, want):
+    pos, meta, n_words = rle_case(case, want)
+    got, plain = _held(FK.rle_to_bitmap, FR.rle_to_bitmap,
+                       torch.from_numpy(pos).to(dev),
+                       torch.from_numpy(meta).to(dev), n_words)
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("kind,page_size", SELECT_CASES)
+def test_bitmap_select_kernel_cases_equal_plain(dev, kind, page_size,
+                                                aligned):
+    vals, words = select_case(kind, page_size)
+    # the values at a 16-byte boundary, or 4 bytes past one
+    flat = torch.zeros(vals.size + 1, dtype=torch.float32, device=dev)
+    v = flat[:vals.size] if aligned else flat[1:]
+    v.copy_(torch.from_numpy(vals.reshape(-1)))
+    v = v.view(vals.shape)
+    assert (v.data_ptr() % 16 == 0) == aligned
+    (out, cnt), (r_out, r_cnt) = _held(
+        BK.bitmap_select, BR.bitmap_select, v,
+        torch.from_numpy(words.view(np.int32)).to(dev), page_size)
+    assert torch.equal(cnt, r_cnt)
+    assert torch.equal(out.view(torch.int32), r_out.view(torch.int32))
 
 
 @pytest.mark.parametrize("resident", [True, False])
