@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them.
 
 Run from the root of the repository:  python3 chip_smoke.py
-(``--lm`` runs phases 1-2, 12-13 and the LM profile only; ``--traversal``
+(``--lm`` runs phases 1-2, 12-13 and the LM profile only; ``--serve``
+phases 1-2 and 14, the serving path; ``--traversal``
 phases 1-3, 5 and 6, which hold and time kernels 3 and 5 and drive the
 traversal path that launches them; ``--per-dispatch`` phases 1-2, the
 soc-LiveJournal1 set-up and phase 9, which hold and time kernels 8-10,
@@ -13,8 +14,8 @@ soc-LiveJournal1 set-up and phases 10-11, which drive the entries and hold
 and time kernels 11-14, phase 10's batch-16384 PAC then from the numpy
 engine.)
 
-Phases, each of which exits non-zero when it fails (12 and 13 run right
-after 2, so that their host timings come before any profiler in the
+Phases, each of which exits non-zero when it fails (12, 13 and 14 run
+right after 2, so that their host timings come before any profiler in the
 process; the LM profile runs last):
   1. device: require a CUDA device; print the card's name and power limit;
   2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` (timed); print
@@ -138,12 +139,42 @@ process; the LM profile runs last):
      the plain version (0.1, and elementwise 2^-8 (|want| + max|v|)),
      timed beside it, the bound and ``scaled_dot_product_attention`` with
      ``enable_gqa=True`` (row ``flash_attention@gqa``);
+ 14. serve: smollm-360m at full width (phase 12's configuration, bf16,
+     ``init(seed=0)``) in a ``ServeEngine`` of 8 slots of 1024 positions
+     behind a ``GraphRetriever(engine="cuda", max_neighbors=2,
+     tokens_per_neighbor=16, hops=2)`` scoped to ``HighQuality & ~Spam``
+     over ``document_graph(100_000, vocab 49152, mean_len 256, seed=2)``
+     (~25.6M tokens, ~800k links, ``doc-links-doc`` by source at page size
+     2048), with the two tenants of ``examples/serve_batched.py``; 32
+     seeded greedy requests (prompts of 24-256 of the seed document's
+     tokens, 32 new tokens; 8 ``prod``, 24 ``batch``, of which some are
+     shed) arriving at a steady rate, Poisson gaps of mean 2 ticks.  A
+     throwaway engine warms the process; then four drains, each engine
+     over a fresh lake, in the order pipelined (P1), sequential
+     (``pipeline=False``, S1), S2, P2.  (a) P1 against S1, bit for bit:
+     every finished request's id, status, tokens, prompt and context, the
+     shed outcomes, IOMeter, the retrievers' calls and seeds, the LRU's
+     hits and misses; S2 and P2 equal to them; (b) a ``numpy``-engine
+     retriever fed S1's recorded seed batches: equal contexts, IOMeter and
+     LRU counters; (c) 4 requests re-run alone (prefill and
+     ``decode_step`` at batch 1, fed the engine's tokens): top-1 equal to
+     the engine's token on every step before the first that is not
+     decisive (phase 12's rule).  Prints requests served and shed; for
+     each drain its ticks and tokens per second, its first (cold) decode
+     tick and its tokens per second over the warm ticks after it; each
+     part of the tick split over P1's and P2's warm ticks (median, min,
+     max), the prefetch counters and overlap, the host syncs of a decode
+     step and of a retrieval call (``torch.cuda.set_sync_debug_mode``),
+     and the launches of kernels 2, 3 and 5 in P1, which must all have
+     launched;
  12p. lm profile: ``torch.profiler`` over one forward, prefill and decode
      step of the bf16 model: device busy ms by kernel, idle share against
-     phase 12's unprofiled host wall.
+     phase 12's unprofiled host wall; then (14p) 20 ticks of phase 14's
+     pipelined engine on a fresh lake, every request submitted at once,
+     busy and idle share against phase 14's unprofiled median warm tick.
 Every launch count is set to 0 just before each of phases 4, 5, 7, 8, 10
-and 12 and read just after; a kernel's ``launches`` is the sum over the
-six.
+and 12 and phase 14's P1 drain, and read just after; a kernel's
+``launches`` is the sum over the seven.
 The card's name and power limit, then the kernel table as JSON, come on
 the lines before the last; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -210,6 +241,22 @@ REQUEST_WORDS = (700, 600, 400, 300)
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:89"
+#: the serving slice (phase 14): smollm-360m behind a label-scoped
+#: two-hop GraphRetriever over a document lake of 100,000 passages, with
+#: the two tenants of examples/serve_batched.py
+SERVE_DOCS, SERVE_MEAN_LEN, SERVE_PAGE = 100_000, 256, 2048
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW_TOKENS = 8, 1024, 32
+SERVE_PROD, SERVE_BATCH = 8, 24
+SERVE_PROMPT = (24, 256)
+SERVE_SOLO = 4                  # requests re-run alone at batch 1
+SERVE_GAP = 2                   # mean ticks between two arrivals
+SERVE_PROFILE_TICKS = 20
+#: kernels of a retrieval tick: each tick's decode_edge_ranges (and the
+#: traversal plan's build) through gather_decode, the label predicate's
+#: plane through cond_bitmap, one fused k_hop through khop_scan
+SERVE_KERNELS = ("gather_decode", "cond_bitmap", "khop_scan")
+SERVE_PARTS = ("admit_ms", "retrieval_ms", "dispatch_ms", "prefetch_ms",
+               "decode_sample_ms", "tick_ms")
 
 
 def log(msg: str) -> None:
@@ -2010,6 +2057,372 @@ def lm_profile_phase(torch, lm):
     return out
 
 
+def serve_graph(lake):
+    """A fresh GraphAr graph over the document lake's arrays: its decoded
+    page LRU and device mirrors start empty."""
+    import repro_torch.core as TC
+    b = TC.GraphArBuilder("passages")
+    b.add_vertices(
+        TC.VertexTypeSchema("doc", [TC.PropertySchema("tokens", "tokens")],
+                            labels=list(lake.labels), page_size=SERVE_PAGE),
+        {"tokens": lake.tokens}, lake.labels)
+    b.add_edges(TC.EdgeTypeSchema("doc", "links", "doc",
+                                  page_size=SERVE_PAGE),
+                lake.links_src, lake.links_dst)
+    return b.build()
+
+
+def serve_retriever(lake, engine):
+    """The phase's ``GraphRetriever`` on ``engine`` over a fresh graph,
+    with its own IOMeter."""
+    import repro_torch.core as TC
+    from repro_torch.serve.retrieval import GraphRetriever
+    g = serve_graph(lake)
+    return GraphRetriever(
+        g.adjacency("doc-links-doc", TC.BY_SRC),
+        g.vertex("doc").table["tokens"], max_neighbors=2,
+        tokens_per_neighbor=16, meter=TC.IOMeter(), engine=engine, hops=2,
+        filter_vt=g.vertex("doc"),
+        filter_cond=TC.L("HighQuality") & ~TC.L("Spam"))
+
+
+class Recorder:
+    """A context_fn that forwards to a retriever and keeps each call's
+    seed batch and contexts (check (b) replays them)."""
+
+    def __init__(self, retr):
+        self.retr, self.batches = retr, []
+
+    def __call__(self, vs):
+        out = self.retr(vs)
+        self.batches.append((vs.copy(), [c.copy() for c in out]))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.retr, name)
+
+
+def serve_requests(lake):
+    """The phase's traffic over ``lake``'s documents: 32 seeded greedy
+    requests (prompts of 24-256 of the seed document's tokens, 32 new
+    tokens; 8 ``prod`` and 24 ``batch`` in a seeded order), each with its
+    arrival tick, the gaps Poisson with mean ``SERVE_GAP`` ticks:
+    ``[(tick, Request)]``, made anew for each engine."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(7)
+    tenants = rng.permutation(["prod"] * SERVE_PROD
+                              + ["batch"] * SERVE_BATCH)
+    out, tick = [], 0
+    for rid, tenant in enumerate(tenants):
+        doc = int(rng.integers(0, lake.num_docs))
+        n = int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
+        out.append((tick, Request(
+            rid, lake.tokens[doc][:n].astype(np.int32),
+            max_new_tokens=SERVE_NEW_TOKENS, temperature=0.0,
+            context_vertex=doc, tenant=str(tenant))))
+        tick += int(rng.poisson(SERVE_GAP))
+    return out
+
+
+def serve_engine(model, context_fn, pipeline):
+    """The phase's engine, with the two tenants of
+    ``examples/serve_batched.py``."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.tenancy import TenantConfig
+    return ServeEngine(model, max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                       eos_id=-1, context_fn=context_fn, pipeline=pipeline,
+                       tenants=[TenantConfig("prod", weight=4, max_queue=16),
+                                TenantConfig("batch", weight=1, rate=0.5,
+                                             burst=4.0, max_queue=4,
+                                             deadline_ticks=64)])
+
+
+def serve_drain(torch, eng, arrivals, max_ticks=2000):
+    """Drive ``eng`` through ``arrivals``: each request submitted at its
+    tick, one ``step`` a tick, until all have arrived and the engine has
+    drained (``run_until_drained(max_ticks=0)`` raises if work is left).
+    Returns the shed outcomes, the host wall ms of the whole drain and,
+    for each tick that decoded, the engine's ``last_tick`` split with the
+    tick's host wall ms and the tokens it made."""
+    reqs = [r for _, r in arrivals]
+    shed, ticks, made, i = [], [], 0, 0
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    for tick in range(max_ticks):
+        while i < len(arrivals) and arrivals[i][0] <= tick:
+            out = eng.submit(arrivals[i][1])
+            if not out.admitted:
+                shed.append((arrivals[i][1].request_id, out.reason.value,
+                             out.retry_after))
+            i += 1
+        steps = eng.steps
+        t0 = time.perf_counter()
+        active = eng.step()
+        ms = (time.perf_counter() - t0) * 1e3
+        if eng.steps > steps:
+            now = sum(len(r.output) for r in reqs)
+            ticks.append(dict(eng.last_tick, wall_ms=ms, tokens=now - made))
+            made = now
+        if i == len(arrivals) and not active and not eng.stats()["queued"]:
+            break
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t_start) * 1e3
+    eng.run_until_drained(max_ticks=0)
+    return {"shed": shed, "ticks": ticks, "wall_ms": wall,
+            "tokens": made}
+
+
+def drain_rates(d):
+    """A drain's tokens per second over its wall; its first (cold) decode
+    tick; over the warm decode ticks after it, tokens per second and the
+    median tick ms."""
+    warm = d["ticks"][1:]
+    return (d["tokens"] * 1e3 / d["wall_ms"], d["ticks"][0],
+            sum(t["tokens"] for t in warm) * 1e3
+            / sum(t["wall_ms"] for t in warm),
+            statistics.median(t["wall_ms"] for t in warm))
+
+
+def sync_count(torch, fn) -> int:
+    """Host syncs ``fn`` makes on the card, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # (the mode's own notice, that it is a prototype, is not a sync)
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in seen)
+
+
+def request_key(r):
+    return (r.request_id, r.status.value, list(r.output),
+            r.context_tokens, r.prompt.tolist())
+
+
+def serve_phase(torch, card, drive):
+    """Phase 14: the serving path at full width on the card (see the
+    module docstring); returns its measurements, with the launch counts
+    of the first pipelined drain (``drive`` sets them to 0 just before
+    it and reads them just after)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import document_graph
+    from repro_torch.models import build_model
+    cfg = get_config(LM_ARCH, use_flash=True)
+    require((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+             cfg.vocab_size, cfg.param_dtype) ==
+            (32, 960, 15, 5, 49152, "bfloat16"), f"{LM_ARCH} config changed")
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(0)
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lake = document_graph(num_docs=SERVE_DOCS, vocab=cfg.vocab_size,
+                          mean_len=SERVE_MEAN_LEN, seed=2)
+    t_lake = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    retr_p = serve_retriever(lake, ENGINE)
+    t_graph = time.perf_counter() - t0
+    n_tokens = sum(len(t) for t in lake.tokens)
+    arrivals = serve_requests(lake)
+    log(f"14. set-up: {LM_ARCH} init {t_model:.1f} s; document lake "
+        f"{lake.num_docs:,} docs, {n_tokens:,} tokens, "
+        f"{len(lake.links_src):,} links in {t_lake:.1f} s; graph build "
+        f"{t_graph:.1f} s (page size {SERVE_PAGE}); {len(arrivals)} "
+        f"requests arriving over ticks 0-{arrivals[-1][0]}")
+
+    # warm the process (the first GEMMs and kernel loads) on a throwaway
+    # engine, so that no drain below is the process's first
+    t0 = time.perf_counter()
+    warm = serve_engine(model, serve_retriever(lake, ENGINE), True)
+    for tick, req in arrivals[:SERVE_SLOTS]:
+        req.max_new_tokens = 2
+        warm.submit(req)
+    warm.run_until_drained()
+    torch.cuda.synchronize()
+    log(f"14. warm-up: {SERVE_SLOTS} requests of 2 tokens on a throwaway "
+        f"engine in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    del warm
+
+    # the drains, pipelined and sequential in the order P S S P, each
+    # engine over a fresh lake; the launch counts are the first's
+    eng_p = serve_engine(model, retr_p, True)
+    p1, launches = drive(serve_drain, torch, eng_p, serve_requests(lake))
+    retr_s = Recorder(serve_retriever(lake, ENGINE))
+    eng_s = serve_engine(model, retr_s, False)
+    s1 = serve_drain(torch, eng_s, serve_requests(lake))
+    repeats = []
+    for pipeline in (False, True):
+        eng = serve_engine(model, serve_retriever(lake, ENGINE), pipeline)
+        repeats.append((serve_drain(torch, eng, serve_requests(lake)),
+                        [request_key(r) for r in eng.finished]))
+        del eng
+    (s2, keys_s2), (p2, keys_p2) = repeats
+    fin_p, fin_s = eng_p.finished, eng_s.finished
+    ok = [r for r in fin_p if r.status.value == "ok"]
+    keys = [request_key(r) for r in fin_p]
+    # (a) pipelined against sequential, bit for bit
+    require(keys == [request_key(r) for r in fin_s],
+            "(a) the pipelined engine's requests differ from the "
+            "sequential engine's")
+    require(p1["shed"] == s1["shed"], "(a) the shed outcomes differ")
+    require(keys_s2 == keys == keys_p2 and s2["shed"] == p2["shed"]
+            == p1["shed"], "(a) a repeated drain differs from the first")
+    mp, ms_ = retr_p.meter, retr_s.meter
+    require((mp.nbytes, mp.nrequests) == (ms_.nbytes, ms_.nrequests),
+            f"(a) IOMeter {mp.nbytes}/{mp.nrequests} pipelined vs "
+            f"{ms_.nbytes}/{ms_.nrequests} sequential")
+    require((retr_p.calls, retr_p.vertices_seen) ==
+            (retr_s.calls, retr_s.vertices_seen),
+            "(a) the retrievers' calls or vertices differ")
+    cp, cs = retr_p.page_cache, retr_s.page_cache
+    require((cp.hits, cp.misses) == (cs.hits, cs.misses),
+            f"(a) LRU {cp.hits}/{cp.misses} vs {cs.hits}/{cs.misses}")
+    pipe = eng_p.stats()["pipeline"]
+    log(f"14a. pipelined == sequential: {len(fin_p)} requests (ids, status, "
+        f"tokens, contexts), {len(p1['shed'])} shed, IOMeter {mp.nbytes} B "
+        f"/ {mp.nrequests} requests, {retr_p.calls} retrievals of "
+        f"{retr_p.vertices_seen} seeds, LRU {cp.hits} hits / {cp.misses} "
+        f"misses; the repeated drains equal; prefetch issued "
+        f"{pipe['prefetch_issued']}, hits {pipe['prefetch_hits']}, "
+        f"mis-speculations {pipe['mis_speculations']}")
+    require(pipe["prefetch_hits"] > 0, "(a) no prefetch was consumed")
+    out = {"served": len(fin_p), "ok": len(ok), "shed": len(p1["shed"]),
+           "pipeline": pipe, "launches": launches}
+
+    # (b) the card's retrieval against numpy, on the recorded batches
+    retr_n = serve_retriever(lake, "numpy")
+    n_ctx = 0
+    for vs, contexts in retr_s.batches:
+        for got, want in zip(contexts, retr_n(vs)):
+            require(np.array_equal(got, want),
+                    "(b) a context differs from the numpy engine's")
+            n_ctx += 1
+    mn = retr_n.meter
+    require((mn.nbytes, mn.nrequests) == (ms_.nbytes, ms_.nrequests),
+            f"(b) IOMeter {ms_.nbytes}/{ms_.nrequests} cuda vs "
+            f"{mn.nbytes}/{mn.nrequests} numpy")
+    require(retr_n.page_cache.stats() == cs.stats(),
+            "(b) the LRU counters differ from the numpy engine's")
+    log(f"14b. cuda retrieval == numpy on {len(retr_s.batches)} recorded "
+        f"batches: {n_ctx} contexts, IOMeter, LRU counters")
+
+    # (c) batched decode against solo decode at batch 1
+    agree = decisive_n = steps = 0
+    for req in sorted(ok, key=lambda r: -r.context_tokens)[:SERVE_SOLO]:
+        dev = model.device
+        cache = model.init_cache(1, SERVE_MAX_LEN, dtype=torch.float32)
+        logits, cache = model.prefill(
+            {"tokens": torch.from_numpy(req.prompt[None]).to(dev)}, cache)
+        solo = [logits[0, -1].float()]
+        for tok in req.output[:-1]:
+            logits, cache = model.decode_step(
+                torch.tensor([[tok]], dtype=torch.int32, device=dev), cache)
+            solo.append(logits[0, -1].float())
+        solo = torch.stack(solo)
+        mask, _ = decisive(torch, solo)
+        first = int((~mask).nonzero()[0]) if (~mask).any() else len(mask)
+        same = solo.argmax(-1).cpu() == torch.tensor(req.output)
+        agree += int(same[:first].sum())
+        decisive_n += first
+        steps += len(req.output)
+    share = agree / decisive_n if decisive_n else 0.0
+    log(f"14c. batched == solo decode: {SERVE_SOLO} requests, {steps} "
+        f"steps, {decisive_n} decisive before the first that is not; "
+        f"share equal {share:.5f}")
+    require(decisive_n > 0 and share == 1.0,
+            "(c) a decisive step of batched decode differs from solo")
+    out["solo_share"] = share
+
+    # where a tick's time goes (unprofiled host wall): each drain in run
+    # order, then the split over the two pipelined drains' warm ticks
+    drains = {"P1": p1, "S1": s1, "S2": s2, "P2": p2}
+    out["drains"] = {}
+    for name, d in drains.items():
+        rate, first, warm_rate, warm_tick = drain_rates(d)
+        out["drains"][name] = (d["wall_ms"], rate, first["wall_ms"],
+                               warm_rate, warm_tick)
+        log(f"14. drain {name}: {len(d['ticks'])} decode ticks, "
+            f"{d['tokens']} tokens in {d['wall_ms']:.1f} ms, {rate:.1f} "
+            f"tokens/s; first decode tick {first['wall_ms']:.1f} ms "
+            f"(admit {first['admit_ms']:.1f}, of which retrieval "
+            f"{first['retrieval_ms']:.1f}); warm ticks {warm_rate:.1f} "
+            f"tokens/s, median {warm_tick:.3f} ms")
+    warm = p1["ticks"][1:] + p2["ticks"][1:]
+    split = {}
+    for part in SERVE_PARTS:
+        vals = [t[part] for t in warm]
+        split[part] = (statistics.median(vals), min(vals), max(vals))
+    out["split"] = split
+    log(f"14. served {out['served']} ({out['ok']} ok), shed {out['shed']}; "
+        f"tick split over the {len(warm)} warm decode ticks of P1 and P2 "
+        f"(ms, median [min, max] total): " + "; ".join(
+            f"{p[:-3]} {m:.3f} [{lo:.3f}, {hi:.3f}] "
+            f"{sum(t[p] for t in warm):.1f}"
+            for p, (m, lo, hi) in split.items()))
+    log("14. P1's admitting ticks (decode tick: admit ms, of which "
+        "retrieval ms): " + "; ".join(
+            f"{i + 1}: {t['admit_ms']:.1f}, {t['retrieval_ms']:.1f}"
+            for i, t in enumerate(p1["ticks"]) if t["admit_ms"] > 1.0))
+    log(f"14. prefetch: issued {pipe['prefetch_issued']}, hits "
+        f"{pipe['prefetch_hits']}, mis-speculations "
+        f"{pipe['mis_speculations']}, pipeline_overlap_ms "
+        f"{eng_p.pipeline_overlap_ms:.3f}")
+
+    # host syncs: a decode step, with the engine's staged tokens and with
+    # numpy tokens, and one retrieval call (the prefetch's work)
+    tokens = np.full((SERVE_SLOTS, 1), 5, np.int32)
+    cache = model.init_cache(SERVE_SLOTS, SERVE_MAX_LEN,
+                             dtype=torch.float32, vector_index=True)
+    staged = sync_count(torch, lambda: model.decode_step(
+        eng_p._device_tokens(tokens), cache))
+    plain = sync_count(torch, lambda: model.decode_step(tokens, cache))
+    vs = np.asarray([r.context_vertex for r in ok[:SERVE_SLOTS]], np.int64)
+    retrieval = sync_count(torch, lambda: retr_p(vs))
+    out["syncs"] = {"decode_step": staged, "decode_step_numpy": plain,
+                    "retrieval": retrieval}
+    log(f"14. host syncs: decode_step {staged} a step (tokens staged "
+        f"through pinned memory), {plain} with numpy tokens; one retrieval "
+        f"of {vs.size} seeds {retrieval} (the prefetch overlaps decode "
+        f"until its first); sampling 1 a tick; on {card}")
+    out["median_tick_ms"] = split["tick_ms"][0]
+    del eng_p, eng_s, retr_n, cache
+    torch.cuda.empty_cache()
+    out.update(model=model, lake=lake)
+    return out
+
+
+def serve_profile_phase(torch, serve):
+    """``torch.profiler`` over ``SERVE_PROFILE_TICKS`` ticks of the
+    pipelined engine, on a fresh lake with every request submitted at
+    once, after 3 warm ticks: device busy ms a tick by kernel, idle share
+    against phase 14's unprofiled median warm tick."""
+    eng = serve_engine(serve["model"], serve_retriever(serve["lake"], ENGINE),
+                       True)
+    for _, req in serve_requests(serve["lake"]):
+        eng.submit(req)
+    for _ in range(2):
+        eng.step()
+    wall, busy = profile_ms(torch, eng.step, reps=SERVE_PROFILE_TICKS)
+    require(eng.stats()["active"] > 0, "the profiled ticks ran out of work")
+    total = sum(busy.values())
+    tick = serve["median_tick_ms"]
+    top6 = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+    log(f"14p. profile, {SERVE_PROFILE_TICKS} ticks of the pipelined "
+        f"engine: device busy {total:.3f} ms a tick of {tick:.3f} ms "
+        f"median unprofiled tick (idle share {1 - total / tick:.3f}; "
+        f"{wall:.3f} ms a tick under the profiler); "
+        + "; ".join(f"{n[:50]} {ms:.3f}" for n, ms in top6))
+    return {"busy": total, "idle": 1 - total / tick, "profiled_wall": wall}
+
+
 def flash_kernel_phase(torch):
     """Phase 13: the flash kernel against ``attention_ref`` on the card,
     at the forward's shape [60, 2048, 64] and at one block, d 32/128/256;
@@ -2162,6 +2575,8 @@ def main() -> int:
     only.add_argument("--entries", action="store_true",
                       help="run phases 1-2, 10 and 11 only (kernels 11-14 "
                       "and the entries that launch them)")
+    only.add_argument("--serve", action="store_true",
+                      help="run phases 1-2 and 14 only (the serving path)")
     args = ap.parse_args()
     graph_only = next((f for f in ("traversal", "per-dispatch", "resident",
                                    "entries")
@@ -2227,8 +2642,8 @@ def main() -> int:
         out = phase(*args)
         return out, {n: w.launches for n, w in wrappers.items()}
 
-    rows, counts = [], []
-    if not graph_only:
+    rows, counts, serve = [], [], None
+    if not graph_only and not args.serve:
         # the LM slice first: its host timings come before any profiler in
         # the process (phases 5 and 8 profile); its own profile runs last
         t0 = time.perf_counter()
@@ -2246,14 +2661,29 @@ def main() -> int:
             f"({time.perf_counter() - t0:.1f} s)")
         torch.cuda.empty_cache()
 
-    if not args.lm:
+    if not graph_only and not args.lm:
+        # the serving path, before any profiler in the process too
+        t0 = time.perf_counter()
+        serve = serve_phase(torch, card, drive)
+        s_launches = serve["launches"]
+        require(all(s_launches[n] for n in SERVE_KERNELS),
+                f"a kernel of the serving path never launched: "
+                f"{s_launches}")
+        log(f"14. serve: checks (a), (b) and (c) pass, launches "
+            + ", ".join(f"{n} {c}" for n, c in s_launches.items() if c)
+            + f" ({time.perf_counter() - t0:.1f} s) on {card}")
+        counts.append(s_launches)
+
+    if not args.lm and not args.serve:
         graph_rows, graph_counts = graph_phases(torch, drive, wrappers, card,
                                                 graph_only)
         rows = graph_rows + rows
         counts += graph_counts
-    if not graph_only:
+    if not graph_only and not args.serve:
         t0 = time.perf_counter()
         lm_profile_phase(torch, lm)
+        if serve is not None:
+            serve_profile_phase(torch, serve)
         log(f"12p. lm profile ({time.perf_counter() - t0:.1f} s)")
     for r in rows:
         # a row named "kernel@shape" times a kernel at another shape

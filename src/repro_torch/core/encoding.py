@@ -353,6 +353,18 @@ class PackedPages:
             self.device_transfers += 1
         return plan
 
+    def device_stats(self) -> Dict[str, object]:
+        """The device mirror's counters, under the reference's keys.
+        ``engines`` names the devices the plan was shipped to (``cpu``
+        for the ``torch`` engine, ``cuda:0`` for ``cuda``); the
+        poisoned-mirror route is the mutable plane's and not ported, so
+        ``poisoned`` is False and ``fallbacks`` 0."""
+        return {"engines": sorted(self._device_plans),
+                "transfers": self.device_transfers,
+                "version": self.version,
+                "poisoned": False,
+                "fallbacks": 0}
+
     def slice(self, p0: int, p1: int) -> Tuple[np.ndarray, ...]:
         """Zero-copy views of pages [p0, p1)."""
         return (self.first[p0:p1], self.min_deltas[p0:p1],
@@ -392,6 +404,13 @@ class PagePruneStats:
     pages_considered: int = 0
     pages_pruned: int = 0
     io_saved_bytes: int = 0
+
+    def as_dict(self) -> Dict[str, int]:
+        return {"dispatches": self.dispatches,
+                "pages_considered": self.pages_considered,
+                "pages_pruned": self.pages_pruned,
+                "io_saved_bytes": self.io_saved_bytes}
+
 
 @dataclasses.dataclass
 class DeltaColumn:

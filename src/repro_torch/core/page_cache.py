@@ -74,6 +74,21 @@ class DecodedPageCache:
                 hits[int(p)] = arr
         return hits, miss
 
+    def snapshot(self) -> Tuple:
+        """Point-in-time state for a speculative consumer that must be
+        able to rewind exactly (the pipelined serving engine): recency
+        drives eviction, so entry order is part of the state and the
+        OrderedDict is shallow-copied (decoded rows are never mutated in
+        place)."""
+        return (OrderedDict(self._pages), self.hits, self.misses,
+                self.evictions, self.version)
+
+    def restore(self, state: Tuple) -> None:
+        """Rewind to a :meth:`snapshot` (copying again, so one snapshot
+        can back out several speculations)."""
+        pages, self.hits, self.misses, self.evictions, self.version = state
+        self._pages = OrderedDict(pages)
+
     def clear(self) -> None:
         self._pages.clear()
 

@@ -5,7 +5,10 @@ locality (sparse, clustered adjacency -> few bits per delta, paper §4.2);
 ``clustered_labels`` produces boolean label columns arranged in runs
 (short RLE interval lists, paper §5.1); ``ldbc_like`` produces an
 LDBC-SNB-flavoured property graph (persons, messages, tags with tagclass
-labels) for the end-to-end queries (paper §6.5).  All draw from the same
+labels) for the end-to-end queries (paper §6.5); ``document_graph``
+produces a corpus-with-links lake (ragged token lists, a link graph,
+five clustered labels, a quality score) for the serving retriever and
+the LM data pipeline.  All draw from the same
 ``np.random.default_rng`` streams as the JAX package's generators, so one
 seed gives the same graph in both packages.
 """
@@ -179,3 +182,32 @@ def ldbc_like(scale: int = 1, seed: int = 0) -> SnbGraph:
         tag_class_of_tag=tag_class, tagclass_names=tagclass_names,
         message_labels=message_labels, person_labels=person_labels)
 
+
+# --------------------------------------------------------------------------
+# document-link lake for serving and LM pre-training
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DocumentLake:
+    num_docs: int
+    tokens: List[np.ndarray]            # ragged token arrays per doc
+    links_src: np.ndarray               # citation/link graph
+    links_dst: np.ndarray
+    labels: Dict[str, np.ndarray]       # quality / topic / source labels
+    quality: np.ndarray                 # float score property
+
+
+def document_graph(num_docs: int = 5000, vocab: int = 4096,
+                   mean_len: int = 256, seed: int = 0) -> DocumentLake:
+    rng = np.random.default_rng(seed)
+    lens = np.maximum(rng.poisson(mean_len, num_docs), 16)
+    # Zipf token distribution (natural-language-like)
+    tokens = [((rng.zipf(1.3, l) - 1) % vocab).astype(np.int32)
+              for l in lens]
+    src, dst = powerlaw_graph(num_docs, avg_degree=8, locality=0.8,
+                              seed=seed + 3)
+    labels = clustered_labels(
+        num_docs, ["HighQuality", "Spam", "Code", "News", "Reference"],
+        density=0.25, run_scale=256, seed=seed + 11)
+    quality = rng.random(num_docs).astype(np.float32)
+    return DocumentLake(num_docs, tokens, src, dst, labels, quality)

@@ -91,7 +91,14 @@ def _write_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor) -> Dict:
     A scalar index writes one slice for every slot, its start clamped so
     the slice fits (``dynamic_update_slice``); a vector index writes slot
     b at ``index[b] + arange(s)`` and drops the positions past the cache's
-    end (``.at[].set(mode="drop")``)."""
+    end (``.at[].set(mode="drop")``).
+
+    The drop takes no host sync (a boolean mask would: its ``nonzero``
+    reads the mask's count back): every position is written at its column
+    clamped to ``t - 1``, and a dropped one writes the value that column
+    receives anyway -- the row's own write at ``t - 1`` if it has one, else
+    the cache's current value there -- so repeated indices carry equal
+    values and the result is the drop's."""
     ck, cv, idx = cache["k"], cache["v"], cache["index"]
     b, s = k.shape[:2]
     t = ck.shape[1]
@@ -101,11 +108,16 @@ def _write_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor) -> Dict:
         cv[:, start:start + s] = v.to(cv.dtype)
     else:
         rows = torch.arange(b, device=ck.device)[:, None].expand(b, s)
-        cols = idx.to(ck.device).long()[:, None] + \
-            torch.arange(s, device=ck.device)[None, :]
-        keep = cols < t
-        ck[rows[keep], cols[keep]] = k[keep].to(ck.dtype)
-        cv[rows[keep], cols[keep]] = v[keep].to(cv.dtype)
+        base = idx.to(ck.device).long()[:, None]
+        cols = (base + torch.arange(s, device=ck.device)[None, :]) \
+            .clamp(max=t - 1)
+        src = cols - base               # the call's position at that column
+        own = (src >= 0)[:, :, None, None]
+        src = src.clamp(min=0)[:, :, None, None].expand(k.shape)
+        for c, new in ((ck, k), (cv, v)):
+            vals = torch.where(own, new.gather(1, src).to(c.dtype),
+                               c[rows, cols])
+            c[rows, cols] = vals
     return {"k": ck, "v": cv, "index": idx + s}
 
 

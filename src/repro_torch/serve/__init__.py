@@ -1,3 +1,5 @@
-"""Serving steps and token sampling (the JAX package's ``serve/steps.py``
-and ``serve/sampling.py``); the engine, retrieval, tenancy and overload
-planes are ROADMAP item 11."""
+"""Serving: the continuous-batching engine (``engine.py``), its batched
+lake retriever (``retrieval.py``), multi-tenant admission
+(``tenancy.py``), overload degradation (``overload.py``), the prefill and
+decode steps with the slot write (``steps.py``) and token sampling
+(``sampling.py``) -- the JAX package's ``serve/`` on the port."""

@@ -869,3 +869,97 @@ def test_lm_flash_route_on_the_card(dev, arch):
         logits, cache = plain.decode_step(tokens[:, t:t + 1], cache)
         steps.append(logits[:, -1])
     assert (torch.stack(steps, 1) - want[:, 47:63]).abs().max().item() <= 1e-4
+
+
+def _serve_run(model, engine):
+    """The reduced engine over a document lake, the retriever on
+    ``engine``: (finished requests, IOMeter, retriever stats)."""
+    from repro_torch.data.synthetic import document_graph
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.retrieval import GraphRetriever
+    from repro_torch.serve.tenancy import TenantConfig
+    lake = document_graph(num_docs=300, vocab=512, mean_len=32, seed=5)
+    b = TC.GraphArBuilder("docs")
+    b.add_vertices(TC.VertexTypeSchema(
+        "doc", [TC.PropertySchema("tokens", "tokens")],
+        labels=list(lake.labels), page_size=128),
+        {"tokens": lake.tokens}, lake.labels)
+    b.add_edges(TC.EdgeTypeSchema("doc", "links", "doc", page_size=128),
+                lake.links_src, lake.links_dst)
+    g = b.build()
+    adj = g.adjacency("doc-links-doc", TC.BY_SRC)
+    meter = TC.IOMeter()
+    retr = GraphRetriever(adj, g.vertex("doc").table["tokens"],
+                          max_neighbors=2, tokens_per_neighbor=8,
+                          meter=meter, engine=engine, page_cache_pages=64,
+                          hops=2, filter_vt=g.vertex("doc"),
+                          filter_cond=TC.L("HighQuality") & ~TC.L("Spam"))
+    eng = ServeEngine(model, max_slots=3, max_len=96, eos_id=-1,
+                      context_fn=retr, pipeline=True,
+                      tenants=[TenantConfig("prod", weight=3),
+                               TenantConfig("batch")])
+    rng = np.random.default_rng(0)
+    seeds = np.flatnonzero(adj.degrees() > 0)
+    for i in range(10):
+        eng.submit(Request(i, rng.integers(4, 512, 4 + i % 3)
+                           .astype(np.int32), max_new_tokens=4,
+                           context_vertex=int(seeds[rng.integers(
+                               0, len(seeds))]),
+                           tenant=("prod", "batch")[i % 2]))
+    return eng.run_until_drained(), meter, retr.stats()
+
+
+def test_serve_engine_cuda_equals_the_cpu_leg(dev):
+    """The reduced engine with the model and the retriever on the card
+    against the same weights on the CPU ``torch`` leg: equal contexts and
+    IOMeter, equal tokens on every decisive step (top two float32 logits
+    of the CPU forward more than 1e-4 apart)."""
+    cfg = get_config("smollm-360m").reduced().with_(n_units=2)
+    card = build_model(cfg, dev).init(0)
+    cpu = build_model(cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    got, gmeter, gstats = _serve_run(card, "cuda")
+    want, wmeter, wstats = _serve_run(cpu, "torch")
+    assert (gmeter.nbytes, gmeter.nrequests) == \
+        (wmeter.nbytes, wmeter.nrequests)
+    assert gstats["page_cache"] == wstats["page_cache"]
+    assert gstats["filter"] == wstats["filter"]
+    assert [r.request_id for r in got] == [r.request_id for r in want]
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.prompt, b.prompt)
+        assert a.context_tokens == b.context_tokens
+        if a.output == b.output:
+            continue
+        seq = np.concatenate([b.prompt, np.asarray(b.output, np.int32)])
+        logits, _ = cpu({"tokens": torch.from_numpy(seq[None])})
+        top2 = logits[0, len(b.prompt) - 1:].topk(2, dim=-1).values
+        decisive = (top2[:, 0] - top2[:, 1] > 1e-4).tolist() + [False]
+        k = decisive.index(False)
+        assert k < len(b.output), f"request {a.request_id} parts at a " \
+            f"decisive step"
+        assert a.output[:k] == b.output[:k], a.request_id
+
+
+def test_decode_step_takes_no_host_sync(dev):
+    """A continuous-batching decode step on the card, with a slot at and
+    a slot past the cache's end, queues its work without one host sync
+    (``set_sync_debug_mode("error")`` raises on any), and so does the
+    engine's token upload."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config("smollm-360m").reduced().with_(n_units=2)
+    model = build_model(cfg, dev).init(0)
+    eng = ServeEngine(model, max_slots=4, max_len=32)
+    eng.cache["index"].copy_(torch.tensor([3, 31, 32, 40]))
+    for layer in eng.cache["layers"]:
+        layer["kv"]["index"].copy_(eng.cache["index"])
+    tokens = np.arange(4, dtype=np.int32)[:, None] + 5
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            logits, eng.cache = model.decode_step(eng._device_tokens(tokens),
+                                                  eng.cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert eng.cache["index"].tolist() == [5, 33, 34, 42]
+    assert bool(torch.isfinite(logits).all())

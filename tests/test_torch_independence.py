@@ -145,6 +145,66 @@ print("LOADED", bad)
 """
 
 
+SERVE_PROBE = """
+import sys
+import numpy as np
+import torch
+import repro_torch.configs as RC
+import repro_torch.core as TC
+from repro_torch.data.pipeline import GraphCorpusPipeline, PipelineConfig
+from repro_torch.data.synthetic import document_graph
+from repro_torch.ft.faults import FaultPlan
+from repro_torch.models import build_model
+from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.overload import OverloadConfig
+from repro_torch.serve.retrieval import GraphRetriever
+from repro_torch.serve.tenancy import TenantConfig
+torch.set_num_threads(1)
+lake = document_graph(num_docs=200, vocab=512, mean_len=32, seed=5)
+b = TC.GraphArBuilder("docs")
+b.add_vertices(TC.VertexTypeSchema("doc", [TC.PropertySchema("tokens",
+               "tokens")], labels=list(lake.labels), page_size=128),
+               {"tokens": lake.tokens}, lake.labels)
+b.add_edges(TC.EdgeTypeSchema("doc", "links", "doc", page_size=128),
+            lake.links_src, lake.links_dst)
+g = b.build()
+adj = g.adjacency("doc-links-doc", TC.BY_SRC)
+retr = GraphRetriever(adj, g.vertex("doc").table["tokens"], engine="torch",
+                      meter=TC.IOMeter(), hops=2, filter_vt=g.vertex("doc"),
+                      filter_cond=TC.L("HighQuality") & ~TC.L("Spam"))
+cfg = RC.get_config("smollm-360m").reduced().with_(n_units=2)
+model = build_model(cfg, "cpu").init(0)
+eng = ServeEngine(model, max_slots=3, max_len=96, eos_id=-1,
+                  context_fn=retr, pipeline=True,
+                  tenants=[TenantConfig("prod", weight=3),
+                           TenantConfig("batch", rate=1.0, burst=2.0)],
+                  overload=OverloadConfig(target_p99_ms=1e3),
+                  faults=FaultPlan({"serve.retrieval": 1}))
+rng = np.random.default_rng(0)
+for i, v in enumerate(np.flatnonzero(adj.degrees() > 0)[:8]):
+    eng.submit(Request(i, rng.integers(4, 512, 6).astype(np.int32),
+                       max_new_tokens=3, context_vertex=int(v),
+                       tenant=("prod", "batch")[i % 2]))
+fin = eng.run_until_drained()
+assert fin and eng.stats()["retrieval"]["calls"] > 0
+pipe = GraphCorpusPipeline(g, TC.L("News"), PipelineConfig(seq_len=32,
+                                                           batch_size=2),
+                           engine="torch")
+assert next(pipe.batches())["tokens"].shape == (2, 32)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("LOADED", bad)
+"""
+
+
+def test_serving_loads_neither_jax_nor_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", SERVE_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_lm_loads_neither_jax_nor_the_jax_package():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", LM_PROBE], env=env,
