@@ -3,7 +3,8 @@
 
 Run from the root of the repository:  python3 chip_smoke.py
 (``--lm`` runs phases 1-2, 12-13 and the LM profile only; ``--serve``
-phases 1-2 and 14, the serving path; ``--traversal``
+phases 1-2 and 14, the serving path; ``--mutable`` phases 1-2, the
+soc-LiveJournal1 set-up, 15 and 16, the mutable plane; ``--traversal``
 phases 1-3, 5 and 6, which hold and time kernels 3 and 5 and drive the
 traversal path that launches them; ``--per-dispatch`` phases 1-2, the
 soc-LiveJournal1 set-up and phase 9, which hold and time kernels 8-10,
@@ -167,14 +168,60 @@ process; the LM profile runs last):
      step and of a retrieval call (``torch.cuda.set_sync_debug_mode``),
      and the launches of kernels 2, 3 and 5 in P1, which must all have
      launched;
+ 15. mutable: the soc-LiveJournal1 adjacency (after phase 11, the last
+     phase that reads it, since this one compacts it in place): a fused
+     ``k_hop`` builds (or reuses) the write-once traversal plan; 16 seeded
+     batches of 4,096 rows (65,536, 0.095% of the base) go through
+     ``ingest_edges``, keys the ``<src>`` of uniformly drawn base rows,
+     values uniform, one row in 16 a copy of its base row's edge; the
+     oracle is a CSR sorted with numpy from the base's ``(src, dst)`` read
+     once with the numpy engine and the ingested arrays, with no delta
+     plane in it.  With the rows pending, each equal to the oracle:
+     ``retrieve_neighbors_batch`` over phase 4's batches of 1024 and 16384
+     and a batch of 16384 half drawn from the ingested keys, unfiltered
+     and ``(L0 & L1) | ~L2``, no cache, then a 4096-page LRU cold and
+     warm; ``neighbor_ids_batch(unique=False)`` over the 1024;
+     ``k_hop`` from 1, 8 and 64 seeds at 2 and 3 hops, unfiltered and
+     filtered (each the counted host-loop fallback).  The poisoned mirror:
+     ``pack_column(col).poison()``, then batch 16384 both ways equal with
+     no launch of kernels 1 and 4 and ``fallbacks`` up; ``bump_version``
+     heals it (one transfer, kernel 1 again).  ``CompactionRunner(adj)
+     .maybe_compact()`` in memory, timed by stage; the first ``k_hop``
+     after it rebuilds the plan once and runs fused, and device memory
+     (``torch.cuda.memory_allocated``) after it is within 5% of its value
+     before the compaction, every stale plan holding no arrays; then the
+     same reads equal the oracle and the pending reads bit for bit, with
+     ``k_hop`` fused (kernel 5, no fallback).  Prints ingest ms a batch,
+     delta lookup ms, each batch's host ms pending and compacted, the
+     compaction's seconds and stages, the plan rebuild and device memory;
+     kernels 1-5 must all have launched;
+ 16. serve mutable: phase 14's configuration (its model and lake, or
+     built anew under ``--mutable``) with 8 seeded ``ServeEngine.ingest``
+     calls of 512 links at ticks 4, 12, ..., 60, their sources the
+     requests' seed documents; one pipelined and one sequential drain,
+     each over a fresh lake.  (a) pipelined equal to sequential bit for
+     bit (requests, shed outcomes, IOMeter, calls, LRU, the ``mutable``
+     stats), mis-speculations printed; (b) a numpy retriever fed the
+     sequential drain's calls and ingests in their order: equal contexts,
+     IOMeter and LRU.  Then the sequential drain's lake saved to a
+     ``GraphStore`` in a temporary directory under ``build/`` and compacted
+     under ``FaultPlan({"store.write": 1, "compact.pre_swap": 1,
+     "compact.mid_gc": 1})``: generation 1 committed with 3 faults
+     absorbed, the superseded files collected, the tables
+     ``GraphStore.read`` gives back equal to the compacted pages; the next
+     retrievals (the last 4 recorded seed batches) run ``khop_scan`` again
+     and equal the numpy retriever's, compacted in memory.  A throwaway
+     warm-up engine runs first (phase 14's), then the drains in the order
+     P S; kernels 2, 3 and 5 must have launched in the pipelined drain
+     (the counts are its own);
  12p. lm profile: ``torch.profiler`` over one forward, prefill and decode
      step of the bf16 model: device busy ms by kernel, idle share against
      phase 12's unprofiled host wall; then (14p) 20 ticks of phase 14's
      pipelined engine on a fresh lake, every request submitted at once,
      busy and idle share against phase 14's unprofiled median warm tick.
-Every launch count is set to 0 just before each of phases 4, 5, 7, 8, 10
-and 12 and phase 14's P1 drain, and read just after; a kernel's
-``launches`` is the sum over the seven.
+Every launch count is set to 0 just before each of phases 4, 5, 7, 8, 10,
+12 and 15, phase 14's P1 drain and phase 16's pipelined drain, and read
+just after; a kernel's ``launches`` is the sum over the nine.
 The card's name and power limit, then the kernel table as JSON, come on
 the lines before the last; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -257,6 +304,16 @@ SERVE_PROFILE_TICKS = 20
 SERVE_KERNELS = ("gather_decode", "cond_bitmap", "khop_scan")
 SERVE_PARTS = ("admit_ms", "retrieval_ms", "dispatch_ms", "prefetch_ms",
                "decode_sample_ms", "tick_ms")
+#: the mutable phase (15) over soc-LiveJournal1: 16 ingest batches of 4,096
+#: rows, one row in 16 a copy of a base edge; the kernels it must launch
+MUT_BATCHES, MUT_ROWS, MUT_REPEAT = 16, 4096, 16
+MUTABLE_KERNELS = ("gather_decode", "fused_gather_decode_bitmap_batch",
+                   "cond_bitmap", "fused_gather_decode_filter_bitmap_batch",
+                   "khop_scan")
+#: ingest while serving (phase 16): 8 batches of 512 links at ticks 4, 12,
+#: ..., 60; the kernels its pipelined drain must launch
+SERVE_INGESTS, SERVE_INGEST_LINKS = 8, 512
+SERVE_MUTABLE_KERNELS = ("gather_decode", "cond_bitmap", "khop_scan")
 
 
 def log(msg: str) -> None:
@@ -2072,18 +2129,22 @@ def serve_graph(lake):
     return b.build()
 
 
-def serve_retriever(lake, engine):
-    """The phase's ``GraphRetriever`` on ``engine`` over a fresh graph,
-    with its own IOMeter."""
+def serve_graph_retriever(lake, engine):
+    """A fresh graph and the phase's ``GraphRetriever`` over it on
+    ``engine``, with its own IOMeter."""
     import repro_torch.core as TC
     from repro_torch.serve.retrieval import GraphRetriever
     g = serve_graph(lake)
-    return GraphRetriever(
+    return g, GraphRetriever(
         g.adjacency("doc-links-doc", TC.BY_SRC),
         g.vertex("doc").table["tokens"], max_neighbors=2,
         tokens_per_neighbor=16, meter=TC.IOMeter(), engine=engine, hops=2,
         filter_vt=g.vertex("doc"),
         filter_cond=TC.L("HighQuality") & ~TC.L("Spam"))
+
+
+def serve_retriever(lake, engine):
+    return serve_graph_retriever(lake, engine)[1]
 
 
 class Recorder:
@@ -2138,15 +2199,17 @@ def serve_engine(model, context_fn, pipeline):
                                              deadline_ticks=64)])
 
 
-def serve_drain(torch, eng, arrivals, max_ticks=2000):
+def serve_drain(torch, eng, arrivals, max_ticks=2000, ingests=()):
     """Drive ``eng`` through ``arrivals``: each request submitted at its
-    tick, one ``step`` a tick, until all have arrived and the engine has
-    drained (``run_until_drained(max_ticks=0)`` raises if work is left).
+    tick, each of ``ingests`` (``(tick, src, dst)``) forwarded by
+    ``eng.ingest`` at its tick, one ``step`` a tick, until all have
+    arrived and the engine has drained
+    (``run_until_drained(max_ticks=0)`` raises if work is left).
     Returns the shed outcomes, the host wall ms of the whole drain and,
     for each tick that decoded, the engine's ``last_tick`` split with the
     tick's host wall ms and the tokens it made."""
     reqs = [r for _, r in arrivals]
-    shed, ticks, made, i = [], [], 0, 0
+    shed, ticks, made, i, j = [], [], 0, 0, 0
     torch.cuda.synchronize()
     t_start = time.perf_counter()
     for tick in range(max_ticks):
@@ -2156,6 +2219,9 @@ def serve_drain(torch, eng, arrivals, max_ticks=2000):
                 shed.append((arrivals[i][1].request_id, out.reason.value,
                              out.retry_after))
             i += 1
+        while j < len(ingests) and ingests[j][0] <= tick:
+            eng.ingest(*ingests[j][1:])
+            j += 1
         steps = eng.steps
         t0 = time.perf_counter()
         active = eng.step()
@@ -2164,7 +2230,8 @@ def serve_drain(torch, eng, arrivals, max_ticks=2000):
             now = sum(len(r.output) for r in reqs)
             ticks.append(dict(eng.last_tick, wall_ms=ms, tokens=now - made))
             made = now
-        if i == len(arrivals) and not active and not eng.stats()["queued"]:
+        if i == len(arrivals) and j == len(ingests) and not active \
+                and not eng.stats()["queued"]:
             break
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t_start) * 1e3
@@ -2206,12 +2273,9 @@ def request_key(r):
             r.context_tokens, r.prompt.tolist())
 
 
-def serve_phase(torch, card, drive):
-    """Phase 14: the serving path at full width on the card (see the
-    module docstring); returns its measurements, with the launch counts
-    of the first pipelined drain (``drive`` sets them to 0 just before
-    it and reads them just after)."""
-    import numpy as np
+def serve_model_lake(torch):
+    """Phase 14's model (smollm-360m at full width, ``init(0)``, on the
+    card) and document lake, with the seconds each took."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import document_graph
     from repro_torch.models import build_model
@@ -2226,7 +2290,30 @@ def serve_phase(torch, card, drive):
     t0 = time.perf_counter()
     lake = document_graph(num_docs=SERVE_DOCS, vocab=cfg.vocab_size,
                           mean_len=SERVE_MEAN_LEN, seed=2)
-    t_lake = time.perf_counter() - t0
+    return model, lake, t_model, time.perf_counter() - t0
+
+
+def serve_warmup(torch, model, lake) -> float:
+    """Warm the process (the first GEMMs and kernel loads) on a throwaway
+    engine, so that no measured drain is the process's first; returns
+    its host ms."""
+    t0 = time.perf_counter()
+    warm = serve_engine(model, serve_retriever(lake, ENGINE), True)
+    for tick, req in serve_requests(lake)[:SERVE_SLOTS]:
+        req.max_new_tokens = 2
+        warm.submit(req)
+    warm.run_until_drained()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def serve_phase(torch, card, drive):
+    """Phase 14: the serving path at full width on the card (see the
+    module docstring); returns its measurements, with the launch counts
+    of the first pipelined drain (``drive`` sets them to 0 just before
+    it and reads them just after)."""
+    import numpy as np
+    model, lake, t_model, t_lake = serve_model_lake(torch)
     t0 = time.perf_counter()
     retr_p = serve_retriever(lake, ENGINE)
     t_graph = time.perf_counter() - t0
@@ -2238,18 +2325,8 @@ def serve_phase(torch, card, drive):
         f"{t_graph:.1f} s (page size {SERVE_PAGE}); {len(arrivals)} "
         f"requests arriving over ticks 0-{arrivals[-1][0]}")
 
-    # warm the process (the first GEMMs and kernel loads) on a throwaway
-    # engine, so that no drain below is the process's first
-    t0 = time.perf_counter()
-    warm = serve_engine(model, serve_retriever(lake, ENGINE), True)
-    for tick, req in arrivals[:SERVE_SLOTS]:
-        req.max_new_tokens = 2
-        warm.submit(req)
-    warm.run_until_drained()
-    torch.cuda.synchronize()
     log(f"14. warm-up: {SERVE_SLOTS} requests of 2 tokens on a throwaway "
-        f"engine in {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    del warm
+        f"engine in {serve_warmup(torch, model, lake):.1f} ms")
 
     # the drains, pipelined and sequential in the order P S S P, each
     # engine over a fresh lake; the launch counts are the first's
@@ -2557,6 +2634,483 @@ def flash_build_check(report, lib) -> None:
             f"a bf16 flash kernel holds no HGMMA: {counts}")
 
 
+class CsrOracle:
+    """The mutable phase's oracle, which does not use the delta plane:
+    the base's edges read once with the numpy engine, the ingested rows
+    concatenated, sorted into a CSR with numpy.  Each vertex's row holds
+    its neighbors sorted, with multiplicity."""
+
+    def __init__(self, np, src, dst, n):
+        key = src * n + dst
+        key.sort()
+        self.np, self.n = np, n
+        self.indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(np.bincount(key // n, minlength=n), out=self.indptr[1:])
+        self.dst = key % n
+
+    def rows(self, vs):
+        """Each vertex's sorted neighbors, concatenated in ``vs`` order."""
+        np = self.np
+        lo, hi = self.indptr[vs], self.indptr[vs + 1]
+        k = hi - lo
+        within = np.arange(int(k.sum()), dtype=np.int64) \
+            - np.repeat(np.cumsum(k) - k, k)
+        return self.dst[np.repeat(lo, k) + within]
+
+    def ids(self, vs, mask=None):
+        out = self.np.unique(self.rows(vs))
+        return out if mask is None else out[mask[out]]
+
+    def k_hop(self, seeds, hops, mask=None):
+        """``k_hop``'s semantics: a hop's neighbors, filtered, less the
+        visited ones, are the next frontier; filtered ids stay unvisited."""
+        np = self.np
+        visited = np.zeros(self.n, bool)
+        frontier = np.unique(seeds)
+        visited[frontier] = True
+        for _ in range(hops):
+            if frontier.size == 0:
+                break
+            nbrs = self.ids(frontier, mask)
+            frontier = nbrs[~visited[nbrs]]
+            visited[frontier] = True
+        return np.flatnonzero(visited)
+
+
+def mutable_reads(torch, adj, filt, mask, batches, seeds_of, oracle, tag):
+    """Phase 15's reads on the card, each held against the CSR oracle:
+    ``retrieve_neighbors_batch`` over ``batches``, unfiltered and
+    filtered, with no cache, then a 4096-page LRU cold and warm;
+    ``neighbor_ids_batch(unique=False)`` over the batch of 1024; ``k_hop``
+    from ``seeds_of`` at 2 and 3 hops, unfiltered and filtered.  Returns
+    each read's result (to hold the two runs against each other) and the
+    batch-16384 host ms with no cache."""
+    import numpy as np
+    import repro_torch.core as TC
+    from repro_torch.core.page_cache import DecodedPageCache
+    enc = adj.table["<dst>"].encoded
+    out, walls = {}, {}
+    for name, vs in batches.items():
+        for f in (None, filt):
+            want = oracle.ids(vs, None if f is None else mask)
+            cache = DecodedPageCache(CACHE_PAGES)
+            for mode in ("none", "cold", "warm"):
+                enc.page_cache = None if mode == "none" else cache
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pac = TC.retrieve_neighbors_batch(adj, vs, PAGE_SIZE,
+                                                  engine=ENGINE, filter=f)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                require(np.array_equal(pac.to_ids(), want),
+                        f"15 {tag}: batch {name} filtered={f is not None} "
+                        f"{mode} differs from the CSR oracle")
+                out[(name, f is not None, mode)] = pac_key(pac)
+                walls[(name, f is not None, mode)] = ms
+            enc.page_cache = None
+    vs = batches["1024"]
+    rows = TC.neighbor_ids_batch(adj, vs, engine=ENGINE, unique=False)
+    require(np.array_equal(rows, oracle.rows(vs)),
+            f"15 {tag}: neighbor_ids_batch(unique=False) differs from the "
+            f"CSR oracle")
+    out["rows"] = rows.tobytes()
+    for n_seeds, seeds in seeds_of.items():
+        for hops in (2, 3):
+            for f in (None, filt):
+                t0 = time.perf_counter()
+                ids = TC.k_hop(adj, seeds, hops, engine=ENGINE, filter=f)
+                walls[("k_hop", n_seeds, hops, f is not None)] = \
+                    (time.perf_counter() - t0) * 1e3
+                require(np.array_equal(ids, oracle.k_hop(
+                    seeds, hops, None if f is None else mask)),
+                    f"15 {tag}: k_hop seeds={n_seeds} hops={hops} "
+                    f"filtered={f is not None} differs from the CSR oracle")
+                out[("k_hop", n_seeds, hops, f is not None)] = ids.tobytes()
+    return out, walls
+
+
+def mutable_phase(torch, adj, vt, batches, truth, card):
+    """Phase 15: soc-LiveJournal1 with rows pending, a poisoned mirror and
+    an in-memory compaction (see the module docstring)."""
+    import numpy as np
+    import repro_torch.core as TC
+    from repro_torch.core.compaction import CompactionRunner
+    from repro_torch.core.delta_segment import (base_edges, ingest_edges,
+                                                live_delta)
+    from repro_torch.kernels.label_filter import kernel as LK
+    from repro_torch.kernels.pac_decode import kernel as PK
+    from repro_torch.kernels.traversal import kernel as TK
+    from repro_torch.kernels.traversal import ops as TO
+    enc = adj.table["<dst>"].encoded
+    cond = (TC.L("L0") & TC.L("L1")) | ~TC.L("L2")
+    filt = TC.LabelFilter(vt, cond)
+    lab = truth["labels"]
+    mask = (lab["L0"] & lab["L1"]) | ~lab["L2"]
+    rng = np.random.default_rng(15)
+    seeds_of = {s: rng.integers(0, N_VERTICES, s) for s in SEED_COUNTS}
+    # the write-once traversal plan (phase 5's, or built here)
+    t0 = time.perf_counter()
+    TC.k_hop(adj, seeds_of[64], 2, engine=ENGINE)
+    log(f"15. write-once k_hop (plan at version {enc.version}) "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 1. ingest: keys are the <src> of uniformly drawn base rows (degree-
+    # proportional), values uniform, one row in 16 a copy of its base row
+    t0 = time.perf_counter()
+    bsrc, bdst = base_edges(adj)
+    t_base = time.perf_counter() - t0
+    keys, vals, ingest_ms, repeats = [], [], [], 0
+    for _ in range(MUT_BATCHES):
+        rows = rng.integers(0, len(bsrc), MUT_ROWS)
+        k = bsrc[rows]
+        v = rng.integers(0, N_VERTICES, MUT_ROWS)
+        dup = rng.random(MUT_ROWS) < 1 / MUT_REPEAT
+        v[dup] = bdst[rows[dup]]
+        repeats += int(dup.sum())
+        keys.append(k)
+        vals.append(v)
+        t0 = time.perf_counter()
+        ingest_edges(adj, k, v)
+        ingest_ms.append((time.perf_counter() - t0) * 1e3)
+    delta = live_delta(adj)
+    keys, vals = np.concatenate(keys), np.concatenate(vals)
+    require(delta.pending_rows() == MUT_BATCHES * MUT_ROWS,
+            "15: the pending rows differ from the rows ingested")
+    # 2. the oracle: a CSR over base + ingested rows, sorted by numpy
+    t0 = time.perf_counter()
+    oracle = CsrOracle(np, np.concatenate([bsrc, keys]),
+                       np.concatenate([bdst, vals]), N_VERTICES)
+    t_oracle = time.perf_counter() - t0
+    del bsrc, bdst
+    log(f"15. ingest: {MUT_BATCHES} batches of {MUT_ROWS} rows "
+        f"({delta.pending_rows()} pending, "
+        f"{100 * delta.pending_rows() / adj.num_edges:.3f}% of the base, "
+        f"{repeats} copies of a base edge), ms per batch median {statistics.median(ingest_ms):.3f} "
+        f"[{min(ingest_ms):.3f}, {max(ingest_ms):.3f}]; base read "
+        f"{t_base:.1f} s, CSR oracle {t_oracle:.1f} s")
+
+    half = batches[16384].copy()
+    half[::2] = keys[rng.integers(0, len(keys), len(half[::2]))]
+    reads = {"1024": batches[1024], "16384": batches[16384],
+             "16384i": half}
+    lookup = []
+    for fn in (delta.lookup_batch, delta.unique_ids):
+        t0 = time.perf_counter()
+        fn(half)
+        lookup.append((time.perf_counter() - t0) * 1e3)
+    log(f"15. delta lookup over the half-ingested batch of 16384: "
+        f"lookup_batch {lookup[0]:.3f} ms, unique_ids {lookup[1]:.3f} ms")
+
+    # 3. reads while rows are pending
+    fb0 = TO.traversal_stats(adj)["fallbacks"]
+    t0 = time.perf_counter()
+    pending, walls_p = mutable_reads(torch, adj, filt, mask, reads,
+                                     seeds_of, oracle, "pending")
+    fallbacks = TO.traversal_stats(adj)["fallbacks"] - fb0
+    require(fallbacks == 2 * 2 * len(SEED_COUNTS),
+            f"15: {fallbacks} k_hop fallbacks while pending, not one a call")
+    log(f"15. pending: {len(pending)} reads equal to the CSR oracle "
+        f"({time.perf_counter() - t0:.1f} s); k_hop took the host loop "
+        f"{fallbacks} times")
+
+    # 4. the poisoned mirror: the host oracle serves, no fused launch
+    fused = (PK.fused_gather_decode_bitmap_batch,
+             LK.fused_gather_decode_filter_bitmap_batch)
+    packed = TC.pack_column(enc)
+    packed.poison()
+    before = [w.launches for w in fused]
+    vs = reads["16384"]
+    for f in (None, filt):
+        t0 = time.perf_counter()
+        pac = TC.retrieve_neighbors_batch(adj, vs, PAGE_SIZE, engine=ENGINE,
+                                          filter=f)
+        ms = (time.perf_counter() - t0) * 1e3
+        require(pac_key(pac) == pending[("16384", f is not None, "none")],
+                "15: the poisoned mirror's retrieval differs")
+        log(f"15. poisoned: batch 16384 filtered={f is not None} on the "
+            f"host oracle in {ms:.1f} ms")
+    require([w.launches for w in fused] == before and packed.fallbacks > 0,
+            "15: a fused kernel launched on a poisoned mirror")
+    enc.bump_version()
+    pac = TC.retrieve_neighbors_batch(adj, vs, PAGE_SIZE, engine=ENGINE)
+    healed = enc.packed_cache
+    require(pac_key(pac) == pending[("16384", False, "none")]
+            and healed is not packed and healed.device_transfers == 1,
+            "15: bump_version did not heal the mirror")
+    require(fused[0].launches > before[0],
+            "15: kernel 1 did not launch on the healed mirror")
+    log(f"15. poison: {packed.fallbacks} fallbacks, kernels 1 and 4 "
+        f"launched 0 times; bump_version healed it (one transfer, kernel 1 "
+        f"launched again)")
+    del packed, healed, pac
+
+    # 5. the compaction, in memory, timed by stage
+    runner = CompactionRunner(adj)
+    stages = {}
+    for name in ("_merge", "_persist", "_swap"):
+        def timed(job, fn=getattr(runner, name), name=name[1:]):
+            t = time.perf_counter()
+            fn(job)
+            stages[name] = time.perf_counter() - t
+        setattr(runner, name, timed)
+    n_plans = len(adj._traversal_plans)
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    require(runner.maybe_compact() and live_delta(adj) is None,
+            "15: the policy did not compact the backlog")
+    compact_s = time.perf_counter() - t0
+    require(adj.num_edges == len(oracle.dst),
+            "15: the compacted column lost or gained rows")
+    launches5 = TK.khop_scan.launches
+    t0 = time.perf_counter()
+    ids = TC.k_hop(adj, seeds_of[64], 3, engine=ENGINE)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    mem_after = torch.cuda.memory_allocated()
+    require(np.array_equal(ids, oracle.k_hop(seeds_of[64], 3)),
+            "15: the first compacted k_hop differs from the CSR oracle")
+    require(len(adj._traversal_plans) == n_plans + 1,
+            "15: k_hop did not rebuild its plan once")
+    require(TK.khop_scan.launches > launches5,
+            "15: khop_scan did not launch after the compaction")
+    stale = [p for k, p in adj._traversal_plans.items()
+             if k[0] != enc.version]
+    require(all(not p._device and p.host_vals.size == 0 for p in stale),
+            "15: a stale traversal plan still holds its arrays")
+    require(abs(mem_after - mem_before) <= 0.05 * mem_before,
+            f"15: device memory {mem_before / 2**20:.1f} MiB before the "
+            f"compaction, {mem_after / 2**20:.1f} MiB after")
+    log(f"15. compaction: {compact_s:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in stages.items()) + f"), version "
+        f"{enc.version}; first k_hop (plan rebuild) {rebuild_s:.1f} s; "
+        f"device memory {mem_before / 2**20:.1f} MiB before, "
+        f"{mem_after / 2**20:.1f} MiB after")
+
+    fb0 = TO.traversal_stats(adj)["fallbacks"]
+    launches5 = TK.khop_scan.launches
+    t0 = time.perf_counter()
+    compacted, walls_c = mutable_reads(torch, adj, filt, mask, reads,
+                                       seeds_of, oracle, "compacted")
+    require(compacted == pending,
+            "15: a compacted read differs from its pending read")
+    require(TO.traversal_stats(adj)["fallbacks"] == fb0,
+            "15: k_hop fell back after the compaction")
+    require(TK.khop_scan.launches > launches5,
+            "15: khop_scan did not launch in the compacted reads")
+    log(f"15. compacted: the same {len(compacted)} reads equal to the CSR "
+        f"oracle and to the pending reads bit for bit "
+        f"({time.perf_counter() - t0:.1f} s); k_hop fused again")
+    for name in reads:
+        for f in (False, True):
+            log(f"15. batch {name:6s} filtered={f!s:5} host ms none / cold "
+                f"/ warm: pending " + " / ".join(
+                    f"{walls_p[(name, f, m)]:.1f}" for m in
+                    ("none", "cold", "warm")) + ", compacted " + " / ".join(
+                    f"{walls_c[(name, f, m)]:.1f}" for m in
+                    ("none", "cold", "warm")) + f" on {card}")
+    log("15. k_hop host ms pending (host loop) / compacted (fused): "
+        + "; ".join(f"{k[1]} seeds {k[2]} hops filtered={k[3]}: "
+                    f"{walls_p[k]:.1f} / {walls_c[k]:.1f}"
+                    for k in walls_p if k[0] == "k_hop"))
+    return {"ingest_ms": ingest_ms, "lookup_ms": lookup,
+            "compact_s": compact_s, "stages": stages,
+            "rebuild_s": rebuild_s, "memory": (mem_before, mem_after),
+            "walls": (walls_p, walls_c)}
+
+
+def serve_ingests(lake, arrivals):
+    """Phase 16's ingests: ``SERVE_INGESTS`` seeded batches of
+    ``SERVE_INGEST_LINKS`` links at ticks 4, 12, ..., 60, their sources
+    the requests' seed documents: ``[(tick, src, dst)]``."""
+    import numpy as np
+    rng = np.random.default_rng(16)
+    seeds = np.asarray([r.context_vertex for _, r in arrivals], np.int64)
+    return [(4 + 8 * i, seeds[rng.integers(0, len(seeds),
+                                           SERVE_INGEST_LINKS)],
+             rng.integers(0, lake.num_docs, SERVE_INGEST_LINKS))
+            for i in range(SERVE_INGESTS)]
+
+
+class IngestRecorder(Recorder):
+    """A ``Recorder`` that also keeps each ingest, in order with the
+    calls (check (b) replays both)."""
+
+    def __call__(self, vs):
+        out = self.retr(vs)
+        self.batches.append(("call", vs.copy(), [c.copy() for c in out]))
+        return out
+
+    def ingest(self, src, dst):
+        self.batches.append(("ingest", list(src), list(dst)))
+        return self.retr.ingest(src, dst)
+
+
+def serve_mutable_phase(torch, card, serve, drive):
+    """Phase 16: phase 14's serving configuration with ingests while it
+    serves, then a durable compaction of the lake's edges (see the module
+    docstring).  ``serve`` holds phase 14's model and lake, or None.
+    Returns its measurements, with the launch counts of the pipelined
+    drain alone (``drive`` sets them to 0 just before it and reads them
+    just after)."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.core.compaction import CompactionRunner
+    from repro_torch.core.delta_segment import live_delta
+    from repro_torch.core.storage import GraphStore
+    from repro_torch.ft.faults import FaultPlan
+    from repro_torch.kernels.traversal import kernel as TK
+    model, lake = serve_model_lake(torch)[:2] if serve is None else \
+        (serve["model"], serve["lake"])
+    arrivals = serve_requests(lake)
+    ingests = serve_ingests(lake, arrivals)
+    log(f"16. warm-up: {SERVE_SLOTS} requests of 2 tokens on a throwaway "
+        f"engine in {serve_warmup(torch, model, lake):.1f} ms")
+    # the drains, pipelined then sequential (P then S, both after the
+    # warm-up), each over a fresh lake, the same ingests at the same
+    # ticks; the launch counts are the pipelined drain's alone
+    g_p, retr_p = serve_graph_retriever(lake, ENGINE)
+    eng_p = serve_engine(model, retr_p, True)
+    p, launches = drive(serve_drain, torch, eng_p, serve_requests(lake),
+                        ingests=ingests)
+    g_s, retr = serve_graph_retriever(lake, ENGINE)
+    retr_s = IngestRecorder(retr)
+    eng_s = serve_engine(model, retr_s, False)
+    s = serve_drain(torch, eng_s, serve_requests(lake), ingests=ingests)
+    keys = [request_key(r) for r in eng_p.finished]
+    require(keys == [request_key(r) for r in eng_s.finished]
+            and p["shed"] == s["shed"],
+            "16 (a): the pipelined engine's requests differ from the "
+            "sequential engine's")
+    mp, ms_ = retr_p.meter, retr.meter
+    cp, cs = retr_p.page_cache, retr.page_cache
+    require((mp.nbytes, mp.nrequests) == (ms_.nbytes, ms_.nrequests),
+            f"16 (a): IOMeter {mp.nbytes}/{mp.nrequests} pipelined vs "
+            f"{ms_.nbytes}/{ms_.nrequests} sequential")
+    require((retr_p.calls, retr_p.vertices_seen, cp.hits, cp.misses) ==
+            (retr.calls, retr.vertices_seen, cs.hits, cs.misses),
+            "16 (a): the retrievers' calls or LRU counters differ")
+    # the delta plane's read counters also count the prefetches that were
+    # rolled back (the snapshot covers the meter, the LRU and the
+    # retriever's own counters); every other field must be equal
+    mut_p, mut = retr_p.stats()["mutable"], retr.stats()["mutable"]
+    spec = ("lookups", "segments_pruned")
+    require({k: v for k, v in mut_p.items() if k not in spec} ==
+            {k: v for k, v in mut.items() if k not in spec},
+            f"16 (a): the mutable plane differs: {mut_p} vs {mut}")
+    pipe = eng_p.stats()["pipeline"]
+    log(f"16a. pipelined == sequential with {len(ingests)} ingests of "
+        f"{SERVE_INGEST_LINKS} links: {len(keys)} requests, "
+        f"{len(p['shed'])} shed, IOMeter {mp.nbytes} B / {mp.nrequests} "
+        f"requests, {retr.calls} retrievals, LRU {cs.hits} / {cs.misses}; "
+        f"prefetch issued {pipe['prefetch_issued']}, hits "
+        f"{pipe['prefetch_hits']}, mis-speculations "
+        f"{pipe['mis_speculations']}; mutable {mut} (lookups pipelined "
+        f"{mut_p['lookups']})")
+    require(mut["pending_rows"] == SERVE_INGESTS * SERVE_INGEST_LINKS,
+            "16: the ingests did not all land")
+
+    # (b) a numpy retriever fed the same calls and ingests in order
+    _, retr_n = serve_graph_retriever(lake, "numpy")
+    n_calls = 0
+    for kind, a, b in retr_s.batches:
+        if kind == "ingest":
+            retr_n.ingest(a, b)
+            continue
+        for got, want in zip(b, retr_n(a)):
+            require(np.array_equal(got, want),
+                    "16 (b): a context differs from the numpy engine's")
+        n_calls += 1
+    mn = retr_n.meter
+    require((mn.nbytes, mn.nrequests) == (ms_.nbytes, ms_.nrequests)
+            and retr_n.page_cache.stats() == cs.stats(),
+            "16 (b): IOMeter or LRU differ from the numpy engine's")
+    log(f"16b. cuda retrieval == numpy on {n_calls} recorded calls with "
+        f"the {len(ingests)} ingests between them: contexts, IOMeter, LRU")
+    for name, d in (("P", p), ("S", s)):
+        rate, first, warm_rate, warm_tick = drain_rates(d)
+        log(f"16. drain {name} (run order P S, after the warm-up): "
+            f"{len(d['ticks'])} decode ticks, {d['tokens']} tokens in "
+            f"{d['wall_ms']:.1f} ms, {rate:.1f} tokens/s; first decode "
+            f"tick {first['wall_ms']:.1f} ms; warm ticks median "
+            f"{warm_tick:.3f} ms on {card}")
+
+    # the durable compaction of the sequential drain's lake
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_store_", dir=ROOT / "build")
+    try:
+        t0 = time.perf_counter()
+        g_s.save(root)
+        t_save = time.perf_counter() - t0
+        adj = retr.adj
+        plan = FaultPlan({"store.write": 1, "compact.pre_swap": 1,
+                          "compact.mid_gc": 1})
+        store = GraphStore(root, faults=plan)
+        legacy = {f"{adj.table.name}.gar", f"{adj.offsets.name}.gar"}
+        require(legacy <= set(os.listdir(root)),
+                "16: the lake's edge tables were not written")
+        runner = CompactionRunner(adj, store=store, faults=plan,
+                                  sleep=lambda _s: None)
+        t0 = time.perf_counter()
+        require(runner.compact() and live_delta(adj) is None,
+                "16: the durable compaction did not commit")
+        compact_s = time.perf_counter() - t0
+        files = set(os.listdir(root))
+        require(store.current_generation() == 1 and runner.faults_hit == 3
+                and plan.remaining() == 0,
+                f"16: generation {store.current_generation()}, "
+                f"{runner.faults_hit} faults absorbed")
+        require(not legacy & files and not any(".tmp-" in f for f in files),
+                f"16: GC left superseded files: {sorted(files)}")
+        for logical, live in ((adj.table.name, adj.table),
+                              (adj.offsets.name, adj.offsets)):
+            read = GraphStore(root).read(logical)
+            require(table_key(read) == table_key(live),
+                    f"16: {logical} read back differs from the compacted "
+                    f"pages")
+        log(f"16. durable compaction: lake written in {t_save:.1f} s, "
+            f"compacted to generation 1 in {compact_s:.2f} s through "
+            f"{runner.faults_hit} injected faults ({runner.attempts} "
+            f"attempts); GC removed the superseded files; the tables read "
+            f"back equal the compacted pages")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the next ticks' retrievals: fused k_hop again, equal to numpy
+    require(CompactionRunner(retr_n.adj).compact(),
+            "16: the numpy retriever's compaction did not commit")
+    before = TK.khop_scan.launches
+    calls = [a for kind, a, _ in retr_s.batches if kind == "call"][-4:]
+    for vs in calls:
+        for got, want in zip(retr(vs), retr_n(vs)):
+            require(np.array_equal(got, want),
+                    "16: a compacted context differs from numpy")
+    require(TK.khop_scan.launches > before,
+            "16: khop_scan did not launch after the compaction")
+    log(f"16. after the compaction: {len(calls)} retrievals equal to numpy, "
+        f"khop_scan launched {TK.khop_scan.launches - before} times")
+    return {"mis_speculations": pipe["mis_speculations"],
+            "compact_s": compact_s, "launches": launches}
+
+
+def table_key(table):
+    """A table's columns as bytes: every delta page's header and words,
+    or the plain values."""
+    import numpy as np
+    out = {}
+    for name, col in table.columns.items():
+        enc = getattr(col, "encoded", None)
+        if enc is None:
+            out[name] = np.asarray(col.read_all()).tobytes()
+        else:
+            out[name] = [(p.count, p.first_value, p.min_deltas.tobytes(),
+                          p.bit_widths.tobytes(), p.word_offsets.tobytes(),
+                          p.packed.tobytes()) for p in enc.pages]
+    return (table.num_rows, out)
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2577,9 +3131,12 @@ def main() -> int:
                       "and the entries that launch them)")
     only.add_argument("--serve", action="store_true",
                       help="run phases 1-2 and 14 only (the serving path)")
+    only.add_argument("--mutable", action="store_true",
+                      help="run phases 1-2, 15 and 16 only (the mutable "
+                      "plane over soc-LiveJournal1 and under serving)")
     args = ap.parse_args()
     graph_only = next((f for f in ("traversal", "per-dispatch", "resident",
-                                   "entries")
+                                   "entries", "mutable")
                        if getattr(args, f.replace("-", "_"))), None)
     import torch
     if not torch.cuda.is_available():
@@ -2634,12 +3191,12 @@ def main() -> int:
                 "bitmap_select": BK.bitmap_select,
                 "flash_attention": AK.flash_attention}
 
-    def drive(phase, *args):
+    def drive(phase, *args, **kwargs):
         """Run one slice phase with every launch count set to 0 just
         before it; returns its result and the counts read just after."""
         for w in wrappers.values():
             w.launches = 0
-        out = phase(*args)
+        out = phase(*args, **kwargs)
         return out, {n: w.launches for n, w in wrappers.items()}
 
     rows, counts, serve = [], [], None
@@ -2679,6 +3236,18 @@ def main() -> int:
                                                 graph_only)
         rows = graph_rows + rows
         counts += graph_counts
+    if graph_only in (None, "mutable") and not args.lm and not args.serve:
+        t0 = time.perf_counter()
+        m_launches = serve_mutable_phase(torch, card, serve,
+                                         drive)["launches"]
+        require(all(m_launches[n] for n in SERVE_MUTABLE_KERNELS),
+                f"a kernel of ingest while serving never launched in the "
+                f"pipelined drain: {m_launches}")
+        log(f"16. serve mutable: checks (a) and (b) pass, the durable "
+            f"compaction committed, launches over the pipelined drain "
+            + ", ".join(f"{n} {c}" for n, c in m_launches.items() if c)
+            + f" ({time.perf_counter() - t0:.1f} s) on {card}")
+        counts.append(m_launches)
     if not graph_only and not args.serve:
         t0 = time.perf_counter()
         lm_profile_phase(torch, lm)
@@ -2698,12 +3267,16 @@ def main() -> int:
 
 
 def graph_phases(torch, drive, wrappers, card, only=None):
-    """Phases 3-11 over the soc-LiveJournal1 graph and ``ldbc_like(40)``
-    (``only="traversal"``: phases 3, 5 and 6; ``only="per-dispatch"``:
-    phase 9; ``only="resident"``: phases 3 and 4; ``only="entries"``:
-    phases 10 and 11); returns their kernel rows and the launch counts of
-    their slice phases."""
+    """Phases 3-11 and 15 over the soc-LiveJournal1 graph and
+    ``ldbc_like(40)`` (``only="traversal"``: phases 3, 5 and 6;
+    ``only="per-dispatch"``: phase 9; ``only="resident"``: phases 3 and 4;
+    ``only="entries"``: phases 10 and 11; ``only="mutable"``: phase 15);
+    returns their kernel rows and the launch counts of their slice
+    phases."""
     adj, vt, batches, truth = build_graph()
+    if only == "mutable":
+        return [], [mutable_phases(torch, drive, adj, vt, batches, truth,
+                                   card)]
     if only == "per-dispatch":
         return per_dispatch_rows(torch, adj, vt, batches), []
     if only == "entries":
@@ -2770,8 +3343,23 @@ def graph_phases(torch, drive, wrappers, card, only=None):
 
     e_rows, e_launches = entry_phases(torch, drive, adj, truth, batches,
                                       oracle, card)
+    m_launches = mutable_phases(torch, drive, adj, vt, batches, truth, card)
     return rows + e_rows, [launches, t_launches, p_launches, l_launches,
-                           e_launches]
+                           e_launches, m_launches]
+
+
+def mutable_phases(torch, drive, adj, vt, batches, truth, card):
+    """Phase 15 (counted), last of the soc-LiveJournal1 phases since it
+    compacts the adjacency in place; returns its launch counts."""
+    t0 = time.perf_counter()
+    _, launches = drive(mutable_phase, torch, adj, vt, batches, truth, card)
+    require(all(launches[n] for n in MUTABLE_KERNELS),
+            f"a kernel of the mutable plane never launched: {launches}")
+    log(f"15. mutable: every read equal to the CSR oracle while pending "
+        f"and after the compaction, launches " + ", ".join(
+            f"{n} {c}" for n, c in launches.items() if c)
+        + f" ({time.perf_counter() - t0:.1f} s) on {card}")
+    return launches
 
 
 def entry_phases(torch, drive, adj, truth, batches, oracle, card):

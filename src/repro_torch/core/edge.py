@@ -39,9 +39,9 @@ class AdjacencyTable:
     #: size of the value-side vertex table -- the id space the fused
     #: decode->bitmap kernel scatters over; None disables the fused path.
     num_value_vertices: Optional[int] = None
-    #: mutable plane (pending ingested edges, unioned with the packed
-    #: base at dispatch time).  Not ported yet: retrieval raises
-    #: ``NotImplementedError`` when one is attached; None = write-once.
+    #: mutable plane (:class:`repro_torch.core.delta_segment.DeltaSegments`):
+    #: pending ingested edges, unioned with the packed base at dispatch
+    #: time.  Attached lazily by ``attach_delta``; None = write-once.
     delta: Optional[object] = dataclasses.field(
         default=None, repr=False, compare=False)
 

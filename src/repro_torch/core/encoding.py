@@ -83,6 +83,19 @@ def bitpack(values: np.ndarray, bit_width: int) -> np.ndarray:
     return words.astype(np.uint32)
 
 
+def bitunpack(words: np.ndarray, bit_width: int, count: int) -> np.ndarray:
+    """Inverse of :func:`bitpack`; returns ``count`` uint32 values."""
+    if bit_width == 0:
+        return np.zeros(count, dtype=np.uint32)
+    per_word = 32 // bit_width
+    w = np.asarray(words, dtype=np.uint32)
+    idx = np.arange(count, dtype=np.int64)
+    word = w[idx // per_word].astype(np.uint64)
+    shift = ((idx % per_word) * bit_width).astype(np.uint64)
+    mask = np.uint64((1 << bit_width) - 1)
+    return ((word >> shift) & mask).astype(np.uint32)
+
+
 # --------------------------------------------------------------------------
 # delta (DELTA_BINARY_PACKED-style)
 # --------------------------------------------------------------------------
@@ -115,6 +128,9 @@ class DeltaPage:
         # Physical layout cost: header (count, first) + per-miniblock
         # (min_delta varint approximated as 4B, width 1B) + packed words.
         return (12 + self.min_deltas.size * 5 + self.packed.nbytes)
+
+    def max_bit_width(self) -> int:
+        return int(self.bit_widths.max()) if self.bit_widths.size else 0
 
 def delta_encode_page(values: np.ndarray) -> DeltaPage:
     v = np.asarray(values, dtype=np.int64)
@@ -235,6 +251,18 @@ def rle_decode_bool(col: RleColumn) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
+# plain
+# --------------------------------------------------------------------------
+
+def plain_encode(values: np.ndarray) -> bytes:
+    return np.ascontiguousarray(values).tobytes()
+
+
+def plain_decode(buf: bytes, dtype: np.dtype, count: int) -> np.ndarray:
+    return np.frombuffer(buf, dtype=dtype, count=count)
+
+
+# --------------------------------------------------------------------------
 # column-level delta encode/decode over pages
 # --------------------------------------------------------------------------
 
@@ -284,6 +312,15 @@ class PackedPages:
         default_factory=dict, repr=False, compare=False)
     #: host->device transfers performed (one per device populated).
     device_transfers: int = dataclasses.field(
+        default=0, repr=False, compare=False)
+    #: set by :meth:`poison` alone (nothing in the port sets it on its
+    #: own); the dispatch layers then route to the host oracle path
+    #: (identical ids and IOMeter) until a version bump rebuilds this
+    #: object.
+    poisoned: bool = dataclasses.field(
+        default=False, repr=False, compare=False)
+    #: dispatches that fell back to the host path because of poisoning.
+    fallbacks: int = dataclasses.field(
         default=0, repr=False, compare=False)
 
     @property
@@ -353,17 +390,22 @@ class PackedPages:
             self.device_transfers += 1
         return plan
 
+    def poison(self) -> None:
+        """Mark the device mirror unusable (an explicit call: a simulated
+        transfer fault, or a caller that found the mirror corrupt):
+        consumers degrade to the host oracle; the next version bump
+        rebuilds a clean mirror.  The only way into that host route."""
+        self.poisoned = True
+
     def device_stats(self) -> Dict[str, object]:
         """The device mirror's counters, under the reference's keys.
         ``engines`` names the devices the plan was shipped to (``cpu``
-        for the ``torch`` engine, ``cuda:0`` for ``cuda``); the
-        poisoned-mirror route is the mutable plane's and not ported, so
-        ``poisoned`` is False and ``fallbacks`` 0."""
+        for the ``torch`` engine, ``cuda:0`` for ``cuda``)."""
         return {"engines": sorted(self._device_plans),
                 "transfers": self.device_transfers,
                 "version": self.version,
-                "poisoned": False,
-                "fallbacks": 0}
+                "poisoned": self.poisoned,
+                "fallbacks": self.fallbacks}
 
     def slice(self, p0: int, p1: int) -> Tuple[np.ndarray, ...]:
         """Zero-copy views of pages [p0, p1)."""
@@ -448,6 +490,21 @@ class DeltaColumn:
         decoded-page LRU key their caches on :attr:`version`, and page
         count alone cannot see a rewrite of the last partial page."""
         self.version += 1
+
+    def set_page(self, i: int, page: DeltaPage) -> None:
+        """Replace page ``i`` and invalidate every derived cache.
+
+        The row count follows the replacement (rewriting the last
+        partial page may grow or shrink the column)."""
+        self.count += page.count - self.pages[i].count
+        self.pages[i] = page
+        self.bump_version()
+
+    def append_page(self, page: DeltaPage) -> None:
+        """Append a page and invalidate every derived cache."""
+        self.pages.append(page)
+        self.count += page.count
+        self.bump_version()
 
 def build_packed(pages: "List[DeltaPage]", page_size: int,
                  version: int = 0) -> PackedPages:
@@ -592,3 +649,24 @@ def delta_decode_column(col: DeltaColumn) -> np.ndarray:
     return np.concatenate([delta_decode_page(p) for p in col.pages])
 
 
+def delta_decode_range(col: DeltaColumn, lo: int, hi: int) -> np.ndarray:
+    """Decode rows [lo, hi) touching only the pages that overlap the range
+    (the access pattern of neighbor retrieval: the ``<offset>`` index gives
+    an edge-row range, and only its pages are loaded and decoded)."""
+    if hi <= lo:
+        return np.zeros(0, np.int64)
+    ps = col.page_size
+    p0, p1 = lo // ps, (hi - 1) // ps
+    parts = [delta_decode_page(col.pages[p]) for p in range(p0, p1 + 1)]
+    joined = np.concatenate(parts)
+    return joined[lo - p0 * ps: hi - p0 * ps]
+
+
+def pages_touched(col: DeltaColumn, lo: int, hi: int) -> Tuple[int, int, int]:
+    """(first_page, last_page_exclusive, bytes) for a row range."""
+    if hi <= lo:
+        return 0, 0, 0
+    ps = col.page_size
+    p0, p1 = lo // ps, (hi - 1) // ps + 1
+    nbytes = sum(col.pages[p].nbytes() for p in range(p0, p1))
+    return p0, p1, nbytes

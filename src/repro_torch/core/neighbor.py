@@ -23,10 +23,33 @@ import os
 
 import numpy as np
 
+from .delta_segment import live_delta, merge_rows
 from .edge import AdjacencyTable
 from .pac import PAC
 from .table import DeltaIntColumn
 from .vertex import VertexTable
+
+
+def _mirror_poisoned(adj: AdjacencyTable) -> bool:
+    """True when the column's device mirror is marked poisoned (only an
+    explicit ``PackedPages.poison()`` does that): kernel paths fall back
+    to the host oracle -- ids and IOMeter are engine-identical by
+    construction, so degradation is invisible to results.  The one route
+    by which a kernel engine's reads run on the host (ROADMAP section 3).
+    A compaction (or any version bump) rebuilds the mirror and heals the
+    route: a poisoned mirror of an older version does not count, since
+    the next kernel dispatch packs the column anew (the reference goes on
+    routing to the host until something else repacks the column, so
+    there a bare ``bump_version`` does not heal)."""
+    col = adj.table[adj.value_col]
+    if not isinstance(col, DeltaIntColumn):
+        return False
+    packed = col.encoded.packed_cache
+    if packed is not None and packed.poisoned \
+            and packed.version == col.encoded.version:
+        packed.fallbacks += 1
+        return True
+    return False
 
 
 def _kernel_column(adj: AdjacencyTable):
@@ -42,12 +65,6 @@ def _kernel_column(adj: AdjacencyTable):
     return col.encoded
 
 
-def _require_write_once(adj: AdjacencyTable) -> None:
-    if adj.delta is not None:
-        raise NotImplementedError(
-            "the mutable plane (pending delta edges) is not ported")
-
-
 def decode_edge_ranges(adj: AdjacencyTable, los, his, meter=None,
                        engine: str = "cuda", qual=None) -> np.ndarray:
     """Concatenated neighbor IDs over many edge-row ranges (multiplicity
@@ -60,6 +77,8 @@ def decode_edge_ranges(adj: AdjacencyTable, los, his, meter=None,
     callers that go on to filter by that predicate may pass it.
     """
     from repro_torch.kernels.pac_decode import ops as pac_ops
+    if engine != "numpy" and _mirror_poisoned(adj):
+        engine = "numpy"  # poisoned device mirror: host oracle decodes
     if engine == "numpy" and (qual is None or not isinstance(
             adj.table[adj.value_col], DeltaIntColumn)):
         return np.asarray(
@@ -77,14 +96,29 @@ def neighbor_ids_batch(adj: AdjacencyTable, vs, meter=None,
     One vectorized offsets gather + one multi-range decode; duplicate
     vertices in ``vs`` and empty adjacencies cost nothing extra.  With
     ``unique`` the result is the sorted union; otherwise the concatenation
-    in ``vs`` order (multiplicity preserved).  ``qual`` (unique mode only)
-    pushes a predicate's qualifying hull down for statistics pruning.
+    in ``vs`` order (multiplicity preserved).
+
+    Pending delta rows (the mutable plane) are unioned in at this level,
+    so every consumer -- the k-hop host loops included -- sees ingested
+    edges immediately; delta reads are RAM-resident and charge no lake
+    I/O.  The merged per-vertex lists equal a from-scratch rebuild's.
+
+    ``qual`` (unique mode only) pushes a predicate's qualifying hull down
+    for statistics pruning -- base pages *and* delta segments outside it
+    are skipped; ids that survive still need the caller's exact filter.
+    The non-unique merge path never prunes: its per-vertex alignment
+    requires every row.
     """
-    _require_write_once(adj)
     los, his = adj.edge_ranges_batch(vs, meter)
     ids = decode_edge_ranges(adj, los, his, meter, engine,
                              qual=qual if unique else None)
-    return np.unique(ids) if unique else ids
+    delta = live_delta(adj)
+    if delta is None:
+        return np.unique(ids) if unique else ids
+    if unique:
+        return np.union1d(ids, delta.unique_ids(vs, qual))
+    dvals, dlens = delta.lookup_batch(vs)
+    return merge_rows(ids, np.maximum(his - los, 0), dvals, dlens)[0]
 
 
 def retrieve_neighbors_batch(adj: AdjacencyTable, vs,
@@ -113,16 +147,32 @@ def retrieve_neighbors_batch(adj: AdjacencyTable, vs,
     unpack plan on the card, or the per-dispatch pack route that ships
     the miss pages packed with every dispatch (``resident=False``);
     None follows ``REPRO_DEVICE_RESIDENT``.  Ids, PAC and IOMeter are the
-    same either way."""
+    same either way.
+
+    Pending delta rows are unioned into the PAC after the base dispatch,
+    filtered exactly by the predicate; they never reach a kernel.  A
+    poisoned device mirror routes the base to the host oracle."""
     vs = np.asarray(vs, np.int64)
     if engine == "numpy" and fused:
         raise ValueError("fused path requires a kernel engine (torch/cuda)")
-    _require_write_once(adj)
     if vs.size == 0:
         return PAC(target_page_size)
     if filter is not None:
         filter.charge(meter)
     los, his = adj.edge_ranges_batch(vs, meter)
+    # mutable plane: the batch's pending neighbors, zone-map-pruned by
+    # the predicate's qualifying hull then exact-filtered host-side
+    # (exact, so base-side statistics pruning can never drop a delta id).
+    # RAM-resident -- no lake I/O charged.
+    delta = live_delta(adj)
+    delta_ids = None
+    if delta is not None:
+        qual = filter.qual_range() if filter is not None else None
+        delta_ids = delta.unique_ids(vs, qual)
+        if filter is not None and delta_ids.size:
+            delta_ids = delta_ids[filter.mask_ids(delta_ids, engine)]
+    if engine != "numpy" and _mirror_poisoned(adj):
+        engine = "numpy"  # graceful degradation: host oracle serves
     if engine == "numpy":
         qual = filter.qual_range() if filter is not None else None
         ids = decode_edge_ranges(adj, los, his, meter, engine, qual=qual)
@@ -130,13 +180,16 @@ def retrieve_neighbors_batch(adj: AdjacencyTable, vs,
             if ids.size else PAC(target_page_size)
         if filter is not None:
             pac = pac.intersect(filter.pac(target_page_size))
+        if delta_ids is not None and delta_ids.size:
+            pac = pac.union(PAC.from_ids(delta_ids, target_page_size))
         return pac
     from repro_torch.kernels.pac_decode import ops as pac_ops
     return pac_ops.retrieve_pac_batch(_kernel_column(adj), los, his,
                                       target_page_size, meter, engine=engine,
                                       num_targets=adj.num_value_vertices,
                                       fused=fused, label_filter=filter,
-                                      resident=resident)
+                                      resident=resident,
+                                      delta_ids=delta_ids)
 
 
 def retrieve_neighbors(adj: AdjacencyTable, v: int,
@@ -144,7 +197,6 @@ def retrieve_neighbors(adj: AdjacencyTable, v: int,
                        meter=None,
                        engine: str = "cuda") -> PAC:
     """Definition 2: PAC of the neighbor IDs of ``v``."""
-    _require_write_once(adj)
     lo, hi = adj.edge_range(v, meter)
     if hi <= lo:
         return PAC(target_page_size)
@@ -263,7 +315,6 @@ def k_hop(adj: AdjacencyTable, seeds: np.ndarray, hops: int,
     _require_unpartitioned(partitions)
     if engine == "numpy" and fused:
         raise ValueError("fused path requires a kernel engine (torch/cuda)")
-    _require_write_once(adj)
     filts = _per_hop_filters(filter, hops)
     if fused is None:
         from repro_torch.kernels.pac_decode.ops import DEVICE_RESIDENT
@@ -273,6 +324,8 @@ def k_hop(adj: AdjacencyTable, seeds: np.ndarray, hops: int,
                  and (resident if resident is not None
                       else DEVICE_RESIDENT))
     if fused:
+        # the fused entry decides the degradation to this host loop (rows
+        # pending, a poisoned mirror) and counts it
         from repro_torch.kernels.traversal.ops import k_hop_fused
         return k_hop_fused(adj, seeds, hops, filts, meter, engine,
                            include_seeds)

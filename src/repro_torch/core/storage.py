@@ -26,6 +26,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.ft import faults as ft_faults
+
 from .encoding import DeltaColumn, DeltaPage, RleColumn
 from .table import (BoolPlainColumn, BoolRleColumn, Column, DeltaIntColumn,
                     PlainColumn, StringColumn, Table, TokensColumn)
@@ -140,16 +142,21 @@ def _col_meta_and_bufs(col: Column, w: _Writer) -> dict:
     raise TypeError(f"unsupported column type {type(col)}")
 
 
-def _atomic_write_bytes(path: str, blob: bytes) -> int:
+def _atomic_write_bytes(path: str, blob: bytes, faults=None) -> int:
     """Durable write: temp file + ``os.replace`` (atomic on POSIX).
 
     Readers never observe a torn file at ``path`` -- they see either the
-    old contents or the new ones.  A crash mid-write leaves only a
-    ``.tmp-*`` file; ``path`` itself is untouched.
+    old contents or the new ones.  A crash mid-write (exercised via the
+    ``store.write`` fault boundary, injected between the two halves of
+    the payload) leaves only a ``.tmp-*`` file that garbage collection
+    removes; ``path`` itself is untouched.
     """
     tmp = f"{path}.tmp-{os.getpid()}"
+    half = len(blob) // 2
     with open(tmp, "wb") as f:
-        f.write(blob)
+        f.write(blob[:half])
+        ft_faults.check(faults, "store.write")
+        f.write(blob[half:])
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
@@ -172,7 +179,7 @@ def table_blob(table: Table) -> bytes:
                      struct.pack("<I", len(footer)), MAGIC])
 
 
-def write_table(table: Table, path: str) -> int:
+def write_table(table: Table, path: str, faults=None) -> int:
     """Serialize ``table`` to ``path`` (.gar), atomically.
 
     Returns file size in bytes.  The container is staged as a sibling
@@ -180,7 +187,7 @@ def write_table(table: Table, path: str) -> int:
     corrupts an existing table.
     """
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    return _atomic_write_bytes(path, table_blob(table))
+    return _atomic_write_bytes(path, table_blob(table), faults)
 
 
 def _read_ref(data: bytes, ref: dict, dtype=None) -> np.ndarray:
@@ -251,20 +258,29 @@ _GEN_RE = re.compile(r"\.g\d+\.gar$")
 class GraphStore:
     """Directory layout: ``<root>/graph.yaml`` + ``<root>/<table>.gar``.
 
-    Every file lands via temp + ``os.replace``.  Readers follow
-    ``manifest.json`` when a store has one (it maps each logical table
-    name to the generation file ``<name>.g<gen>.gar`` that serves it, as
-    written by the JAX package's compaction) and read the write-once
-    ``<name>.gar`` layout otherwise.
+    Crash consistency (mutable plane): every file lands via temp +
+    ``os.replace``, and multi-file updates (compaction writing a new
+    generation of edge tables) commit through **one** atomic manifest
+    flip -- ``manifest.json`` maps each logical table name to the
+    physical generation file (``<name>.g<gen>.gar``) that serves it.
+    Readers follow the manifest when present and read the write-once
+    ``<name>.gar`` layout otherwise.  Files orphaned by a crash (staged
+    generations never committed, ``.tmp-*`` files) are removed by
+    :func:`repro_torch.core.compaction.gc.collect_garbage`.  The layout
+    is the JAX package's, so a store written by either package reads in
+    the other.
     """
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, faults=None):
         self.root = root
+        #: optional :class:`repro_torch.ft.faults.FaultPlan` threaded
+        #: into every write this store issues
+        self.faults = faults
 
     def table_path(self, name: str) -> str:
         return os.path.join(self.root, f"{name}.gar")
 
-    # -- manifest ------------------------------------------------------------
+    # -- manifest (the atomic commit point) ----------------------------------
     def manifest_path(self) -> str:
         return os.path.join(self.root, MANIFEST)
 
@@ -276,8 +292,31 @@ class GraphStore:
         except FileNotFoundError:
             return None
 
+    def current_generation(self) -> int:
+        m = self.manifest()
+        return 0 if m is None else int(m.get("generation", 0))
+
+    def commit_manifest(self, tables: Dict[str, str],
+                        generation: int) -> None:
+        """Atomically flip the manifest pointer -- the single commit
+        point of a multi-file update.  ``tables`` maps logical table
+        names to physical filenames inside the store root."""
+        blob = json.dumps({"generation": int(generation),
+                           "tables": dict(tables)},
+                          sort_keys=True).encode("utf-8")
+        os.makedirs(self.root, exist_ok=True)
+        _atomic_write_bytes(self.manifest_path(), blob, self.faults)
+
     def write(self, table: Table) -> int:
-        return write_table(table, self.table_path(table.name))
+        return write_table(table, self.table_path(table.name),
+                           self.faults)
+
+    def write_generation(self, table: Table, generation: int) -> str:
+        """Stage one generation file (``<name>.g<gen>.gar``); invisible
+        to readers until :meth:`commit_manifest` references it."""
+        fname = f"{table.name}.g{int(generation)}.gar"
+        write_table(table, os.path.join(self.root, fname), self.faults)
+        return fname
 
     def read(self, name: str) -> Table:
         m = self.manifest()

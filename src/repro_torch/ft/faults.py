@@ -10,10 +10,9 @@ plan is deterministic and replayable -- the invariant tests assert that
 serving results are bit-identical to a fault-free run for *every*
 boundary.
 
-Boundaries (the write path's crash points; the write path is the
-mutable plane's, which the port does not have yet, so nothing in the
-port checks them -- the names stay so that a plan drawn from a seed
-trips the same boundaries as the reference's):
+Boundaries (the write path's crash points, checked by
+:mod:`repro_torch.core.delta_segment`, :mod:`repro_torch.core.compaction`
+and :mod:`repro_torch.core.storage`):
 
 * ``ingest.append``      -- mid segment append, before the batch publishes
                             (an ingest batch is all-or-nothing);
@@ -47,9 +46,7 @@ and the engine keeps ticking:
                             that tick to the synchronous path -- the
                             speculation is optional work, never retried);
 * ``serve.ingest``       -- before an ingest-during-serve batch is
-                            forwarded to the mutable plane (not ported:
-                            the port's ``ServeEngine.ingest`` raises
-                            ``NotImplementedError``).
+                            forwarded to the mutable plane.
 
 ``REPRO_FAULT_SEED`` seeds :meth:`FaultPlan.from_env` -- the CI
 fault-injection matrix runs the ingest/compaction suites under several

@@ -508,7 +508,8 @@ def retrieve_pac_batch(col: DeltaColumn, los, his, target_page_size: int,
                        num_targets: Optional[int] = None,
                        fused: Optional[bool] = None,
                        label_filter=None,
-                       resident: Optional[bool] = None) -> PAC:
+                       resident: Optional[bool] = None,
+                       delta_ids=None) -> PAC:
     """Batched Definition 2: many row ranges -> one merged (unioned) PAC.
 
     Kernel engines take the fused decode->bitmap path whenever the target
@@ -526,6 +527,11 @@ def retrieve_pac_batch(col: DeltaColumn, los, his, target_page_size: int,
     ``resident`` picks the fused path's transfer regime (see
     :func:`_retrieve_pac_batch_fused`); None follows ``DEVICE_RESIDENT``.
     The host path's decode follows ``DEVICE_RESIDENT`` only.
+
+    ``delta_ids`` -- the batch's pending neighbor ids from the mutable
+    plane (already predicate-filtered by the caller) -- are unioned into
+    the returned PAC after the base dispatch: the memtable rows are
+    RAM-resident, so they cost no lake I/O and never touch a kernel.
     """
     los = np.asarray(los, np.int64)
     his = np.asarray(his, np.int64)
@@ -543,17 +549,23 @@ def retrieve_pac_batch(col: DeltaColumn, los, his, target_page_size: int,
                 raise ValueError(
                     f"filter covers {plan.count} vertices but the target "
                     f"id space has {num_targets}")
-        return _retrieve_pac_batch_fused(col, los, his, target_page_size,
-                                         int(num_targets), meter, engine,
-                                         plan, resident=resident)
-    # the same page-granular pruning hull applies on the host path (pruned
-    # pages hold no qualifying ids), so meters agree with the fused path
-    qual = label_filter.qual_range() if label_filter is not None else None
-    ids = decode_row_ranges(col, los, his, meter, engine, qual=qual)
-    pac = PAC.from_ids(np.unique(ids), target_page_size) if ids.size \
-        else PAC(target_page_size)
-    if label_filter is not None:
-        pac = pac.intersect(label_filter.pac(target_page_size, engine))
+        pac = _retrieve_pac_batch_fused(col, los, his, target_page_size,
+                                        int(num_targets), meter, engine,
+                                        plan, resident=resident)
+    else:
+        # the same page-granular pruning hull applies on the host path
+        # (pruned pages hold no qualifying ids), so meters agree with the
+        # fused path
+        qual = label_filter.qual_range() if label_filter is not None \
+            else None
+        ids = decode_row_ranges(col, los, his, meter, engine, qual=qual)
+        pac = PAC.from_ids(np.unique(ids), target_page_size) if ids.size \
+            else PAC(target_page_size)
+        if label_filter is not None:
+            pac = pac.intersect(label_filter.pac(target_page_size, engine))
+    if delta_ids is not None and len(delta_ids):
+        pac = pac.union(PAC.from_ids(np.asarray(delta_ids, np.int64),
+                                     target_page_size))
     return pac
 
 

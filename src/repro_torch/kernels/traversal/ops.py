@@ -25,9 +25,18 @@ and cache evolution match the oracle exactly; with neither attached,
 nothing but the final visited plane and the per-hop sizes cross back to
 the host, in one copy.
 
+Mutable plane: every plan covers the packed base only.  While delta rows
+are pending, or the column's device mirror is poisoned, ``k_hop_fused``
+degrades to the host loop (counted as ``fallbacks``); ``two_hop_pac``
+and ``frontier_edge_counts`` read the base only, as the reference's do,
+until a compaction folds the rows in.
+A compaction bumps the column version, so the next call builds a new
+plan; building it frees every stale plan's tensors and host arrays
+(the reference keeps them), which keeps their counters, so
+:func:`traversal_stats` still equals the reference's.
+
 Not ported: the partition plane (``sharded_arrays``, the sharded k-hop
-entry; ``REPRO_PARTITIONS > 1`` raises) and the host-loop route taken
-while delta rows are pending (an attached mutable plane raises).
+entry; ``REPRO_PARTITIONS > 1`` raises).
 """
 from __future__ import annotations
 
@@ -55,11 +64,6 @@ SEED_CLASS_MIN = 64
 
 #: pow2 floor for BI-2's padded interval vectors.
 INTERVAL_CLASS_MIN = 8
-
-
-def _kernel_column(adj) -> DeltaColumn:
-    neighbor._require_write_once(adj)
-    return neighbor._kernel_column(adj)
 
 
 def plan_supported(adj) -> bool:
@@ -105,11 +109,21 @@ class TraversalPlan:
             self.device_transfers += 1
         return plan
 
+    def release(self) -> None:
+        """Free the device tensors and host arrays of a stale plan, keeping
+        its counters for :func:`traversal_stats`."""
+        self._device.clear()
+        empty = np.zeros(0, np.int32)
+        self.host_vals = self.key_sorted = self.voff = empty
+
 
 def traversal_plan(adj, engine: str) -> TraversalPlan:
     """The adjacency's plan, built once per column version (a version
-    bump rebuilds); the build's whole-column decode runs on ``engine``."""
-    col = _kernel_column(adj)
+    bump rebuilds); the build's whole-column decode runs on ``engine``.
+    Building a new version's plan first releases every stale one (see
+    :meth:`TraversalPlan.release`): the version only moves forward, so
+    no caller asks for a stale plan again."""
+    col = neighbor._kernel_column(adj)
     key = (col.version, 0)
     plans = getattr(adj, "_traversal_plans", None)
     if plans is None:
@@ -117,6 +131,8 @@ def traversal_plan(adj, engine: str) -> TraversalPlan:
         adj._traversal_plans = plans
     plan = plans.get(key)
     if plan is None:
+        for stale in plans.values():
+            stale.release()
         n_pages = len(col.pages)
         mat = pac_ops._decode_page_matrix(col, list(range(n_pages)), engine)
         counts = np.asarray([p.count for p in col.pages], np.int64)
@@ -236,7 +252,21 @@ def k_hop_fused(adj, seeds, hops: int, filts: Sequence, meter=None,
     """Fused k-hop: the hops queued on the device with no host round trip
     between them, ids bit-identical to the host oracle
     (``core.neighbor.k_hop`` with ``fused=False``)."""
-    col = _kernel_column(adj)
+    from repro_torch.core.delta_segment import live_delta
+    if live_delta(adj) is not None or neighbor._mirror_poisoned(adj):
+        # graceful degradation, two flavors: the traversal plan covers
+        # the packed base only, so while delta rows are pending the
+        # bit-identical host loop serves (it unions the mutable plane per
+        # hop); a poisoned device mirror routes the same way.  Once a
+        # compaction drains the plane and bumps the version, the plan
+        # rebuilds.  The one place the fused route is refused
+        # (``core.neighbor.k_hop`` comes here); counted as ``fallbacks``,
+        # invisible in ids and IOMeter.
+        note_traversal_fallback(adj)
+        return neighbor.k_hop(adj, seeds, hops, meter=meter, engine=engine,
+                              include_seeds=include_seeds,
+                              filter=list(filts), fused=False)
+    col = neighbor._kernel_column(adj)
     device = pac_ops.engine_device(engine)
     plan = traversal_plan(adj, engine)
     n = plan.n_value
@@ -290,7 +320,8 @@ def two_hop_pac(adj_a, adj_b, seeds, target_page_size: int, filt=None,
     the staged host path (hop-1 decode, filter charge, hop-2 batched
     retrieval) when a meter or LRU is attached.
     """
-    col_a, col_b = _kernel_column(adj_a), _kernel_column(adj_b)
+    col_a = neighbor._kernel_column(adj_a)
+    col_b = neighbor._kernel_column(adj_b)
     device = pac_ops.engine_device(engine)
     plan_a = traversal_plan(adj_a, engine)
     plan_b = traversal_plan(adj_b, engine)
@@ -340,7 +371,7 @@ def frontier_edge_counts(adj, starts, ends, los, his, meter=None,
     expansion adds instead of ORing), one fused dispatch.  ``los``/``his``
     are the intervals' already-gathered edge-row ranges, used only to
     replay the oracle's page charges."""
-    col = _kernel_column(adj)
+    col = neighbor._kernel_column(adj)
     device = pac_ops.engine_device(engine)
     plan = traversal_plan(adj, engine)
     starts = np.asarray(starts, np.int64)

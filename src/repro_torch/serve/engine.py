@@ -49,18 +49,17 @@ per-request deadlines are enforced at tick boundaries.  An optional
 :class:`~repro_torch.serve.overload.OverloadController` degrades in
 counted, reversible steps; an attached
 :class:`~repro_torch.ft.faults.FaultPlan` injects crashes at the
-``serve.retrieval``, ``serve.prefill`` and ``serve.spec_commit``
-boundaries, which the engine survives via snapshot rewind and
-seeded-backoff retries (delays recorded, never slept).
+``serve.retrieval``, ``serve.prefill``, ``serve.spec_commit`` and
+``serve.ingest`` boundaries, which the engine survives via snapshot
+rewind and seeded-backoff retries (delays recorded, never slept);
+:meth:`ingest` forwards an edge batch to the retriever's mutable plane.
 
 Differences from the reference: no jit (``decode_step`` and ``prefill``
 are plain calls of the model, which holds its weights, so the engine takes
 no ``params``); the prefill template cache is zeroed before each use,
 since the port writes a KV cache in place; temperature > 0 slots draw from
 one ``torch.Generator`` on the model's device seeded with ``seed``, a
-stream that is not ``jax.random``'s (greedy slots are bit-identical);
-:meth:`ServeEngine.ingest` raises ``NotImplementedError`` until the
-mutable plane is ported.
+stream that is not ``jax.random``'s (greedy slots are bit-identical).
 """
 from __future__ import annotations
 
@@ -250,11 +249,28 @@ class ServeEngine:
         return self._fault_retry(attempt)
 
     def ingest(self, src, dst):
-        """Forward an edge batch to the retrieval plane's mutable graph
-        (and check the ``serve.ingest`` boundary): not ported yet."""
-        raise NotImplementedError(
-            "ingest during serving needs the mutable plane, which is not "
-            "ported")
+        """Forward an edge batch to the retrieval plane's mutable graph.
+
+        Requires an ingest-capable ``context_fn`` (e.g.
+        :class:`~repro_torch.serve.retrieval.GraphRetriever`); ingested
+        edges are visible to context retrieval from the next tick on.
+        With a fault plan attached the ``serve.ingest`` boundary is
+        checked before the batch is forwarded (the delta plane's own
+        ``ingest.append`` boundary keeps the batch all-or-nothing), and
+        the engine retries through the seeded backoff.
+        """
+        if self.context_fn is None or not hasattr(self.context_fn,
+                                                  "ingest"):
+            raise ValueError("no ingest-capable context_fn attached")
+        # getattr: tests exercise this forwarder on a bare engine shell
+        if getattr(self, "faults", None) is None:
+            return self.context_fn.ingest(src, dst)
+
+        def attempt():
+            fault_check(self.faults, "serve.ingest")
+            return self.context_fn.ingest(src, dst)
+
+        return self._fault_retry(attempt)
 
     def _clamp_admission(self, req: Request) -> None:
         """``max_len`` is the slot's hard cache-row budget: prompt rows

@@ -17,11 +17,10 @@ Two cross-tick layers ride on top:
   back out per request, so pages shared between requests are charged
   once.
 
-The JAX package's ``serve/retrieval.py`` on the port's decode, filter and
-traversal entries.  Two planes of the reference are not ported yet: the
-mutable plane (pending delta edges; :meth:`GraphRetriever.ingest` raises
-``NotImplementedError`` and :meth:`GraphRetriever.mutation_epoch` counts no
-pending rows) and the partition plane (``partitions > 1`` raises).  The
+The JAX package's ``serve/retrieval.py`` on the port's decode, filter,
+traversal and mutable-plane entries: :meth:`GraphRetriever.ingest` lands
+edges in the adjacency's delta segments, served from the next call on.
+The partition plane is not ported yet (``partitions > 1`` raises).  The
 engine defaults to ``cuda``, the port's rule, and raises without a card.
 """
 from __future__ import annotations
@@ -30,10 +29,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.delta_segment import attach_delta, live_delta, merge_rows
 from repro_torch.core.edge import AdjacencyTable
 from repro_torch.core.labels import Cond, LabelFilter
 from repro_torch.core.neighbor import (_require_unpartitioned,
-                                       _require_write_once,
                                        decode_edge_ranges, k_hop)
 from repro_torch.core.page_cache import DecodedPageCache, attach_page_cache
 from repro_torch.core.table import DeltaIntColumn, TokensColumn
@@ -80,7 +79,8 @@ class GraphRetriever:
         self.deep_pool_last = 0  # deep-context pool size of the last tick
         self.calls = 0          # batched retrievals issued (one per tick)
         self.vertices_seen = 0  # requests served across all calls
-        self.ingest_calls = 0   # ingest() batches accepted (none yet)
+        self.ingest_calls = 0   # ingest() batches accepted
+        self.ingest_rows = 0    # edges ingested across all batches
         self.knob_changes = 0   # overload-ladder knob turns (set_knob)
         if filter_cond is not None and filter_vt is None:
             raise ValueError("filter_cond requires filter_vt (the "
@@ -116,12 +116,26 @@ class GraphRetriever:
         self.vertices_seen += int(vs.size)
         if vs.size == 0:
             return []
-        _require_write_once(self.adj)
         los, his = self.adj.edge_ranges_batch(vs, self.meter)
         his = np.minimum(his, los + self.max_neighbors)
         nbrs = decode_edge_ranges(self.adj, los, his, self.meter,
                                   self.engine)
         lengths = np.maximum(his - los, 0)
+        delta = live_delta(self.adj)
+        if delta is not None:
+            # mutable plane: merge each request's pending delta neighbors
+            # into its (sorted) base list, then keep the first
+            # ``max_neighbors`` of the merge -- correct because the first
+            # k of a merge of sorted lists draws only from the first k of
+            # each input, and the base list is already clamped to k above
+            dvals, dlens = delta.lookup_batch(vs)
+            if dvals.size:
+                allv, counts = merge_rows(nbrs, lengths, dvals, dlens)
+                starts = np.concatenate(
+                    [[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+                within = np.arange(allv.size) - np.repeat(starts, counts)
+                nbrs = allv[within < self.max_neighbors]
+                lengths = np.minimum(counts, self.max_neighbors)
         if self.label_filter is not None and nbrs.size:
             if not self._filter_charged:
                 # charged once: the bitmap is evaluated at first use and
@@ -229,19 +243,29 @@ class GraphRetriever:
     def mutation_epoch(self) -> Tuple[int, int, int]:
         """Graph-state fingerprint a prefetched retrieval is only valid
         under: the adjacency column's write version, the mutable plane's
-        pending row count (0: that plane is not ported), and the ingests
-        routed through this retriever.  Any movement between prefetch and
-        consumption means the speculative contexts could be stale -- the
-        engine falls back."""
+        pending row count, and the ingests routed through this retriever.
+        Any movement between prefetch and consumption means the
+        speculative contexts could be stale -- the engine falls back."""
         version = (self._cache_col.encoded.version
                    if self._cache_col is not None else 0)
-        return (version, 0, self.ingest_calls)
+        delta = live_delta(self.adj)
+        pending = delta.pending_rows() if delta is not None else 0
+        return (version, pending, self.ingest_calls)
 
     def ingest(self, src, dst):
-        """Ingest into the adjacency's mutable plane: not ported yet."""
-        raise NotImplementedError(
-            "the mutable plane (ingest of pending delta edges) is not "
-            "ported")
+        """Ingest an edge batch into the adjacency's mutable plane.
+
+        Edges land in the delta segments (RAM-resident memtable) and are
+        served from the very next tick, unioned with the packed base at
+        dispatch time; a later compaction folds them into new packed
+        pages without interrupting serving.  Returns the
+        :class:`~repro_torch.core.delta_segment.DeltaSegments` plane.
+        """
+        delta = attach_delta(self.adj)
+        delta.ingest(src, dst)
+        self.ingest_calls += 1
+        self.ingest_rows += int(np.asarray(src).size)
+        return delta
 
     def stats(self) -> Dict[str, object]:
         """Per-tick batching + decoded-page cache + device-mirror
@@ -255,6 +279,13 @@ class GraphRetriever:
                           "changes": self.knob_changes}
         if self.page_cache is not None:
             s["page_cache"] = self.page_cache.stats()
+        delta = getattr(self.adj, "delta", None)
+        if delta is not None:
+            # mutable plane: pending rows, zone-map pruning, compactions
+            mut = dict(delta.stats())
+            mut["ingest_calls"] = self.ingest_calls
+            mut["ingest_rows"] = self.ingest_rows
+            s["mutable"] = mut
         if self._cache_col is not None:
             packed = self._cache_col.encoded.packed_cache
             if packed is not None and packed.device_transfers:
@@ -281,16 +312,19 @@ class GraphRetriever:
 
     def _pruning_stats(self) -> "Dict[str, object] | None":
         """Page zone maps that dropped pages before staging
-        (``pages_*`` / ``io_saved_bytes``), under the reference's section
-        with its partition and delta-segment counts, which are 0 here
-        (neither plane is ported).  ``None`` until a predicate pushes
-        down."""
+        (``pages_*`` / ``io_saved_bytes``) and the mutable plane's segment
+        zone maps that skipped pending-row segments
+        (``delta_segments_pruned``), under the reference's section with
+        its partition count, which is 0 here (the partition plane is not
+        ported).  ``None`` until a predicate pushes down."""
         if self._cache_col is None:
             return None
         out: Dict[str, object] = \
             dict(self._cache_col.encoded.prune_stats.as_dict())
         out["partitions_stats_pruned"] = 0
-        out["delta_segments_pruned"] = 0
+        delta = getattr(self.adj, "delta", None)
+        out["delta_segments_pruned"] = \
+            delta.segments_pruned if delta is not None else 0
         if not any(out.values()):
             return None
         return out

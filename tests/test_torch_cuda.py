@@ -4,8 +4,10 @@ card, at the CPU tests' small sizes.
 Each CUDA kernel is held bit for bit against its plain PyTorch version on
 the same CUDA tensors, and the cuda engine's ``k_hop``, ``two_hop_pac``,
 ``frontier_edge_counts``, per-dispatch retrieval, the single-range,
-RLE-label and selection entries and numeric-filtered retrieval against
-the numpy oracle (ids, counts, values, PACs, IOMeter and LRU counters).
+RLE-label and selection entries, numeric-filtered retrieval and the
+mutable plane's reads (rows pending, page writes, a poisoned mirror and
+its heal, a compaction) against the numpy oracle (ids, counts, values,
+PACs, IOMeter and LRU counters).
 The flash attention kernel is held against its plain version at every
 head dim it is built for, in float32 and bfloat16, and a reduced LM's
 flash route against its plain route.
@@ -963,3 +965,144 @@ def test_decode_step_takes_no_host_sync(dev):
         torch.cuda.set_sync_debug_mode("default")
     assert eng.cache["index"].tolist() == [5, 33, 34, 42]
     assert bool(torch.isfinite(logits).all())
+
+
+# ------------------------------ the mutable plane ----------------------------
+
+def _mutable_graph(seed=17):
+    src, dst = powerlaw_graph(N, 6, seed=seed)
+    return TC.build_adjacency(src, dst, N, N, TC.BY_SRC, TC.ENC_GRAPHAR,
+                              page_size=PAGE)
+
+
+def _pending_reads(adj, vt, engine, cache):
+    """Every read the mutable plane unions: PACs (fused, both filtered
+    and not), ids unique and per vertex, ``k_hop`` -- with IOMeter and
+    LRU counters."""
+    from repro_torch.core.delta_segment import live_delta
+    enc = adj.table["<dst>"].encoded
+    vs = np.random.default_rng(3).integers(0, N, 40)
+    filt = TC.LabelFilter(vt, TC.L("A") | ~TC.L("B"))
+    runs = []
+    for c in (None, cache, cache):
+        enc.page_cache = c
+        meter = TC.IOMeter()
+        pacs = [TC.retrieve_neighbors_batch(adj, vs, 512, meter,
+                                            engine=engine, filter=f)
+                for f in (None, filt)]
+        ids = [TC.neighbor_ids_batch(adj, vs, meter, engine=engine,
+                                     unique=u) for u in (True, False)]
+        hop = TC.k_hop(adj, vs[:5], 2, meter, engine=engine, filter=filt)
+        runs.append(([p.to_ids().tolist() for p in pacs],
+                     [i.tolist() for i in ids], hop.tolist(), meter.nbytes,
+                     meter.nrequests, c and (c.hits, c.misses)))
+    enc.page_cache = None
+    d = live_delta(adj)
+    return runs, d and d.stats()
+
+
+def test_pending_rows_cuda_equals_numpy(dev, graph):
+    from repro_torch.core.delta_segment import ingest_edges
+    _, vt = graph
+    out, adjs, launched = {}, {}, {}
+    for engine in ("cuda", "numpy"):
+        adj = adjs[engine] = _mutable_graph()
+        rng = np.random.default_rng(5)
+        ingest_edges(adj, rng.integers(0, N, 300), rng.integers(0, N, 300))
+        wrappers = (PK.fused_gather_decode_bitmap_batch,
+                    LK.fused_gather_decode_filter_bitmap_batch, K.khop_scan)
+        before = [w.launches for w in wrappers]
+        out[engine] = _pending_reads(adj, vt, engine,
+                                     TC.DecodedPageCache(24))
+        launched[engine] = [w.launches - b for w, b in zip(wrappers, before)]
+    assert out["cuda"] == out["numpy"]
+    # kernels 1 and 4 served the base; k_hop took the host loop
+    assert launched["cuda"][0] > 0 and launched["cuda"][1] > 0
+    assert launched["cuda"][2] == 0
+    assert TO.traversal_stats(adjs["cuda"])["fallbacks"] == 3
+
+
+def test_page_writes_reship_the_mirror(dev, graph):
+    """``set_page`` (same count, other ids) and ``append_page`` (rows past
+    the offsets) re-key the packed column: a fresh plan ships once and
+    kernels 1 and 4 equal numpy on the rewritten pages."""
+    from repro_torch.core.encoding import delta_decode_page, delta_encode_page
+    _, vt = graph
+    adj = _mutable_graph(seed=19)
+    enc = adj.table["<dst>"].encoded
+    vs = np.random.default_rng(4).integers(0, N, 40)
+    filt = TC.LabelFilter(vt, TC.L("A") & ~TC.L("B"))
+    TC.retrieve_neighbors_batch(adj, vs, 512, engine="cuda")
+    first = enc.packed_cache
+    rng = np.random.default_rng(8)
+    for write in range(2):
+        if write == 0:
+            i = int(adj.offsets["<offset>"].values[vs[0]] // PAGE)
+            count = enc.pages[i].count
+            enc.set_page(i, delta_encode_page(
+                np.sort(rng.integers(0, N, count))))
+        else:
+            enc.append_page(delta_encode_page(rng.integers(0, N, 77)))
+            assert delta_decode_page(enc.pages[-1]).size == 77
+        launches = (PK.fused_gather_decode_bitmap_batch.launches,
+                    LK.fused_gather_decode_filter_bitmap_batch.launches)
+        for f in (None, filt):
+            got = TC.retrieve_neighbors_batch(adj, vs, 512, engine="cuda",
+                                              filter=f)
+            want = TC.retrieve_neighbors_batch(adj, vs, 512, engine="numpy",
+                                               filter=f)
+            assert got == want
+        packed = enc.packed_cache
+        assert packed is not first and packed.version == enc.version
+        assert packed.device_transfers == 1
+        assert PK.fused_gather_decode_bitmap_batch.launches > launches[0]
+        assert LK.fused_gather_decode_filter_bitmap_batch.launches > \
+            launches[1]
+        first = packed
+
+
+def test_poisoned_mirror_falls_back_and_heals(dev, graph):
+    adj = _mutable_graph(seed=23)
+    enc = adj.table["<dst>"].encoded
+    vs = np.random.default_rng(6).integers(0, N, 40)
+    want = TC.retrieve_neighbors_batch(adj, vs, 512, engine="numpy")
+    assert TC.retrieve_neighbors_batch(adj, vs, 512, engine="cuda") == want
+    packed = enc.packed_cache
+    packed.poison()
+    before = PK.fused_gather_decode_bitmap_batch.launches
+    assert TC.retrieve_neighbors_batch(adj, vs, 512, engine="cuda") == want
+    assert PK.fused_gather_decode_bitmap_batch.launches == before
+    assert packed.fallbacks == 1 and packed.device_stats()["poisoned"]
+    enc.bump_version()                           # heals: a fresh mirror
+    assert TC.retrieve_neighbors_batch(adj, vs, 512, engine="cuda") == want
+    assert PK.fused_gather_decode_bitmap_batch.launches > before
+    assert enc.packed_cache is not packed
+    assert enc.packed_cache.device_transfers == 1
+
+
+def test_compaction_then_fused_k_hop_equals_host_loop(dev, graph):
+    from repro_torch.core.compaction import CompactionRunner
+    from repro_torch.core.delta_segment import ingest_edges
+    _, vt = graph
+    adj = _mutable_graph(seed=29)
+    filt = TC.LabelFilter(vt, TC.L("A") | ~TC.L("B"))
+    seeds = np.random.default_rng(9).integers(0, N, 6)
+    TC.k_hop(adj, seeds, 2, engine="cuda")       # the write-once plan
+    rng = np.random.default_rng(10)
+    ingest_edges(adj, rng.integers(0, N, 400), rng.integers(0, N, 400))
+    pending = [TC.k_hop(adj, seeds, h, engine="cuda", filter=filt)
+               for h in (2, 3)]
+    assert CompactionRunner(adj).compact()
+    before = K.khop_scan.launches
+    for h, p in zip((2, 3), pending):
+        got = TC.k_hop(adj, seeds, h, engine="cuda", filter=filt)
+        want = TC.k_hop(adj, seeds, h, engine="numpy", filter=filt,
+                        fused=False)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, p)
+    assert K.khop_scan.launches == before + 3 + 4  # seeds, then hops
+    stats = TO.traversal_stats(adj)
+    assert stats["fallbacks"] == 2 and stats["dispatches"] == 3
+    stale = [p for k, p in adj._traversal_plans.items()
+             if k[0] != adj.table["<dst>"].encoded.version]
+    assert len(stale) == 1 and not stale[0]._device

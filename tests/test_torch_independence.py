@@ -48,6 +48,25 @@ off = np.asarray(adj.offsets["<offset>"].values, np.int64)
 counts = frontier_edge_counts(adj, starts, ends, off[starts], off[ends],
                               engine="torch")
 assert counts.sum() > 0
+# the mutable plane: an ingest, reads with rows pending, a durable
+# compaction into a temporary store, reads after it
+import tempfile
+from repro_torch.core.compaction import CompactionRunner
+from repro_torch.core.delta_segment import ingest_edges, live_delta
+from repro_torch.core.storage import GraphStore
+rng = np.random.default_rng(3)
+ingest_edges(adj, rng.integers(0, n, 200), rng.integers(0, n, 200))
+pending = TC.k_hop(adj, [1, 2], 2, engine="torch", filter=filt)
+assert TC.retrieve_neighbors_batch(adj, np.arange(40), 256,
+                                   engine="torch").count() > 0
+with tempfile.TemporaryDirectory() as root:
+    store = GraphStore(root)
+    store.write(adj.table)
+    store.write(adj.offsets)
+    assert CompactionRunner(adj, store=store).compact()
+    assert store.current_generation() == 1 and live_delta(adj) is None
+assert (TC.k_hop(adj, [1, 2], 2, engine="torch", filter=filt)
+        == pending).all()
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print("LOADED", bad)

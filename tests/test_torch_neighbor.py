@@ -151,10 +151,6 @@ def test_unported_routes_raise(graphs, monkeypatch):
     monkeypatch.setenv("REPRO_PARTITIONS", "4")
     with pytest.raises(NotImplementedError, match="partition"):
         TC.retrieve_neighbors_batch(adj, vs, TPS, engine="torch")
-    monkeypatch.delenv("REPRO_PARTITIONS")
-    monkeypatch.setattr(adj, "delta", object())
-    with pytest.raises(NotImplementedError, match="mutable"):
-        TC.retrieve_neighbors_batch(adj, vs, TPS, engine="torch")
 
 
 def test_words_pool_double_buffers(graphs):

@@ -9,11 +9,12 @@ both packages build from one seed.
   part.  IOMeter and ``stats()`` counters are equal.
 * Pipelined against sequential, bit for bit (the JAX package's
   ``test_serve_pipeline.py`` at one partition), mis-speculation on a queue
-  change and on a ``bump_version`` of the adjacency column between two
-  ticks, the admission clamps, the prefill template reused by a shorter
-  group, a sampled stream under a shared logits stub, and
-  ``test_serve_chaos.py``'s two cases without ingest at the three serve
-  boundaries.
+  change, on a ``bump_version`` of the adjacency column and on an ingest
+  between two ticks, the admission clamps, the prefill template reused by
+  a shorter group, a sampled stream under a shared logits stub, and
+  ``test_serve_chaos.py``: its two cases at the four serve boundaries with
+  an ingest mid-drain, and an ingest under the ``serve.ingest`` fault
+  landing exactly once, as the reference's does.
 * The vector-index cache write drops positions past the cache's end
   without a host sync, as the reference's ``mode="drop"`` scatter.
 """
@@ -44,9 +45,6 @@ MAX_LEN = 96
 #: than this apart
 MARGIN = 1e-4
 SEED = int(os.environ.get("REPRO_FAULT_SEED", "1"))
-#: the boundaries the port checks (``serve.ingest`` waits for the
-#: mutable plane)
-BOUNDARIES3 = SERVE_BOUNDARIES[:3]
 
 
 def _retrievers(jeng, teng, filtered=False, **kw):
@@ -202,6 +200,24 @@ def test_mis_speculation_on_column_version(monkeypatch):
     assert retr_p.mutation_epoch()[0] == 1
     p = eng_p.stats()["pipeline"]
     assert p["mis_speculations"] >= 1 and p["prefetch_issued"] >= 1
+
+
+def test_mis_speculation_on_graph_mutation():
+    """An ingest between prefetch and consumption moves the mutation
+    epoch (pending rows and ingest calls): the engine restores and falls
+    back synchronously, bit-identical to a sequential run with the same
+    interleaving."""
+    def ingest(eng, retr, reqs):
+        eng.ingest([0], [1])
+
+    eng_s, retr_s, m_s, fin_s = _one_slot(False, ingest)
+    eng_p, retr_p, m_p, fin_p = _one_slot(True, ingest)
+    assert len(fin_p) == 2
+    _assert_identical(fin_s, fin_p, m_s, m_p, retr_s, retr_p)
+    assert retr_p.mutation_epoch() == (0, 1, 1)
+    assert retr_p.stats()["mutable"] == retr_s.stats()["mutable"]
+    p = eng_p.stats()["pipeline"]
+    assert p["mis_speculations"] >= 1
 
 
 def test_mis_speculation_on_queue_change():
@@ -474,6 +490,16 @@ def _chaos_requests(adj, n):
                     tenants=("prod", "batch"))
 
 
+def _chaos_ingest(adj, reqs):
+    """An edge batch rooted at the two highest vertices no request names
+    as its context: the mutation epoch moves (prefetches roll back) but no
+    request's context changes, so the no-ingest oracle stays valid."""
+    ctx = {r.context_vertex for r in reqs}
+    free = [v for v in range(adj.num_key_vertices - 1, -1, -1)
+            if v not in ctx]
+    return free[:2], [0, 1]
+
+
 @pytest.fixture(scope="module")
 def oracles():
     """Unthrottled, sequential, fault-free ground truth per request id,
@@ -505,7 +531,7 @@ def _check_against_oracle(fin, oracle):
         assert r.context_tokens == o.context_tokens
 
 
-@pytest.mark.parametrize("boundary", BOUNDARIES3)
+@pytest.mark.parametrize("boundary", SERVE_BOUNDARIES)
 @pytest.mark.parametrize("engine", ["numpy", "torch"])
 def test_chaos_boundary_bit_identical_or_typed(oracles, engine, boundary):
     tm = models()[3]
@@ -523,8 +549,12 @@ def test_chaos_boundary_bit_identical_or_typed(oracles, engine, boundary):
     reqs = _chaos_requests(retr.adj, 10)
     for r in reqs:
         assert eng.submit(r).admitted
+    eng.step()
+    eng.step()
+    eng.ingest(*_chaos_ingest(retr.adj, reqs))    # mid-drain mutation
     eng.run_until_drained()
-    fin = eng.finished
+    fin = eng.finished                            # with the manual ticks
+    assert retr.ingest_calls == 1
 
     # none lost, none double-answered
     ids = sorted(r.request_id for r in fin)
@@ -552,16 +582,18 @@ def test_chaos_boundary_bit_identical_or_typed(oracles, engine, boundary):
 
 @pytest.mark.parametrize("engine", ["numpy", "torch"])
 def test_chaos_all_boundaries_with_deadlines(oracles, engine):
-    """The three serve boundaries armed together from a seeded plan, rate
-    limits and deadlines live: every submitted request ends in exactly
-    one typed bucket (OK / DEADLINE_EXCEEDED / REJECTED), the OK ones
-    bit-identical to the oracle; the plan equals the reference's."""
+    """The four serve boundaries armed together from a seeded plan, an
+    ingest mid-drain, rate limits and deadlines live: every submitted
+    request ends in exactly one typed bucket (OK / DEADLINE_EXCEEDED /
+    REJECTED), the OK ones bit-identical to the oracle; the plan equals
+    the reference's."""
     tm = models()[3]
-    plan = FaultPlan.from_seed(SEED, boundaries=BOUNDARIES3, max_trips=2)
+    plan = FaultPlan.from_seed(SEED, boundaries=SERVE_BOUNDARIES,
+                               max_trips=2)
     assert plan.trips == JFaultPlan.from_seed(
-        SEED, boundaries=BOUNDARIES3, max_trips=2).trips
+        SEED, boundaries=SERVE_BOUNDARIES, max_trips=2).trips
     if not plan.trips:
-        plan = FaultPlan({BOUNDARIES3[0]: 1})
+        plan = FaultPlan({SERVE_BOUNDARIES[0]: 1})
     retr = _chaos_retriever(engine)
     tenants = [TenantConfig("prod", weight=3, max_queue=64),
                TenantConfig("batch", weight=1, rate=2.0, burst=6.0,
@@ -573,8 +605,10 @@ def test_chaos_all_boundaries_with_deadlines(oracles, engine):
     admitted, rejected = [], []
     for r in reqs:
         (admitted if eng.submit(r).admitted else rejected).append(r)
+    eng.step()
+    eng.ingest(*_chaos_ingest(retr.adj, reqs))
     eng.run_until_drained()
-    fin = eng.finished
+    fin = eng.finished                            # with the manual tick
 
     fin_ids = [r.request_id for r in fin]
     rej_ids = [r.request_id for r in eng.rejected]
@@ -597,14 +631,25 @@ def test_chaos_all_boundaries_with_deadlines(oracles, engine):
                for t in ts.values()) == len(rejected)
 
 
-def test_ingest_raises_until_the_mutable_plane():
-    retr = _chaos_retriever("numpy")
-    eng = TE.ServeEngine(models()[3], max_slots=1, max_len=MAX_LEN,
-                         context_fn=retr,
-                         faults=FaultPlan({"serve.ingest": 2}))
-    with pytest.raises(NotImplementedError, match="mutable plane"):
-        eng.ingest([0], [1])
-    assert eng.fault_hits == {} and retr.ingest_calls == 0
+def test_chaos_ingest_fault_preserves_batch_atomicity():
+    """A ``serve.ingest`` injection happens *before* the delta-plane
+    append: after the retries the batch lands exactly once -- the epoch
+    moved once, no duplicate rows -- in both packages alike."""
+    out = []
+    jr, tr = _retrievers("numpy", "numpy")
+    for pkg, plan, retr in ((JE, JFaultPlan, jr), (TE, FaultPlan, tr)):
+        kw = dict(max_slots=2, max_len=MAX_LEN, eos_id=-1, context_fn=retr,
+                  faults=plan({"serve.ingest": 2}))
+        eng = (JE.ServeEngine(models()[1], models()[2], **kw)
+               if pkg is JE else TE.ServeEngine(models()[3], **kw))
+        n = retr.adj.num_key_vertices
+        delta = eng.ingest([n - 1, n - 2], [0, 1])
+        assert eng.fault_hits.get("serve.ingest", 0) == 2
+        assert retr.ingest_calls == 1            # once, not once a retry
+        assert delta.pending_rows() == 2
+        out.append((eng.fault_hits, eng.fault_backoff_s, delta.stats(),
+                    retr.mutation_epoch()))
+    assert out[0] == out[1]
 
 
 # ------------------------- the sync-free cache write -------------------------
