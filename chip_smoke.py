@@ -4,7 +4,9 @@
 Run from the root of the repository:  python3 chip_smoke.py
 (``--lm`` runs phases 1-2, 12-13 and the LM profile only; ``--serve``
 phases 1-2 and 14, the serving path; ``--mutable`` phases 1-2, the
-soc-LiveJournal1 set-up, 15 and 16, the mutable plane; ``--traversal``
+soc-LiveJournal1 set-up, 15 and 16, the mutable plane; ``--partitions``
+phases 1-2, the soc-LiveJournal1 set-up and 17, the partition plane, its
+oracle then from the numpy engine; ``--traversal``
 phases 1-3, 5 and 6, which hold and time kernels 3 and 5 and drive the
 traversal path that launches them; ``--per-dispatch`` phases 1-2, the
 soc-LiveJournal1 set-up and phase 9, which hold and time kernels 8-10,
@@ -214,14 +216,46 @@ process; the LM profile runs last):
      warm-up engine runs first (phase 14's), then the drains in the order
      P S; kernels 2, 3 and 5 must have launched in the pipelined drain
      (the counts are its own);
+ 17. partitions (after phase 11, before 15, on the soc-LiveJournal1
+     adjacency): (a) the single-card tail: phase 4's batches of 1024 and
+     16384, unfiltered and ``(L0 & L1) | ~L2``, no cache and a 4096-page
+     LRU cold and warm, first on the monolithic column (timed), then with
+     the column in 8 partitions (``partition_column``); each PAC and
+     IOMeter equal to phase 4's numpy oracle (the numpy engine's when
+     phase 4 did not run), the LRU counters to the numpy engine's over the
+     partitioned column; host ms of each partitioned batch beside the
+     monolithic one's; (b) the partitioned traversal plan (timed), then
+     ``k_hop`` from 1, 8 and 64 seeds at 2 and 3 hops, unfiltered and
+     with the per-hop list ``[None, filt, ...]``, with a meter, equal to
+     the host-loop oracle (ids and IOMeter), ``two_hop_pac`` and
+     ``frontier_edge_counts`` equal to phase 5's oracles; (c) the
+     multi-device tail (``pac_decode.ops._devices`` replaced by a mesh,
+     ``SHARD_MIN_PAGES`` 0) on meshes naming the card 8 times and 4 times
+     (two partitions an entry), and over the real cards when there are
+     several: (a)'s batch-16384 cases, the page-matrix decode of batch
+     1024 and (b)'s ``k_hop`` cases equal to the same oracles, each call
+     one launch of kernel 1, 4 or 2 per mesh entry (never one per
+     partition) and, per hop, one expansion per entry and one
+     ``rt_merge_hop``; (d) statistics pruning on the community-local graph
+     of ``benchmarks/bench_partition.py:_fixture(local=True)`` (2^20
+     vertices of degree 16, page 2048, ``HOT`` the first quarter of the
+     ids): batches of 1024 and 16384 filtered by ``L("HOT")`` at 8
+     partitions, ids equal to the numpy oracle on the monolithic column,
+     IOMeter equal to the numpy engine's over the partitions and no larger
+     than the monolithic column's, ``stats_pruned`` above 0, pages decoded
+     beside the monolithic count.  Device memory before and after; the
+     column is left monolithic for phase 15.  Then (uncounted) the sharded
+     k-hop's launches against their plain versions at the 8-entry shape:
+     ``seed_words``, one entry's ``expand_words`` and ``rt_merge_hop``,
+     each timed beside its bound;
  12p. lm profile: ``torch.profiler`` over one forward, prefill and decode
      step of the bf16 model: device busy ms by kernel, idle share against
      phase 12's unprofiled host wall; then (14p) 20 ticks of phase 14's
      pipelined engine on a fresh lake, every request submitted at once,
      busy and idle share against phase 14's unprofiled median warm tick.
 Every launch count is set to 0 just before each of phases 4, 5, 7, 8, 10,
-12 and 15, phase 14's P1 drain and phase 16's pipelined drain, and read
-just after; a kernel's ``launches`` is the sum over the nine.
+12, 15 and 17, phase 14's P1 drain and phase 16's pipelined drain, and
+read just after; a kernel's ``launches`` is the sum over the ten.
 The card's name and power limit, then the kernel table as JSON, come on
 the lines before the last; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -314,6 +348,17 @@ MUTABLE_KERNELS = ("gather_decode", "fused_gather_decode_bitmap_batch",
 #: ..., 60; the kernels its pipelined drain must launch
 SERVE_INGESTS, SERVE_INGEST_LINKS = 8, 512
 SERVE_MUTABLE_KERNELS = ("gather_decode", "cond_bitmap", "khop_scan")
+#: the partition plane (phase 17): the soc-LiveJournal1 column in PARTS
+#: partitions, its batches of 1024 and 16384, and the community-local graph
+#: of benchmarks/bench_partition.py:_fixture(local=True) at 2^20 vertices
+#: of degree 16; the kernels the phase must launch
+PARTS = 8
+PART_BATCHES = (1024, 16384)
+LOCAL_VERTICES, LOCAL_DEGREE = 1 << 20, 16
+PARTITION_KERNELS = ("gather_decode", "fused_gather_decode_bitmap_batch",
+                     "cond_bitmap", "fused_gather_decode_filter_bitmap_batch",
+                     "khop_scan", "two_hop", "count_hop", "seed_words",
+                     "expand_words", "merge_hop")
 
 
 def log(msg: str) -> None:
@@ -3095,6 +3140,506 @@ def serve_mutable_phase(torch, card, serve, drive):
             "compact_s": compact_s, "launches": launches}
 
 
+# --------------------------------------------------------------------------
+# phase 17: the partition plane
+# --------------------------------------------------------------------------
+
+def partition_runs(torch, adj, vt, batches, oracle, tag, lru_oracle=None):
+    """Phase 17's retrieval configurations on the current partitioning:
+    batches of 1024 and 16384 (``PART_BATCHES``), unfiltered and ``(L0 &
+    L1) | ~L2``, no cache, then a 4096-page LRU cold and warm, one run
+    each.  PAC and IOMeter are held against ``oracle`` (the monolithic
+    numpy engine's), the LRU counters against ``lru_oracle`` (the numpy
+    engine's over the same partitioned column: filled when None).
+    Returns ``{key: host ms}`` and the LRU oracle."""
+    import repro_torch.core as TC
+    from repro_torch.core.page_cache import DecodedPageCache
+    enc = adj.table["<dst>"].encoded
+    filt = TC.LabelFilter(vt, (TC.L("L0") & TC.L("L1")) | ~TC.L("L2"))
+    fill = lru_oracle is None
+    lru_oracle = {} if fill else lru_oracle
+    times = {}
+
+    def run(engine, vs, f, cache):
+        enc.page_cache = cache
+        meter = TC.IOMeter()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pac = TC.retrieve_neighbors_batch(adj, vs, PAGE_SIZE, meter,
+                                          engine=engine, filter=f)
+        torch.cuda.synchronize()
+        return (pac_key(pac), meter.nbytes, meter.nrequests,
+                None if cache is None else
+                (cache.hits, cache.misses, cache.evictions)), \
+            (time.perf_counter() - t0) * 1e3
+
+    for b in PART_BATCHES:
+        for f in (None, filt):
+            run(ENGINE, batches[b], f, None)  # untimed: placements, planes
+            caches = {ENGINE: DecodedPageCache(CACHE_PAGES),
+                      "numpy": DecodedPageCache(CACHE_PAGES)}
+            for mode in ("none", "cold", "warm"):
+                key = (b, f is not None, mode)
+                cache = None if mode == "none" else caches[ENGINE]
+                got, ms = run(ENGINE, batches[b], f, cache)
+                times[key] = ms
+                require(got[:3] == oracle[key][0][:3],
+                        f"{tag}: batch {b} filter={f is not None} {mode}: "
+                        f"PAC or IOMeter differs from the numpy oracle")
+                if mode != "none":
+                    if fill:
+                        lru_oracle[key] = run("numpy", batches[b], f,
+                                              caches["numpy"])[0][3]
+                    require(got[3] == lru_oracle[key],
+                            f"{tag}: batch {b} filter={f is not None} "
+                            f"{mode}: LRU {got[3]} != numpy's "
+                            f"{lru_oracle[key]}")
+    enc.page_cache = None
+    return times, lru_oracle
+
+
+def partition_phase(torch, adj, vt, batches, card, oracle):
+    """Phase 17 (see the module docstring): (a) the single-card tail, (b)
+    the partitioned traversal, (c) the multi-device tail on meshes naming
+    the card 8 and 4 times (and the real cards where there are several),
+    (d) statistics pruning on a community-local graph."""
+    import numpy as np
+    import repro_torch.core as TC
+    from repro_torch.core.page_cache import DecodedPageCache
+    from repro_torch.kernels.label_filter import kernel as LK
+    from repro_torch.kernels.pac_decode import kernel as PK
+    from repro_torch.kernels.pac_decode import ops as PO
+    from repro_torch.kernels.traversal import kernel as TK
+    from repro_torch.kernels.traversal import ops as TO
+    enc = adj.table["<dst>"].encoded
+    dev = torch.device(DEVICE)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    log(f"17. partitions: device memory before {mem0 / 2**20:.1f} MiB")
+    out = {}
+
+    # -- (a) the single-card tail: monolithic first (oracle, times), then
+    #    the same column partitioned PARTS ways
+    t0 = time.perf_counter()
+    keys = [(b, f, mode) for b in PART_BATCHES for f in (False, True)
+            for mode in ("none", "cold", "warm")]
+    if all(k in oracle for k in keys):
+        mono_oracle = {k: oracle[k] for k in keys}
+    else:
+        # phase 4 did not run (--partitions): the monolithic numpy engine
+        # gives the oracle here
+        mono_oracle = numpy_oracle(torch, adj, vt, batches)
+    mono_ms, _ = partition_runs(torch, adj, vt, batches, mono_oracle,
+                                "17a monolithic", lru_oracle={
+                                    k: v[0][3] for k, v in
+                                    mono_oracle.items() if k[2] != "none"})
+    parts = TC.partition_column(enc, PARTS)
+    part_ms, lru_part = partition_runs(torch, adj, vt, batches, mono_oracle,
+                                       "17a single-card tail")
+    out["a"] = {"mono_ms": mono_ms, "part_ms": part_ms,
+                "stats": parts.stats()}
+    log(f"17a. single-card tail: {PARTS} partitions, pmax {parts.pmax}, "
+        f"{parts.stack_rows} stacked rows; every run equal to the numpy "
+        f"oracle (PAC, IOMeter) and the LRU to the numpy engine over the "
+        f"partitioned column; counters {parts.stats()} "
+        f"({time.perf_counter() - t0:.1f} s) on {card}")
+    for key in part_ms:
+        b, f, mode = key
+        log(f"17a. batch {b:5d} filtered={f!s:5} cache={mode:4s} host "
+            f"{part_ms[key]:.3f} ms partitioned, {mono_ms[key]:.3f} ms "
+            f"monolithic")
+
+    # -- (b) traversal over the partitioned plan
+    t0 = time.perf_counter()
+    plan = TO.traversal_plan(adj, ENGINE)
+    plan.device(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"17b. partitioned traversal plan built in {build_s:.1f} s "
+        f"({plan.rows} rows)")
+    filt = TC.LabelFilter(vt, (TC.L("L0") & TC.L("L1")) | ~TC.L("L2"))
+    rng = np.random.default_rng(3)
+    seeds_of = {s: rng.integers(0, N_VERTICES, s) for s in SEED_COUNTS}
+    khop = {}
+    for n_seeds, seeds in seeds_of.items():
+        for hops in (2, 3):
+            for kind in ("none", "per_hop"):
+                f = None if kind == "none" else [None] + [filt] * (hops - 1)
+                outs = {}
+                for engine, fused in ((ENGINE, None), ("numpy", False)):
+                    meter = TC.IOMeter()
+                    got = TC.k_hop(adj, seeds, hops, meter, engine=engine,
+                                   filter=f, fused=fused)
+                    outs[engine] = (got.tobytes(), meter.nbytes,
+                                    meter.nrequests)
+                require(outs[ENGINE] == outs["numpy"],
+                        f"17b: k_hop seeds={n_seeds} hops={hops} {kind} "
+                        f"differs from the host-loop oracle")
+                _, ms = host_timed(torch, lambda: TC.k_hop(
+                    adj, seeds, hops, engine=ENGINE, filter=f))
+                khop[(n_seeds, hops, kind)] = (outs["numpy"][0], ms,
+                                               plan.last_frontier_sizes
+                                               .tolist())
+                log(f"17b. k_hop seeds {n_seeds:2d} hops {hops} {kind:7s} "
+                    f"{ms:.3f} ms, {len(got)} ids, sizes "
+                    f"{plan.last_frontier_sizes.tolist()}, io "
+                    f"{outs[ENGINE][1]} B / {outs[ENGINE][2]} req")
+    seed = int(seeds_of[1][0])
+    m_k, m_o = TC.IOMeter(), TC.IOMeter()
+    pac = TO.two_hop_pac(adj, adj, [seed], PAGE_SIZE, filt, m_k, ENGINE)
+    created = TC.neighbor_ids_batch(adj, [seed], m_o, engine="numpy")
+    want = TC.retrieve_neighbors_batch(adj, created, PAGE_SIZE, m_o,
+                                       "numpy", filter=filt)
+    require(pac_key(pac) == pac_key(want) and pac.count() > 0
+            and (m_k.nbytes, m_k.nrequests) == (m_o.nbytes, m_o.nrequests),
+            "17b: two_hop_pac differs from the staged numpy path")
+    starts, ends = TC.LabelFilter(vt, TC.L("L0")).intervals("numpy")
+    off = np.asarray(adj.offsets["<offset>"].values, np.int64)
+    los, his = off[starts], off[ends]
+    m_k, m_o = TC.IOMeter(), TC.IOMeter()
+    counts = TO.frontier_edge_counts(adj, starts, ends, los, his, m_k,
+                                     ENGINE)
+    rows = TC.decode_edge_ranges(adj, los, his, m_o, "numpy")
+    require(np.array_equal(counts, np.bincount(rows, minlength=N_VERTICES))
+            and (m_k.nbytes, m_k.nrequests) == (m_o.nbytes, m_o.nrequests),
+            "17b: frontier_edge_counts differs from the numpy bincount")
+    del rows
+    out["b"] = {"plan_build_s": build_s, "k_hop": khop,
+                "stats": parts.stats(),
+                "traversal": TO.traversal_stats(adj)}
+    log(f"17b. traversal: {len(khop)} k_hop configurations, two_hop_pac "
+        f"({pac.count()} ids) and frontier_edge_counts "
+        f"({int(counts.sum())} edges) equal to their oracles; counters "
+        f"{parts.stats()} ({time.perf_counter() - t0:.1f} s) on {card}")
+
+    # -- (c) the multi-device tail: meshes naming the card PARTS and
+    #    PARTS / 2 times (two partitions an entry), and the real cards
+    meshes = [(f"{PARTS} x {DEVICE}", (dev,) * PARTS),
+              (f"{PARTS // 2} x {DEVICE}", (dev,) * (PARTS // 2))]
+    if torch.cuda.device_count() > 1:
+        meshes.append(("cards", tuple(torch.device("cuda", i) for i in
+                                      range(torch.cuda.device_count()))))
+    saved = (PO._devices, PO.SHARD_MIN_PAGES)
+    PO.SHARD_MIN_PAGES = 0
+    out["c"] = {}
+    merge_inputs = None
+    b = PART_BATCHES[-1]
+    for name, mesh in meshes:
+        t0 = time.perf_counter()
+        PO._devices = lambda engine, m=mesh: m
+        g = parts.mesh_size(len(mesh))
+        t1 = time.perf_counter()
+        layouts = plan.sharded_arrays(parts, parts.mesh_devices(mesh))
+        torch.cuda.synchronize()
+        layout_s = time.perf_counter() - t1
+        res = {"g": g, "layout_s": layout_s, "retrieval_ms": {},
+               "k_hop_ms": {}}
+        for f in (None, filt):
+            cache = DecodedPageCache(CACHE_PAGES)
+            for mode in ("none", "cold", "warm"):
+                key = (b, f is not None, mode)
+                enc.page_cache = None if mode == "none" else cache
+                wr = LK.fused_gather_decode_filter_bitmap_batch \
+                    if f is not None else PK.fused_gather_decode_bitmap_batch
+                l0 = wr.launches
+                meter = TC.IOMeter()
+                got, ms = host_timed(torch, lambda: TC.retrieve_neighbors_batch(
+                    adj, batches[b], PAGE_SIZE, meter, engine=ENGINE,
+                    filter=f))
+                lru = None if mode == "none" else \
+                    (cache.hits, cache.misses, cache.evictions)
+                require((pac_key(got), meter.nbytes, meter.nrequests)
+                        == mono_oracle[key][0][:3]
+                        and lru == (lru_part.get(key)),
+                        f"17c {name}: batch {b} filter={f is not None} "
+                        f"{mode} differs from the oracle")
+                require(wr.launches - l0 == PK.FUSED_LAUNCHES * g,
+                        f"17c {name}: {wr.launches - l0} fused launches a "
+                        f"call, want one call ({PK.FUSED_LAUNCHES}) per "
+                        f"mesh entry ({g})")
+                res["retrieval_ms"][key] = ms
+            enc.page_cache = None
+        vs = batches[PART_BATCHES[0]]
+        l0 = PK.gather_decode.launches
+        ids = TC.neighbor_ids_batch(adj, vs, engine=ENGINE)
+        require(PK.gather_decode.launches - l0 == g
+                and np.array_equal(ids, TC.neighbor_ids_batch(
+                    adj, vs, engine="numpy")),
+                f"17c {name}: the page-matrix decode differs or took "
+                f"{PK.gather_decode.launches - l0} launches, want {g}")
+        for (n_seeds, hops, kind), (want_ids, _, _) in khop.items():
+            f = None if kind == "none" else [None] + [filt] * (hops - 1)
+            e0, m0, k0 = (TK.expand_words.launches, TK.merge_hop.launches,
+                          TK.khop_scan.launches)
+            got, ms = host_timed(torch, lambda: TC.k_hop(
+                adj, seeds_of[n_seeds], hops, engine=ENGINE, filter=f))
+            require(got.tobytes() == want_ids,
+                    f"17c {name}: k_hop seeds={n_seeds} hops={hops} {kind} "
+                    f"differs from the host-loop oracle")
+            require((TK.expand_words.launches - e0, TK.merge_hop.launches
+                     - m0, TK.khop_scan.launches - k0) == (g * hops, hops, 0),
+                    f"17c {name}: k_hop launched "
+                    f"{TK.expand_words.launches - e0} expansions and "
+                    f"{TK.merge_hop.launches - m0} merges for {hops} hops "
+                    f"over {g} mesh entries")
+            res["k_hop_ms"][(n_seeds, hops, kind)] = ms
+        if merge_inputs is None:
+            merge_inputs = {"mesh": parts.mesh_devices(mesh),
+                            "layouts": layouts, "seeds": seeds_of[64],
+                            "filt": filt, "n": plan.n_value}
+        out["c"][name] = res
+        log(f"17c. {name}: mesh of {g} entries ({PARTS // g} partitions "
+            f"an entry), layouts built in {layout_s:.1f} s; batch {b} "
+            f"unfiltered and filtered, no cache and LRU cold and warm, "
+            f"the page-matrix decode and {len(khop)} k_hop configurations "
+            f"equal to the oracles, one launch of kernels 1, 4, 2 per entry "
+            f"and one rt_merge_hop a hop ({time.perf_counter() - t0:.1f} s)")
+        log(f"17c. {name}: host ms, retrieval " + ", ".join(
+            f"{'f' if k[1] else 'u'}/{k[2]} {v:.3f}"
+            for k, v in res["retrieval_ms"].items()) + "; k_hop " +
+            ", ".join(f"{k[0]}/{k[1]}/{k[2]} {v:.3f}"
+                      for k, v in res["k_hop_ms"].items()))
+    PO._devices, PO.SHARD_MIN_PAGES = saved
+    out["c_stats"] = parts.stats()
+
+    # -- (d) statistics pruning at scale, community-local graph
+    out["d"] = local_pruning(torch, card)
+
+    # leave the column as phase 11 left it for phase 15: monolithic, the
+    # partitioned plan and its placements freed
+    adj._traversal_plans.pop((enc.version, PARTS)).release()
+    TC.partition_column(enc, 1)
+    out["memory_before"] = mem0
+    out["inputs"] = merge_inputs
+    return out
+
+
+def numpy_oracle(torch, adj, vt, batches):
+    """The monolithic numpy engine's runs of phase 17's configurations,
+    keyed as phase 4's oracle (a one-run list each)."""
+    import repro_torch.core as TC
+    from repro_torch.core.page_cache import DecodedPageCache
+    enc = adj.table["<dst>"].encoded
+    filt = TC.LabelFilter(vt, (TC.L("L0") & TC.L("L1")) | ~TC.L("L2"))
+    orc = {}
+    for b in PART_BATCHES:
+        for f in (None, filt):
+            cache = DecodedPageCache(CACHE_PAGES)
+            for mode in ("none", "cold", "warm"):
+                enc.page_cache = None if mode == "none" else cache
+                meter = TC.IOMeter()
+                pac = TC.retrieve_neighbors_batch(adj, batches[b], PAGE_SIZE,
+                                                  meter, engine="numpy",
+                                                  filter=f)
+                orc[(b, f is not None, mode)] = [(
+                    pac_key(pac), meter.nbytes, meter.nrequests,
+                    None if mode == "none" else
+                    (cache.hits, cache.misses, cache.evictions))]
+    enc.page_cache = None
+    return orc
+
+
+def local_pruning(torch, card):
+    """Phase 17 (d): the community-local graph of
+    ``benchmarks/bench_partition.py:_fixture(local=True)`` at
+    LOCAL_VERTICES vertices of degree LOCAL_DEGREE, ``HOT`` the first
+    quarter of the ids; batches of 1024 and 16384 filtered by
+    ``L("HOT")`` on the monolithic column and at PARTS partitions."""
+    import numpy as np
+    import repro_torch.core as TC
+    t0 = time.perf_counter()
+    n = LOCAL_VERTICES
+    off = np.concatenate([np.arange(-(LOCAL_DEGREE // 2), 0),
+                          np.arange(1, LOCAL_DEGREE - LOCAL_DEGREE // 2 + 1)])
+    src = np.repeat(np.arange(n), len(off))
+    dst = np.clip(np.arange(n)[:, None] + off[None, :], 0, n - 1).ravel()
+    adj = TC.build_adjacency(src, dst, n, n, TC.BY_SRC, TC.ENC_GRAPHAR,
+                             page_size=PAGE_SIZE)
+    del src, dst
+    col = adj.table["<dst>"].encoded
+    lvt = TC.VertexTable.build(
+        TC.VertexTypeSchema("v", [], labels=["HOT"], page_size=PAGE_SIZE),
+        {}, {"HOT": np.arange(n) < n // 4}, num_vertices=n)
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(7)
+    batches = {b: rng.integers(0, n, b) for b in PART_BATCHES}
+
+    def run(vs, engine):
+        meter = TC.IOMeter()
+        st = col.prune_stats
+        c0, p0 = st.pages_considered, st.pages_pruned
+        pac = TC.retrieve_neighbors_batch(
+            adj, vs, PAGE_SIZE, meter, engine=engine,
+            filter=TC.LabelFilter(lvt, TC.L("HOT")))
+        decoded = (st.pages_considered - c0) - (st.pages_pruned - p0)
+        return pac.to_ids(), (meter.nbytes, meter.nrequests), decoded
+
+    res = {"build_s": build_s, "edges": adj.num_edges,
+           "pages": len(col.pages)}
+    mono = {b: run(batches[b], "numpy") for b in PART_BATCHES}
+    mono_cuda = {b: run(batches[b], ENGINE) for b in PART_BATCHES}
+    parts = TC.partition_column(col, PARTS)
+    for b in PART_BATCHES:
+        s0 = parts.stats_pruned
+        ids, io, decoded = run(batches[b], ENGINE)
+        _, io_np, _ = run(batches[b], "numpy")
+        require(np.array_equal(ids, mono[b][0]),
+                f"17d: batch {b}: ids differ from the monolithic oracle")
+        require(io == io_np and io[0] <= mono_cuda[b][1][0]
+                and mono_cuda[b][1] == mono[b][1],
+                f"17d: batch {b}: IOMeter {io} (numpy over the partitions "
+                f"{io_np}, monolithic {mono_cuda[b][1]})")
+        require(parts.stats_pruned - s0 > 0,
+                f"17d: batch {b}: no partition statistics-pruned")
+        res[b] = {"ids": len(ids), "io": io, "io_mono": mono_cuda[b][1],
+                  "pages_decoded": decoded,
+                  "pages_decoded_mono": mono_cuda[b][2],
+                  "stats_pruned": parts.stats_pruned - s0}
+        log(f"17d. local graph batch {b:5d}: {len(ids)} ids equal to the "
+            f"monolithic oracle; {parts.stats_pruned - s0} partitions "
+            f"statistics-pruned; pages decoded {decoded} (monolithic "
+            f"{mono_cuda[b][2]}); io {io[0]} B / {io[1]} req (monolithic "
+            f"{mono_cuda[b][1][0]} B / {mono_cuda[b][1][1]} req)")
+    res["stats"] = parts.stats()
+    log(f"17d. statistics pruning: {n} vertices, {adj.num_edges} edges, "
+        f"{len(col.pages)} pages, built in {build_s:.1f} s; counters "
+        f"{parts.stats()} ({time.perf_counter() - t0:.1f} s) on {card}")
+    return res
+
+
+def partition_kernel_rows(torch, inputs):
+    """The sharded k-hop's launches against their plain versions on the
+    card at the 8-entry mesh's shapes (64 seeds, the first hop): the seed
+    launch, one entry's expansion, and ``rt_merge_hop`` over the 8
+    entries' partial words; each timed beside its bound."""
+    import numpy as np
+    from repro_torch.kernels.traversal import kernel as TK
+    from repro_torch.kernels.traversal import ops as TO
+    from repro_torch.kernels.traversal import ref as TR
+    mesh, layouts, n = inputs["mesh"], inputs["layouts"], inputs["n"]
+    dev = mesh[0]
+    nw = -(-n // 32)
+    g, n_sum = TK._summary_shape(nw)
+    sv = torch.from_numpy(TO._seed_vector(np.unique(inputs["seeds"]), n)) \
+        .to(dev)
+    fwords = inputs["filt"].plan().device_bitmap(dev, nw)
+    ones = torch.full((nw,), -1, dtype=torch.int32, device=dev)
+    rows = []
+
+    bufs = [torch.zeros(k, dtype=torch.int32, device=dev)
+            for k in (n, nw, nw, n_sum, 2)]
+
+    def seeds():
+        # the kernel ORs into zeroed buffers: calls again on the same
+        # buffers set the same bits
+        TK.seed_words(sv, n, *bufs[:4], g, bufs[4])
+        return bufs
+
+    def seeds_plain():
+        plane = TR._seed_plane(sv, n)
+        w = TR._pack_words(plane, nw)
+        return [plane, w, w, TR.summary_words(w, g, n_sum),
+                torch.zeros(2, dtype=torch.int32, device=dev)]
+
+    got, want = seeds(), seeds_plain()
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "seed_words differs from its plain version")
+    visited, frontier, vis_words, summary, _ = got
+    rows.append(kernel_row(
+        "seed_words", "src/repro_torch/kernels/csrc/traversal.cu",
+        "src/repro/kernels/shard.py:107", 0, cuda_ms(torch, seeds, 10),
+        cuda_ms(torch, seeds_plain, 3),
+        4 * (sv.numel() + 4 * int(sv.lt(n).sum()) + 2)))
+
+    def expand(i, out):
+        ks, voff = layouts[i]
+        return TK.expand_words(ks, voff, frontier, summary, g, n, ones, out,
+                               n)
+
+    def expand_plain(i):
+        ks, voff = layouts[i]
+        plane = TR.expand_plane(ks, voff, TR._filter_bits(frontier, n))
+        return TR._pack_words(plane, nw) & ones
+
+    partial = torch.empty((len(mesh), nw), dtype=torch.int32, device=dev)
+    for i in range(len(mesh)):
+        expand(i, partial[i])
+        require(torch.equal(partial[i], expand_plain(i)),
+                f"expand_words differs from its plain version (entry {i})")
+    ks0, voff0 = layouts[0]
+    all_v = torch.ones(n, dtype=torch.bool, device=dev)
+    need = needed_rows(torch, ks0, voff0, visited, all_v)
+    scratch = torch.empty(nw, dtype=torch.int32, device=dev)
+    rows.append(kernel_row(
+        "expand_words", "src/repro_torch/kernels/csrc/traversal.cu",
+        "src/repro/kernels/traversal/kernel.py:74", 0,
+        cuda_ms(torch, lambda: expand(0, scratch), 10),
+        cuda_ms(torch, lambda: expand_plain(0), 2),
+        4 * (int(need.sum()) + (n + 1) + 3 * nw + n_sum)))
+    log(f"kernels: seed_words and expand_words equal to their plain "
+        f"versions ({len(mesh)} entries, {int(need.sum())} rows needed by "
+        f"entry 0)")
+
+    outs = [torch.empty(k, dtype=torch.int32, device=dev)
+            for k in (nw, n_sum, n)]
+    state = [vis_words.clone(), visited.clone(),
+             torch.zeros(1, dtype=torch.int32, device=dev)]
+
+    def merge():
+        # timed calls go on from the state the first left: every input
+        # word is read and the plane written again, the visited updates
+        # find nothing new
+        TK.merge_hop(partial, fwords, state[0], state[1], outs[0], outs[1],
+                     g, outs[2], state[2], n)
+        return outs + state
+
+    def merge_plain():
+        nxt, summ, plane, vw, size = TR.merge_hop(partial, fwords,
+                                                  vis_words, n, g, n_sum)
+        return [nxt, summ, plane, vw, visited | plane, size]
+
+    got, want = merge(), merge_plain()
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "merge_hop differs from its plain version")
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    found = int(got[5][0])
+    nbytes = 4 * ((len(mesh) + 2) * nw + 2 * nw + n_sum + n + found + 1)
+    rows.append(kernel_row(
+        "merge_hop", "src/repro_torch/kernels/csrc/traversal.cu",
+        "src/repro/kernels/shard.py:116", err, cuda_ms(torch, merge, 20),
+        cuda_ms(torch, merge_plain, 3), nbytes))
+    log(f"kernels: merge_hop equal to its plain version over {len(mesh)} "
+        f"entries' words ({nw} words, {found} ids found)")
+    return rows
+
+
+def partition_phases(torch, drive, adj, vt, batches, oracle, card):
+    """Phase 17 (counted) and its kernel rows; returns the rows and the
+    launch counts."""
+    t0 = time.perf_counter()
+    res, launches = drive(partition_phase, torch, adj, vt, batches, card,
+                          oracle)
+    require(all(launches[n] for n in PARTITION_KERNELS),
+            f"a kernel of the partition plane never launched: {launches}")
+    log(f"17. partitions: (a)-(d) pass, launches " + ", ".join(
+        f"{n} {c}" for n, c in launches.items() if c)
+        + f" ({time.perf_counter() - t0:.1f} s) on {card}")
+    t0 = time.perf_counter()
+    rows = partition_kernel_rows(torch, res.pop("inputs"))
+    log(f"17k. partition kernels: seed_words, expand_words, merge_hop "
+        f"equal to their plain versions ({time.perf_counter() - t0:.1f} s)")
+    # a column and its partition plane refer to each other: the local
+    # graph of (d) goes only with a collection of the cycle
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"17. partitions: device memory {res['memory_before'] / 2**20:.1f} "
+        f"MiB before, {torch.cuda.memory_allocated() / 2**20:.1f} MiB after "
+        f"(the partitioned plans and placements freed)")
+    return rows, launches
+
+
 def table_key(table):
     """A table's columns as bytes: every delta page's header and words,
     or the plain values."""
@@ -3134,9 +3679,12 @@ def main() -> int:
     only.add_argument("--mutable", action="store_true",
                       help="run phases 1-2, 15 and 16 only (the mutable "
                       "plane over soc-LiveJournal1 and under serving)")
+    only.add_argument("--partitions", action="store_true",
+                      help="run phases 1-2 and 17 only (the partition "
+                      "plane over soc-LiveJournal1)")
     args = ap.parse_args()
     graph_only = next((f for f in ("traversal", "per-dispatch", "resident",
-                                   "entries", "mutable")
+                                   "entries", "mutable", "partitions")
                        if getattr(args, f.replace("-", "_"))), None)
     import torch
     if not torch.cuda.is_available():
@@ -3189,7 +3737,10 @@ def main() -> int:
                 "fused_decode_bitmap": PK.fused_decode_bitmap,
                 "rle_to_bitmap": FK.rle_to_bitmap,
                 "bitmap_select": BK.bitmap_select,
-                "flash_attention": AK.flash_attention}
+                "flash_attention": AK.flash_attention,
+                "seed_words": TK.seed_words,
+                "expand_words": TK.expand_words,
+                "merge_hop": TK.merge_hop}
 
     def drive(phase, *args, **kwargs):
         """Run one slice phase with every launch count set to 0 just
@@ -3267,13 +3818,18 @@ def main() -> int:
 
 
 def graph_phases(torch, drive, wrappers, card, only=None):
-    """Phases 3-11 and 15 over the soc-LiveJournal1 graph and
+    """Phases 3-11, 17 and 15 over the soc-LiveJournal1 graph and
     ``ldbc_like(40)`` (``only="traversal"``: phases 3, 5 and 6;
     ``only="per-dispatch"``: phase 9; ``only="resident"``: phases 3 and 4;
-    ``only="entries"``: phases 10 and 11; ``only="mutable"``: phase 15);
+    ``only="entries"``: phases 10 and 11; ``only="mutable"``: phase 15;
+    ``only="partitions"``: phase 17);
     returns their kernel rows and the launch counts of their slice
     phases."""
     adj, vt, batches, truth = build_graph()
+    if only == "partitions":
+        rows, launches = partition_phases(torch, drive, adj, vt, batches, {},
+                                          card)
+        return rows, [launches]
     if only == "mutable":
         return [], [mutable_phases(torch, drive, adj, vt, batches, truth,
                                    card)]
@@ -3343,9 +3899,12 @@ def graph_phases(torch, drive, wrappers, card, only=None):
 
     e_rows, e_launches = entry_phases(torch, drive, adj, truth, batches,
                                       oracle, card)
+    k_rows, k_launches = partition_phases(torch, drive, adj, vt, batches,
+                                          oracle, card)
     m_launches = mutable_phases(torch, drive, adj, vt, batches, truth, card)
-    return rows + e_rows, [launches, t_launches, p_launches, l_launches,
-                           e_launches, m_launches]
+    return rows + e_rows + k_rows, [launches, t_launches, p_launches,
+                                    l_launches, e_launches, k_launches,
+                                    m_launches]
 
 
 def mutable_phases(torch, drive, adj, vt, batches, truth, card):

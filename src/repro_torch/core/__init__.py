@@ -24,9 +24,11 @@ from .neighbor import (decode_edge_ranges, degrees_topk, fetch_properties,
                        retrieve_neighbors, retrieve_neighbors_batch,
                        retrieve_neighbors_scan)
 from .numeric import NumCmp, NumericFilter, NumProp
-from .pac import (PAC, bitmap_to_ids, ids_to_bitmap,
+from .pac import (PAC, bitmap_to_ids, ids_to_bitmap, pages_union,
                   words_per_page)
 from .page_cache import DecodedPageCache, attach_page_cache, live_cache
+from .partition import (Partition, PartitionedColumn, ensure_default_partitions,
+                        live_partitions, partition_bounds, partition_column)
 from .schema import EdgeTypeSchema, GraphSchema, PropertySchema, VertexTypeSchema
 from .storage import ESSD, MEDIA, OSS, TMPFS, GraphStore, IOMeter, MediaModel
 from .table import (BoolPlainColumn, BoolRleColumn, DeltaIntColumn,

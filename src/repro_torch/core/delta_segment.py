@@ -10,12 +10,11 @@ compactor (:mod:`repro_torch.core.compaction`) merges the segments back into a
 canonical packed layout and atomically swaps it in under the version
 counter.
 
-Design points:
+The JAX package's ``core/delta_segment.py``, on the port's storage plane:
+a partitioned value column (:mod:`repro_torch.core.partition`) gives one
+segment per partition, an unpartitioned one the single segment 0.
 
-The JAX package's ``core/delta_segment.py``, on the port's storage plane.
-The partition plane is not ported yet, so every column answers "no
-partitions attached" and the plane holds the single segment 0 -- what the
-reference holds when ``REPRO_PARTITIONS`` is unset.
+Design points:
 
 * **Append-friendly, read-sorted.**  An ingest batch is merged into each
   touched segment's sorted order immediately (segments are row-group
@@ -47,16 +46,8 @@ from repro_torch.ft import faults as ft_faults
 from .edge import BY_SRC, AdjacencyTable
 from .encoding import hull_intersects
 from .labels import intervals_to_ids
+from .partition import live_partitions
 from .table import DeltaIntColumn
-
-
-def live_partitions(encoded) -> None:
-    """The column's partition plane: none, since that plane is not ported
-    (ROADMAP queue 1, item 4); the reference's
-    ``core/partition.py:live_partitions`` answers None too while
-    ``REPRO_PARTITIONS`` is unset.  The one stand-in the segment geometry
-    reads, so porting the partition plane replaces only this."""
-    return None
 
 
 @dataclasses.dataclass

@@ -469,9 +469,19 @@ class DeltaColumn:
     page_cache: "object | None" = dataclasses.field(
         default=None, repr=False, compare=False)
     #: monotonically increasing write counter; every derived cache
-    #: (``packed_cache``, its device mirror, the decoded-page LRU) is
-    #: keyed on it, so in-place page writes can never serve stale data.
+    #: (``packed_cache``, its device mirror, the decoded-page LRU, the
+    #: partition plane) is keyed on it, so in-place page writes can never
+    #: serve stale data.
     version: int = dataclasses.field(default=0, compare=False)
+    #: requested partition count (0 = monolithic).  Set by
+    #: :func:`repro_torch.core.partition.partition_column`; the partition
+    #: plane rebuilds :attr:`partition_cache` lazily after a version bump.
+    partitions: int = dataclasses.field(default=0, compare=False)
+    #: lazily built :class:`repro_torch.core.partition.PartitionedColumn`
+    #: (keyed on ``(version, partitions)``); not part of the storage
+    #: format.
+    partition_cache: "object | None" = dataclasses.field(
+        default=None, repr=False, compare=False)
     #: page-granular statistics-pushdown counters (see
     #: :func:`prune_page_list`); observability only, never keyed on.
     prune_stats: PagePruneStats = dataclasses.field(

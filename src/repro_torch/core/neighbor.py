@@ -19,13 +19,12 @@ The decode step has three engines:
 """
 from __future__ import annotations
 
-import os
-
 import numpy as np
 
 from .delta_segment import live_delta, merge_rows
 from .edge import AdjacencyTable
 from .pac import PAC
+from .partition import ensure_default_partitions, partition_column
 from .table import DeltaIntColumn
 from .vertex import VertexTable
 
@@ -56,12 +55,10 @@ def _kernel_column(adj: AdjacencyTable):
     col = adj.table[adj.value_col]
     if not isinstance(col, DeltaIntColumn):
         raise TypeError("kernel engines require a delta-encoded column")
-    # the JAX package routes REPRO_PARTITIONS > 1 through its partition
-    # plane; that plane is not ported, and ignoring the setting would
-    # silently serve another route
-    if int(os.environ.get("REPRO_PARTITIONS", "0") or 0) > 1:
-        raise NotImplementedError(
-            "the partition plane (REPRO_PARTITIONS > 1) is not ported")
+    # the REPRO_PARTITIONS default: a column without explicit partitioning
+    # takes the environment's count here, so every batched consumer
+    # (k_hop, the queries, serving) routes through the partition plane
+    ensure_default_partitions(col.encoded)
     return col.encoded
 
 
@@ -127,7 +124,8 @@ def retrieve_neighbors_batch(adj: AdjacencyTable, vs,
                              engine: str = "cuda",
                              fused: bool | None = None,
                              filter=None,
-                             resident: bool | None = None) -> PAC:
+                             resident: bool | None = None,
+                             partitions: int | None = None) -> PAC:
     """Batched Definition 2: merged PAC of the neighbors of every ``v`` in
     ``vs`` (equal to the union of the per-vertex PACs).
 
@@ -151,7 +149,13 @@ def retrieve_neighbors_batch(adj: AdjacencyTable, vs,
 
     Pending delta rows are unioned into the PAC after the base dispatch,
     filtered exactly by the predicate; they never reach a kernel.  A
-    poisoned device mirror routes the base to the host oracle."""
+    poisoned device mirror routes the base to the host oracle.
+
+    ``partitions`` sets the value column's partition count first
+    (:func:`repro_torch.core.partition.partition_column`; None keeps what
+    is attached, 1 detaches); the JAX package takes it on
+    ``neighbor_properties_batch`` and ``k_hop`` only."""
+    _apply_partitions(adj, partitions)
     vs = np.asarray(vs, np.int64)
     if engine == "numpy" and fused:
         raise ValueError("fused path requires a kernel engine (torch/cuda)")
@@ -255,20 +259,25 @@ def neighbor_properties_batch(adj: AdjacencyTable, vs, vt: VertexTable,
     """Batched §4.1 workflow: one retrieval + one pushdown fetch for the
     whole batch's merged PAC (values in ascending neighbor-id order).
 
-    ``filter`` and ``resident`` thread through to
-    :func:`retrieve_neighbors_batch`; ``partitions`` is accepted for the
-    JAX package's signature, and ``partitions > 1`` (the partition
-    plane, not ported) raises."""
-    _require_unpartitioned(partitions)
+    ``filter``, ``resident`` and ``partitions`` thread through to
+    :func:`retrieve_neighbors_batch`: a label predicate pushed into the
+    retrieval, the transfer regime, and an explicit partition count for
+    the adjacency's value column."""
     pac = retrieve_neighbors_batch(adj, vs, vt.page_size, meter, engine,
-                                   filter=filter, resident=resident)
+                                   filter=filter, resident=resident,
+                                   partitions=partitions)
     return fetch_properties(pac, vt, prop, meter)
 
 
-def _require_unpartitioned(partitions: int | None) -> None:
-    if partitions is not None and partitions > 1:
-        raise NotImplementedError(
-            "the partition plane (partitions > 1) is not ported")
+def _apply_partitions(adj: AdjacencyTable, partitions: int | None) -> None:
+    """Explicit partition count for the adjacency's value column (None
+    keeps whatever is attached, or the ``REPRO_PARTITIONS`` default)."""
+    if partitions is None:
+        return
+    col = adj.table[adj.value_col]
+    if not isinstance(col, DeltaIntColumn):
+        raise TypeError("partitions= requires a delta-encoded column")
+    partition_column(col.encoded, partitions)
 
 
 def _per_hop_filters(filter, hops: int) -> list:
@@ -310,9 +319,9 @@ def k_hop(adj: AdjacencyTable, seeds: np.ndarray, hops: int,
     each hop's frontier (filtered ids stay unvisited and remain reachable
     via a later hop).  ``resident=False`` (or ``REPRO_DEVICE_RESIDENT=0``
     with ``resident`` None) takes the host loop, whose hops then run the
-    per-dispatch pack route; ``partitions`` is accepted for the JAX
-    package's signature, and ``partitions > 1`` raises."""
-    _require_unpartitioned(partitions)
+    per-dispatch pack route; ``partitions`` sets the value column's
+    partition count (see :func:`retrieve_neighbors_batch`)."""
+    _apply_partitions(adj, partitions)
     if engine == "numpy" and fused:
         raise ValueError("fused path requires a kernel engine (torch/cuda)")
     filts = _per_hop_filters(filter, hops)

@@ -12,7 +12,7 @@ order within the word -- the exact layout the CUDA kernels produce.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, Iterable, List
 
 import numpy as np
 
@@ -23,6 +23,15 @@ _BIT = np.uint32(1)
 
 def words_per_page(page_size: int) -> int:
     return -(-page_size // 32)
+
+
+def pages_union(pacs: Iterable["PAC"]) -> List[int]:
+    """Sorted page set touched by any of several PACs: the pages a whole
+    batch's property fetch reads, each once."""
+    pages: set = set()
+    for pac in pacs:
+        pages.update(pac.bitmaps)
+    return sorted(pages)
 
 
 def ids_to_bitmap(ids: np.ndarray, base: int, page_size: int) -> np.ndarray:
@@ -154,6 +163,35 @@ class PAC:
             out.bitmaps[p] = (a | b) if (a is not None and b is not None) \
                 else (a if a is not None else b).copy()
         return out
+
+    def difference(self, other: "PAC") -> "PAC":
+        out = PAC(self.page_size)
+        for p, a in self.bitmaps.items():
+            b = other.bitmaps.get(p)
+            w = a & ~b if b is not None else a.copy()
+            if w.any():
+                out.bitmaps[p] = w
+        return out
+
+    def union_(self, other: "PAC") -> "PAC":
+        """In-place union (merge): OR ``other`` into this PAC."""
+        assert self.page_size == other.page_size
+        for p, b in other.bitmaps.items():
+            a = self.bitmaps.get(p)
+            self.bitmaps[p] = b.copy() if a is None else (a | b)
+        return self
+
+    @classmethod
+    def union_all(cls, pacs: Iterable["PAC"],
+                  page_size: int = DEFAULT_PAGE_SIZE) -> "PAC":
+        """Merged PAC of many per-vertex PACs (a batched retrieval's
+        result)."""
+        out = None
+        for pac in pacs:
+            if out is None:
+                out = cls(pac.page_size)
+            out.union_(pac)
+        return out if out is not None else cls(page_size)
 
     # -- accessors ------------------------------------------------------------
     def pages(self) -> List[int]:

@@ -31,7 +31,7 @@ class DecodedPageCache:
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = int(capacity)
-        self._pages: "OrderedDict[int, np.ndarray]" = OrderedDict()
+        self._pages: "OrderedDict[object, np.ndarray]" = OrderedDict()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -39,35 +39,51 @@ class DecodedPageCache:
         #: :func:`live_cache`); bumped columns drop every entry.
         self.version = 0
 
-    def get(self, page: int) -> Optional[np.ndarray]:
+    @staticmethod
+    def _key(page: int, part: Optional[int]):
+        """Entry key: the plain page index on the monolithic paths,
+        ``(partition, page)`` on the partition plane, so entries are
+        namespaced per partition (a version bump clears everything)."""
+        return page if part is None else (part, page)
+
+    def get(self, page: int, part: Optional[int] = None
+            ) -> Optional[np.ndarray]:
         """Decoded rows of ``page`` or None; counts the probe and bumps
         recency on hit."""
-        arr = self._pages.get(page)
+        key = self._key(page, part)
+        arr = self._pages.get(key)
         if arr is None:
             self.misses += 1
             return None
-        self._pages.move_to_end(page)
+        self._pages.move_to_end(key)
         self.hits += 1
         return arr
 
-    def put(self, page: int, rows: np.ndarray) -> None:
+    def put(self, page: int, rows: np.ndarray,
+            part: Optional[int] = None) -> None:
         """Insert (or refresh) a decoded page, evicting LRU past capacity."""
-        if page in self._pages:
-            self._pages.move_to_end(page)
-            self._pages[page] = rows
+        key = self._key(page, part)
+        if key in self._pages:
+            self._pages.move_to_end(key)
+            self._pages[key] = rows
             return
-        self._pages[page] = rows
+        self._pages[key] = rows
         while len(self._pages) > self.capacity:
             self._pages.popitem(last=False)
             self.evictions += 1
 
-    def split(self, pages: Sequence[int]
+    def split(self, pages: Sequence[int],
+              owner: Optional[Sequence[int]] = None
               ) -> Tuple[Dict[int, np.ndarray], List[int]]:
-        """One probe per page: ``(hit page -> rows, ordered miss list)``."""
+        """One probe per page: ``(hit page -> rows, ordered miss list)``.
+
+        ``owner`` (parallel to ``pages``) carries each page's partition on
+        the partition plane: the probes go to the partition namespace, the
+        hits and misses are still reported by global page."""
         hits: Dict[int, np.ndarray] = {}
         miss: List[int] = []
-        for p in pages:
-            arr = self.get(int(p))
+        for i, p in enumerate(pages):
+            arr = self.get(int(p), None if owner is None else int(owner[i]))
             if arr is None:
                 miss.append(int(p))
             else:

@@ -279,11 +279,20 @@ class DeltaIntColumn(Column):
     def _decode_pages(self, pages: Sequence[int], meter=None):
         from .encoding import delta_decode_page
         from .page_cache import live_cache, miss_runs
+        from .partition import live_partitions
         cache = live_cache(self.encoded)
+        part_of = {}
         if cache is None:
             out, miss = {}, [int(p) for p in pages]
         else:
-            out, miss = cache.split(pages)
+            # a partitioned column's LRU entries live in the (partition,
+            # page) namespace, the one the kernel routes probe and fill
+            parts = live_partitions(self.encoded)
+            owner = (parts.part_of_pages(np.asarray(pages, np.int64))
+                     if parts is not None else None)
+            if owner is not None:
+                part_of = {int(p): int(o) for p, o in zip(pages, owner)}
+            out, miss = cache.split(pages, owner=owner)
         if miss:
             nbytes = sum(self.encoded.pages[p].nbytes() for p in miss)
             self._charge(meter, nbytes, miss_runs(miss))
@@ -291,7 +300,7 @@ class DeltaIntColumn(Column):
                 d = delta_decode_page(self.encoded.pages[p])
                 out[p] = d
                 if cache is not None:
-                    cache.put(p, d)
+                    cache.put(p, d, part=part_of.get(p))
         return out
 
 

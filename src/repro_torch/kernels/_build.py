@@ -47,6 +47,8 @@ SIGNATURES = {
                     _P, _P, _P),
     "rt_expand_words": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P,
                         _P, _P),
+    "rt_merge_hop": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                     _P),
     "rt_interval_words": (_P, _I, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I,
                           _P, _P),
     "rt_count_tiles": (_P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P),

@@ -49,7 +49,8 @@
 // about it: key_sorted is read in row order with coalesced 16-byte loads,
 // once (#7) or only as far as the early exit (#5, #6); the frontier's
 // empty (and for #7 full) words cost a shared-memory load and no gather.
-// Notes on each kernel stand beside it.
+// Notes on each kernel stand beside it.  The partition plane's sharded
+// k-hop adds rt_merge_hop (merge_hop_kernel), beside #6's expansion.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -720,6 +721,80 @@ count_tiles_kernel(const int* __restrict__ ks, const int* __restrict__ voff,
   }
 }
 
+// The partition plane's sharded k-hop merge, one launch a hop on the
+// mesh's first device (no TPU kernel of its own: the JAX package's
+// shard_map body merges with a pmax collective, then ANDs and ANDNOTs in
+// jnp).  Each mesh entry's expansion (rt_expand_words) wrote its partial
+// words over the value space into row p of partial [n_parts][n_words];
+// the hop's frontier is
+//   nxt[w] = (OR over p of partial[p][w]) & fw[w] & ~vis_words[w],
+// written with its summary (the bit (w >> g) of sum set when word w is
+// not 0, every summary word written, so no buffer needs zeroing), its
+// int32 plane, the visited words and plane updated, and its popcount
+// added into *size (zeroed by the seed launch).
+//
+// A warp per summary word s: its words are [32 s << g, 32 (s + 1) << g),
+// taken 32 at a time (lane l reads word 32 j + l of them: coalesced loads
+// of every partial row, fw and the visited words), so the warp's 32
+// summary bits come from one OR across it.  The 32 words of a step then
+// write their 1024 plane entries a word at a time, the word broadcast by
+// a shuffle and lane l writing entry l (128-byte stores).  Bound: bytes
+// -- n_parts + 2 words read and 2 written a frontier word, 4 bytes
+// written a plane entry; a simple kernel, not tuned.
+constexpr int kMergeThreads = 256;
+
+__global__ void __launch_bounds__(kMergeThreads)
+merge_hop_kernel(const unsigned* __restrict__ partial, int n_parts,
+                 int n_words, int n, const unsigned* __restrict__ fw,
+                 unsigned* __restrict__ vis_words, int* __restrict__ visited,
+                 unsigned* __restrict__ out_words, unsigned* __restrict__ sum,
+                 int n_sum, int g, int* __restrict__ plane,
+                 int* __restrict__ size) {
+  const int s = (blockIdx.x * kMergeThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (s >= n_sum) return;  // the whole warp
+  const long long base = static_cast<long long>(s) << (5 + g);
+  unsigned groups = 0u;  // bit b: a word of group 32 s + b is not 0
+  int count = 0;
+  for (int j = 0; j < (1 << g); ++j) {
+    const long long w0 = base + 32LL * j;
+    if (w0 >= n_words) break;  // the whole warp
+    const long long w = w0 + lane;
+    unsigned nxt = 0u;
+    if (w < n_words) {
+      unsigned x = 0u;
+      for (int p = 0; p < n_parts; ++p) {
+        x |= __ldg(partial + static_cast<size_t>(p) * n_words + w);
+      }
+      const unsigned vis = vis_words[w];
+      nxt = x & __ldg(fw + w) & ~vis;
+      out_words[w] = nxt;
+      if (nxt) {
+        vis_words[w] = vis | nxt;
+        groups |= 1u << ((32 * j + lane) >> g);
+        count += __popc(nxt);
+      }
+    }
+    for (int b = 0; b < 32; ++b) {
+      const unsigned word = __shfl_sync(kFull, nxt, b);
+      const long long v = ((w0 + b) << 5) + lane;
+      if (v < n) {
+        const int bit = static_cast<int>((word >> lane) & 1u);
+        plane[v] = bit;
+        if (bit) visited[v] = 1;
+      }
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    groups |= __shfl_xor_sync(kFull, groups, o);
+    count += __shfl_xor_sync(kFull, count, o);
+  }
+  if (lane == 0) {
+    sum[s] = groups;
+    if (count) atomicAdd(size, count);
+  }
+}
+
 int blocks_for(long long items) {
   return static_cast<int>((items + kThreads - 1) / kThreads);
 }
@@ -833,6 +908,27 @@ extern "C" int rt_expand_words(const int* ks, const int* voff, int n,
                                n_sum, g_in, nullptr, 0, nullptr, nullptr,
                                nullptr, fw, out_words, nullptr, nullptr,
                                stream);
+}
+
+// The sharded k-hop's merge of one hop (merge_hop_kernel): partial
+// [n_parts][n_words], fw and vis_words [n_words], visited and plane [n],
+// out_words [n_words], sum [n_sum] (2^g words a bit), size [1].
+extern "C" int rt_merge_hop(const int* partial, int n_parts, int n_words,
+                            int n, const int* fw, int* vis_words,
+                            int* visited, int* out_words, int* sum,
+                            int n_sum, int g, int* plane, int* size,
+                            void* stream) {
+  if (n_words <= 0 || n_sum <= 0) return static_cast<int>(cudaGetLastError());
+  const long long threads = 32LL * n_sum;
+  merge_hop_kernel<<<static_cast<int>((threads + kMergeThreads - 1) /
+                                      kMergeThreads),
+                     kMergeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const unsigned*>(partial), n_parts, n_words, n,
+      reinterpret_cast<const unsigned*>(fw),
+      reinterpret_cast<unsigned*>(vis_words), visited,
+      reinterpret_cast<unsigned*>(out_words),
+      reinterpret_cast<unsigned*>(sum), n_sum, g, plane, size);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // #7's first launch: words [ceil(n_key / 32)] written, the summary table

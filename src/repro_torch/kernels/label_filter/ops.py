@@ -62,7 +62,8 @@ class FilterPlan:
     #: device -> (pos, meta) tensors; populated lazily, once each.
     _device: Dict[str, Tuple] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
-    #: (device, n_words) -> int32[n_words] predicate plane on the device.
+    #: (device, n_words) -> int32[n_words] predicate plane on the device;
+    #: ("mesh", devices, n_words) -> one plane per mesh entry.
     _device_bitmaps: Dict[Tuple, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
 
@@ -100,6 +101,30 @@ class FilterPlan:
                                   n_words)
             self._device_bitmaps[key] = words
         return words
+
+
+    def device_bitmap_sharded(self, device_or_mesh, n_words: int
+                              ) -> Tuple[torch.Tensor, ...]:
+        """The predicate plane for every entry of a partition mesh (a
+        tuple of devices, or one device): one copy per distinct device,
+        evaluated on the first and copied to the others, placed once per
+        (mesh, n_words), so a filtered multi-device dispatch ships no
+        label bytes."""
+        mesh = (tuple(device_or_mesh)
+                if isinstance(device_or_mesh, (tuple, list))
+                else (device_or_mesh,))
+        mesh = tuple(torch.device(d) for d in mesh)
+        key = ("mesh", tuple(str(d) for d in mesh), n_words)
+        planes = self._device_bitmaps.get(key)
+        if planes is None:
+            first = self.device_bitmap(mesh[0], n_words)
+            copies = {str(mesh[0]): first}
+            for d in mesh:
+                if str(d) not in copies:
+                    copies[str(d)] = first.to(d)
+            planes = tuple(copies[str(d)] for d in mesh)
+            self._device_bitmaps[key] = planes
+        return planes
 
 
 def make_plan(vt: VertexTable, cond: Union[Cond, CondProgram]) -> FilterPlan:

@@ -31,6 +31,15 @@ With a decoded-page LRU attached (:mod:`repro_torch.core.page_cache`)
 only the miss pages are charged to the ``IOMeter``, and the decoded
 matrix comes back to the host only when misses need backfilling.
 
+A column with a partition plane attached
+(:mod:`repro_torch.core.partition`) takes the partitioned routes on the
+resident regime: partition pruning (range and statistics) before the
+page zone maps, the LRU in the ``(partition, page)`` namespace, and one
+of two tails (``_shard_width``): the single-shard tail (the monolithic
+kernels over the stacked partition plan on one device) or the
+multi-device tail (:mod:`repro_torch.kernels.shard`: one launch per mesh
+entry, then a merge).  The mesh comes from :func:`_devices`.
+
 Engines: ``numpy`` (the host oracle), ``torch`` (the kernels' plain
 PyTorch versions, on the CPU) and ``cuda`` (the kernels, on ``cuda:0``).
 The staged vectors and their padding classes are the JAX package's.
@@ -49,6 +58,7 @@ from repro_torch.core.encoding import (DeltaColumn, delta_decode_page,
 from repro_torch.core.labels import intervals_to_ids
 from repro_torch.core.pac import PAC
 from repro_torch.core.page_cache import live_cache, miss_runs
+from repro_torch.core.partition import live_partitions
 from repro_torch.kernels._pad import next_multiple, next_pow2, size_class
 
 from . import kernel as K
@@ -70,7 +80,16 @@ DEVICE_RESIDENT = os.environ.get("REPRO_DEVICE_RESIDENT", "1") \
 PAGE_CLASS_MIN = 8
 RANGE_CLASS_MIN = 64
 
-#: (device, n_words) -> ring of the two most recent dispatches' bitmap
+#: the partition plane's sharding threshold: a partitioned column takes
+#: the multi-device tail (one launch per mesh entry, then a merge) only
+#: when the busiest mesh entry gets at least this many pages to decode;
+#: below it the **single-shard tail** runs -- the monolithic resident
+#: kernels over the stacked partition plan on one device.  Results,
+#: meters and pruning are identical either way.  ``REPRO_SHARD_MIN_PAGES=0``
+#: takes the multi-device tail everywhere.
+SHARD_MIN_PAGES = int(os.environ.get("REPRO_SHARD_MIN_PAGES", "48"))
+
+#: (device, shape) -> ring of the two most recent dispatches' bitmap
 #: buffers.  A dispatch writes into the *older* of two pooled buffers,
 #: never the most recent output, so two dispatches in flight never share
 #: one buffer; steady state settles at two buffers per class.
@@ -92,15 +111,34 @@ def engine_device(engine: str) -> torch.device:
     raise ValueError(f"unknown engine {engine!r}; want one of {ENGINES}")
 
 
-def _words_buffer(device: torch.device, n_words: int) -> torch.Tensor:
+_DEVICES: Dict[str, Tuple[torch.device, ...]] = {}
+
+
+def _devices(engine: str) -> Tuple[torch.device, ...]:
+    """The devices an engine's partition mesh may span, resolved once:
+    every CUDA device for ``cuda``, the CPU for ``torch``.  The one source
+    of the mesh (tests replace it with a tuple naming one device several
+    times, to drive the multi-device tail on one device)."""
+    devs = _DEVICES.get(engine)
+    if devs is None:
+        first = engine_device(engine)
+        devs = (tuple(torch.device("cuda", i)
+                      for i in range(torch.cuda.device_count()))
+                if first.type == "cuda" else (first,))
+        _DEVICES[engine] = devs
+    return devs
+
+
+def _words_buffer(device: torch.device, n_words) -> torch.Tensor:
+    """A pooled int32 buffer of shape ``n_words`` (an int, or a tuple for
+    the rows of several mesh entries on one device)."""
     ring = _WORDS_POOL.get((str(device), n_words))
     if ring is not None and len(ring) >= 2:
         return ring.popleft()
     return torch.empty(n_words, dtype=torch.int32, device=device)
 
 
-def _pool_words(device: torch.device, n_words: int,
-                buf: torch.Tensor) -> None:
+def _pool_words(device: torch.device, n_words, buf: torch.Tensor) -> None:
     ring = _WORDS_POOL.setdefault((str(device), n_words), deque())
     ring.append(buf)
     while len(ring) > 2:
@@ -167,10 +205,82 @@ def _charge_pages(col: DeltaColumn, pages: Sequence[int], meter) -> None:
 
 def _page_class(n: int, stack_rows: int) -> int:
     """Page-padding class of a dispatch: the shared pow2 ladder, capped at
-    the (PAGE_CLASS_MIN-rounded) whole column -- a gather cannot name
-    more distinct rows than the column has."""
+    the (PAGE_CLASS_MIN-rounded) whole plan -- ``stack_rows`` is the
+    column's page count on the monolithic paths and the stacked partition
+    plan's (or a mesh entry's block's) row count on the partitioned ones;
+    a gather cannot name more distinct rows than the plan has."""
     return min(size_class(n, PAGE_CLASS_MIN),
                next_multiple(stack_rows, PAGE_CLASS_MIN))
+
+
+def _stack_index(parts, pages: np.ndarray, owner: np.ndarray) -> np.ndarray:
+    """Row of each global page in the partition-major stacked plan
+    (``owner * pmax + offset within partition``); a mesh entry's
+    block-local index is this minus its block's first row."""
+    return (owner * parts.pmax
+            + (pages - parts.bounds[owner])).astype(np.int32)
+
+
+def _shard_width(parts, owner: np.ndarray, engine: str
+                 ) -> Tuple[int, int, "np.ndarray | None",
+                            "np.ndarray | None"]:
+    """Mesh width of one dispatch: ``(g, ppd, dev_of_page, per_dev)``.
+
+    ``g == 1`` selects the single-shard tail (a one-device mesh, or no
+    mesh entry's page bucket reaches ``SHARD_MIN_PAGES``), and then the
+    bucketing outputs are None.  The one home of the policy: the fused
+    and non-fused paths shard under identical conditions."""
+    g = parts.mesh_size(len(_devices(engine)))
+    if g <= 1:
+        return 1, 1, None, None
+    ppd = parts.n_parts // g
+    dev_of_page = owner // ppd
+    per_dev = np.bincount(dev_of_page, minlength=g)
+    if per_dev.max() < SHARD_MIN_PAGES:
+        return 1, 1, None, None
+    return g, ppd, dev_of_page, per_dev
+
+
+def _sharded_decode_matrix(col: DeltaColumn, parts, pages: Sequence[int],
+                           engine: str) -> np.ndarray:
+    """Partitioned page-matrix decode (the non-fused batched path).
+
+    Pages are re-addressed into the stacked partition plan; above the
+    sharding threshold they are bucketed per mesh entry and decoded by
+    one ``gather_decode`` launch per entry over its block
+    (:func:`repro_torch.kernels.shard.sharded_decode`), below it by one
+    launch over the single-device stacked plan.  Returns
+    int64[len(pages), page_size]; the caller zeroes the tails."""
+    pages_arr = np.asarray(pages, np.int64)
+    owner, _ = parts.prune(pages_arr)  # dispatch/pruning counters only
+    stack_idx = _stack_index(parts, pages_arr, owner)
+    g, ppd, dev_of_page, per_dev = _shard_width(parts, owner, engine)
+    if g == 1:
+        device = engine_device(engine)
+        arrays, _ = parts.device_plan_single(device)
+        idx = np.zeros(_page_class(len(pages_arr), parts.stack_rows),
+                       np.int32)
+        idx[:len(pages_arr)] = stack_idx
+        ids = K.gather_decode(*arrays, _to_device(idx, device))
+        return ids[:len(pages_arr)].cpu().numpy().astype(np.int64)
+    from repro_torch.kernels import shard
+    mesh = parts.mesh_devices(_devices(engine))
+    blocks = parts.device_plan(mesh)
+    block0 = dev_of_page * (ppd * parts.pmax)  # first stacked row a block
+    local_idx = (stack_idx - block0).astype(np.int32)
+    p_pad = _page_class(int(per_dev.max()), ppd * parts.pmax)
+    idxmat = np.zeros((g, p_pad), np.int32)
+    for i in range(g):
+        sel = local_idx[dev_of_page == i]
+        idxmat[i, :len(sel)] = sel
+    mat = shard.sharded_decode(mesh, blocks, idxmat)  # [g, p_pad, ps]
+    # row of page i = its order within its entry's bucket, the same masks
+    # that filled idxmat
+    within = np.empty(len(pages_arr), np.int64)
+    for i in range(g):
+        m = dev_of_page == i
+        within[m] = np.arange(int(m.sum()))
+    return mat[dev_of_page, within].astype(np.int64)
 
 
 def _page_index_vector(pages: Sequence[int], total_pages: int) -> np.ndarray:
@@ -190,16 +300,26 @@ def _decode_page_matrix(col: DeltaColumn, pages: Sequence[int],
     :func:`decode_page_list`).  Returns int64[len(pages), page_size] with
     each row zeroed past its page's count.  The kernel engines follow
     ``DEVICE_RESIDENT`` (the per-call ``resident=`` exists on the fused
-    entries only)."""
+    entries only); a partitioned column decodes through
+    :func:`_sharded_decode_matrix` on the resident route."""
     ps = col.page_size
     n = len(pages)
+    parts = live_partitions(col)
     if engine == "numpy":
+        if parts is not None:
+            parts.prune(np.asarray(pages, np.int64))  # accounting only
         out = np.zeros((n, ps), np.int64)
         for i, p in enumerate(pages):
             d = delta_decode_page(col.pages[p])
             out[i, :len(d)] = d
         return out
     device = engine_device(engine)
+    if parts is not None and DEVICE_RESIDENT:
+        ids = _sharded_decode_matrix(col, parts, pages, engine)
+        counts = np.asarray([col.pages[int(p)].count for p in pages],
+                            np.int64)
+        cols = np.arange(ps)[None, :]
+        return np.where(cols < counts[:, None], ids, 0)
     if DEVICE_RESIDENT:
         packed = pack_column(col)
         plan = packed.device_plan(device)
@@ -224,6 +344,8 @@ def decode_page_list(col: DeltaColumn, pages: Sequence[int],
     Returns ``int64[len(pages), page_size]``; rows are zero-padded past
     each page's count.  With a decoded-page LRU attached only the miss
     pages are decoded and IOMeter-charged; hit rows come from the cache.
+    On a partitioned column the entries live in the ``(partition, page)``
+    namespace, the one the fused partitioned path uses.
     """
     ps = col.page_size
     n = len(pages)
@@ -232,11 +354,13 @@ def decode_page_list(col: DeltaColumn, pages: Sequence[int],
     if engine != "numpy":
         engine_device(engine)   # an unusable engine raises before charging
     cache = live_cache(col)
+    parts = live_partitions(col)
     pages_arr = np.asarray(pages, np.int64)
+    owner = parts.part_of_pages(pages_arr) if parts is not None else None
     if cache is None:
         _charge_pages(col, pages, meter)
         return _decode_page_matrix(col, pages, engine)
-    hits, miss = cache.split(pages)
+    hits, miss = cache.split(pages, owner=owner)
     _charge_pages(col, miss, meter)
     out = np.zeros((n, ps), np.int64)
     if miss:
@@ -247,7 +371,9 @@ def decode_page_list(col: DeltaColumn, pages: Sequence[int],
         miss_idx = np.flatnonzero(is_miss)
         out[miss_idx] = mat
         for i, p in enumerate(miss):
-            cache.put(p, mat[i, :col.pages[p].count].copy())
+            cache.put(p, mat[i, :col.pages[p].count].copy(),
+                      part=None if owner is None
+                      else int(owner[miss_idx[i]]))
         hit_idx = np.flatnonzero(~is_miss)
     else:
         hit_idx = np.arange(n)
@@ -366,6 +492,125 @@ def stage_resident(col: DeltaColumn, los, his, pages: np.ndarray, pmask
     return staged, p_pad, total
 
 
+def _retrieve_pac_batch_sharded(col: DeltaColumn, parts, los, his,
+                                pages: np.ndarray, target_page_size: int,
+                                num_targets: int, meter, engine: str,
+                                filter_plan=None) -> PAC:
+    """The fused path on a partitioned column.
+
+    Pruning comes before anything is charged or staged: partitions
+    holding none of the batch's pages are skipped (meter-neutral), and
+    with a pushed-down filter the partitions whose hull cannot intersect
+    the predicate's qualifying range are skipped too, then the page zone
+    maps sieve the surviving pages (the final page set, and so the meter,
+    equals the monolithic path's at any partition count).  The LRU
+    (entries ``(partition, page)``) is split over the global page set,
+    misses are charged once with requests per contiguous run, and the
+    decode matrix comes back only when there are misses to backfill.
+
+    The dispatch then takes one of two tails (``_shard_width``'s policy):
+    the **single-shard tail** -- the monolithic resident kernel over the
+    single-device stacked plan, with the words pool -- or the
+    **multi-device tail**: the page set and requested rows bucketed per
+    mesh entry (partitions are page-aligned, so a range crossing a
+    boundary gives rows to both sides) into one ``staged`` matrix, one
+    launch per entry over its block
+    (:func:`repro_torch.kernels.shard.sharded_fused`), the planes
+    OR-merged (a target may be reached through several partitions).
+    Both tails give the same words.
+    """
+    ps = col.page_size
+    qual = filter_plan.qual_range() if filter_plan is not None else None
+    owner, mask = parts.prune(pages, qual)
+    if mask is not None:
+        pages = pages[mask]
+        if pages.size == 0:  # every partition statistics-pruned
+            return PAC(target_page_size)
+    kept, pmask = prune_page_list(col, pages, qual)
+    if pmask is not None:
+        pages, owner = kept, owner[pmask]
+        if pages.size == 0:  # every page statistics-pruned
+            return PAC(target_page_size)
+    pruned = mask is not None or pmask is not None
+    stack_idx = _stack_index(parts, pages, owner)
+    cache = live_cache(col)
+    if cache is None:
+        miss = [int(p) for p in pages]
+    else:
+        _, miss = cache.split(pages, owner=owner)
+    _charge_pages(col, miss, meter)
+    n_words = -(-num_targets // 32)
+    # requested rows; under statistics pruning the rows of dropped pages
+    # cannot pass the predicate and drop with them
+    rows = intervals_to_ids((los, his))
+    n_rows = len(rows)
+    page_of = rows // ps
+    pidx = np.searchsorted(pages, page_of)
+    if pruned:
+        ok = pidx < len(pages)
+        ok &= pages[np.minimum(pidx, len(pages) - 1)] == page_of
+        if not ok.all():
+            rows, page_of, pidx = rows[ok], page_of[ok], pidx[ok]
+    g, ppd, dev_of_page, per_dev = _shard_width(parts, owner, engine)
+    if g == 1:
+        device = engine_device(engine)
+        arrays, _ = parts.device_plan_single(device)
+        gidx = (pidx * ps + (rows - page_of * ps)).astype(np.int32)
+        total = len(gidx)
+        # pad to the unpruned request's class: pruning never mints a new
+        # launch shape (see _gather_positions)
+        pad = size_class(n_rows, RANGE_CLASS_MIN) - total
+        if pad:
+            gidx = np.concatenate([gidx, np.zeros(pad, np.int32)])
+        p_pad = _page_class(len(pages), parts.stack_rows)
+        staged = np.zeros(p_pad + len(gidx) + 1, np.int32)
+        staged[:len(pages)] = stack_idx
+        staged[p_pad:-1] = gidx
+        staged[-1] = total
+        host_words = _resident_fused(col, arrays, staged, p_pad, device,
+                                     n_words, pages, miss, cache,
+                                     filter_plan, owner)
+        return PAC.from_dense_bitmap(host_words, target_page_size)
+    # multi-device tail: bucket per mesh entry, one launch each
+    from repro_torch.kernels import shard
+    mesh = parts.mesh_devices(_devices(engine))
+    blocks = parts.device_plan(mesh)
+    block0 = dev_of_page * (ppd * parts.pmax)
+    local_idx = (stack_idx - block0).astype(np.int32)
+    # pidx maps each row to its page's slot; its entry follows from there
+    dev_of_row = dev_of_page[pidx]
+    dev_page_start = np.searchsorted(dev_of_page, np.arange(g))
+    base_local = pidx - dev_page_start[dev_of_row]
+    gidx = (base_local * ps + (rows - page_of * ps)).astype(np.int32)
+    row_lists = [gidx[dev_of_row == i] for i in range(g)]
+    p_pad = _page_class(int(per_dev.max()), ppd * parts.pmax)
+    t_pad = size_class(max(len(x) for x in row_lists), RANGE_CLASS_MIN)
+    staged = np.zeros((g, p_pad + t_pad + 1), np.int32)
+    for i in range(g):
+        sel = local_idx[dev_of_page == i]
+        staged[i, :len(sel)] = sel
+        staged[i, p_pad:p_pad + len(row_lists[i])] = row_lists[i]
+        staged[i, -1] = len(row_lists[i])
+    fwords = None
+    if filter_plan is not None:
+        fwords = filter_plan.device_bitmap_sharded(mesh, n_words)
+    want_ids = cache is not None and bool(miss)
+    host_words, ids = shard.sharded_fused(mesh, blocks, staged, n_words,
+                                          p_pad, want_ids, fwords)
+    if want_ids:
+        mats = [None] * g
+        pos = {int(p): (int(dev_of_page[i]),
+                        i - int(dev_page_start[dev_of_page[i]]),
+                        int(owner[i]))
+               for i, p in enumerate(pages)}
+        for p in miss:
+            d, slot, k = pos[p]
+            if mats[d] is None:
+                mats[d] = ids[d].cpu().numpy().astype(np.int64)
+            cache.put(p, mats[d][slot, :col.pages[p].count].copy(), part=k)
+    return PAC.from_dense_bitmap(host_words, target_page_size)
+
+
 def _retrieve_pac_batch_fused(col: DeltaColumn, los, his,
                               target_page_size: int, num_targets: int,
                               meter, engine: str, filter_plan=None,
@@ -398,31 +643,61 @@ def _retrieve_pac_batch_fused(col: DeltaColumn, los, his,
     if pages.size == 0:
         return PAC(target_page_size)
     device = engine_device(engine)
+    if resident is None:
+        resident = DEVICE_RESIDENT
+    parts = live_partitions(col)
+    if parts is not None and resident:
+        # partition plane attached: the partitioned tails (the
+        # per-dispatch pack route below stays the single-device oracle)
+        return _retrieve_pac_batch_sharded(col, parts, los, his, pages,
+                                           target_page_size, num_targets,
+                                           meter, engine, filter_plan)
     # page-granular statistics pushdown: pages whose zone map cannot
     # intersect the predicate's hull are never staged, decoded or charged
     qual = filter_plan.qual_range() if filter_plan is not None else None
     pages, pmask = prune_page_list(col, pages, qual)
     if pages.size == 0:
         return PAC(target_page_size)
-    if resident is None:
-        resident = DEVICE_RESIDENT
     cache = live_cache(col)
+    part_of: Dict[int, int] = {}
     if cache is None:
         hits, miss = {}, [int(p) for p in pages]
     else:
-        hits, miss = cache.split(pages)
+        # a partitioned column's LRU entries live in the (partition, page)
+        # namespace on every route, or one column's cache would split in
+        # two and charge warm pages twice
+        owner = parts.part_of_pages(pages) if parts is not None else None
+        if owner is not None:
+            part_of = {int(p): int(o) for p, o in zip(pages, owner)}
+        hits, miss = cache.split(pages, owner=owner)
     _charge_pages(col, miss, meter)
     n_words = -(-num_targets // 32)
     if not resident:
         return _retrieve_pac_batch_packed(col, los, his, pages, pmask, hits,
                                           miss, cache, target_page_size,
-                                          n_words, device, filter_plan)
+                                          n_words, device, filter_plan,
+                                          part_of)
     plan = pack_column(col).device_plan(device)
     staged, p_pad, _ = stage_resident(col, los, his, pages, pmask)
-    staged_t = _to_device(staged, device)
+    host_words = _resident_fused(col, plan, staged, p_pad, device, n_words,
+                                 pages, miss, cache, filter_plan)
+    return PAC.from_dense_bitmap(host_words, target_page_size)
+
+
+def _resident_fused(col: DeltaColumn, plan, staged: np.ndarray, p_pad: int,
+                    device: torch.device, n_words: int, pages: np.ndarray,
+                    miss: Sequence[int], cache, filter_plan=None,
+                    owner: Optional[np.ndarray] = None) -> np.ndarray:
+    """One resident fused launch (kernel 1, or 4 with ``filter_plan``) over
+    the device plan ``plan`` -- the column's, or the single-device stacked
+    partition plan -- and its staging vector; backfills the LRU from the
+    decoded matrix when there are misses (in the ``(partition, page)``
+    namespace when ``owner`` gives each page's partition).  Returns the
+    uint32 target words on the host."""
     # the decode matrix only exists to backfill the LRU: with no cache --
     # or a warm one (zero misses) -- the ids never leave the card
     want_ids = cache is not None and bool(miss)
+    staged_t = _to_device(staged, device)
     buf = _words_buffer(device, n_words)
     if filter_plan is None:
         out = K.fused_gather_decode_bitmap_batch(
@@ -437,12 +712,14 @@ def _retrieve_pac_batch_fused(col: DeltaColumn, los, his,
         mat = ids.cpu().numpy().astype(np.int64)
         pos_of = {int(p): i for i, p in enumerate(pages)}
         for p in miss:
-            cache.put(p, mat[pos_of[p], :col.pages[p].count].copy())
+            i = pos_of[p]
+            cache.put(p, mat[i, :col.pages[p].count].copy(),
+                      part=None if owner is None else int(owner[i]))
     else:
         words = out
     host_words = words.cpu().numpy().view(np.uint32)
     _pool_words(device, n_words, words)  # reused two dispatches later
-    return PAC.from_dense_bitmap(host_words, target_page_size)
+    return host_words
 
 
 def stage_packed(col: DeltaColumn, los, his, pages: np.ndarray, pmask,
@@ -478,10 +755,14 @@ def _retrieve_pac_batch_packed(col: DeltaColumn, los, his, pages: np.ndarray,
                                pmask, hits: Dict[int, np.ndarray],
                                miss: Sequence[int], cache,
                                target_page_size: int, n_words: int,
-                               device: torch.device, filter_plan=None) -> PAC:
+                               device: torch.device, filter_plan=None,
+                               part_of: Optional[Dict[int, int]] = None
+                               ) -> PAC:
     """The per-dispatch pack tail of the fused path: ships what
     :func:`stage_packed` gathers and, with a filter, its RLE lists; one
-    ``fused_decode_bitmap_batch`` (or its filtered twin) dispatch."""
+    ``fused_decode_bitmap_batch`` (or its filtered twin) dispatch.
+    ``part_of`` maps a partitioned column's pages to their partitions,
+    the LRU namespace of the backfill."""
     args, cached, gidx, total = stage_packed(col, los, his, pages, pmask,
                                              hits, miss)
     shipped = ship_pages(args, device) + (
@@ -498,7 +779,8 @@ def _retrieve_pac_batch_packed(col: DeltaColumn, los, his, pages: np.ndarray,
     if cache is not None and miss:
         mat = ids.cpu().numpy().astype(np.int64)
         for i, p in enumerate(miss):
-            cache.put(p, mat[i, :col.pages[p].count].copy())
+            cache.put(p, mat[i, :col.pages[p].count].copy(),
+                      part=(part_of or {}).get(p))
     return PAC.from_dense_bitmap(words.cpu().numpy().view(np.uint32),
                                  target_page_size)
 

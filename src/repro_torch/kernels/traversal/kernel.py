@@ -8,6 +8,11 @@ the seeds and one per hop for :func:`khop_scan`; three for
 :func:`two_hop` (the seeds, expansion A, expansion B); two for
 :func:`count_hop` (the interval words, then the row tiles).
 
+The partition plane's sharded k-hop (:mod:`repro_torch.kernels.shard`)
+takes three wrappers of its own, each one launch: :func:`seed_words`
+(the seed launch), :func:`expand_words` (one expansion of kernel 6, per
+mesh entry and hop) and :func:`merge_hop` (``rt_merge_hop``, one a hop).
+
 The seeds of ``khop_scan`` and ``two_hop`` go into zeroed frontier words
 by a launch of their own (``rt_seed_words``), where JAX builds its seed
 plane outside the ``pallas_call``; ``count_hop``'s interval bounds are
@@ -189,6 +194,137 @@ def two_hop(ks_a, voff_a, ks_b, voff_b, seed_ids: torch.Tensor,
 
 
 two_hop.launches = 0
+
+
+def seed_words(seed_ids: torch.Tensor, n: int, visited: torch.Tensor,
+               words: torch.Tensor, vis_words: torch.Tensor,
+               summary: torch.Tensor, g: int, sizes: torch.Tensor) -> None:
+    """The seeds of the sharded k-hop (``rt_seed_words``, ``khop_scan``'s
+    seed launch): each seed's bit into the frontier words, the visited
+    words and the summary (``_summary_shape``'s ``g``), its 1 into the
+    visited plane, and ``sizes`` zeroed.  The buffers come zeroed."""
+    note_shape("seed_words", seed_ids.shape[0], n, sizes.shape[0])
+    if not B.on_cuda(seed_ids):
+        plane = R._seed_plane(seed_ids, n)
+        w = R._pack_words(plane, words.shape[0])
+        visited.copy_(plane)
+        words.copy_(w)
+        vis_words.copy_(w)
+        summary.copy_(R.summary_words(w, g, summary.shape[0]))
+        sizes.zero_()
+        return
+    dev = seed_ids.device
+    B.check(seed_ids, "seed_ids", dev, 1)
+    n_words = -(-n // 32)
+    for name, t, size in (("visited", visited, n), ("words", words, n_words),
+                          ("vis_words", vis_words, n_words),
+                          ("summary", summary,
+                           _summary_shape(n_words)[1]),
+                          ("sizes", sizes, sizes.shape[0])):
+        B.check(t, name, dev, 1)
+        if t.shape[0] != size:
+            raise ValueError(f"{name} has {t.shape[0]} entries, want {size}")
+    if max(seed_ids.shape[0], sizes.shape[0]) > 0:
+        B.launch("rt_seed_words", B.ptr(seed_ids), seed_ids.shape[0], n,
+                 B.ptr(visited), B.ptr(words), B.ptr(vis_words),
+                 B.ptr(summary), g, B.ptr(sizes), sizes.shape[0],
+                 B.stream(dev))
+        seed_words.launches += 1
+
+
+seed_words.launches = 0
+
+
+def expand_words(key_sorted: torch.Tensor, voff: torch.Tensor,
+                 frontier: torch.Tensor, summary: torch.Tensor, g_in: int,
+                 n_key: int, filt_words: torch.Tensor,
+                 out_words: torch.Tensor, n: int) -> torch.Tensor:
+    """One expansion of kernel 6 (``rt_expand_words``, expansion B's
+    mode): the frontier words over the key space ``[0, n_key)`` with
+    their summary (``2**g_in`` words a bit) -> ``out_words``
+    int32[ceil(n / 32)] over the value space ``[0, n)``, ANDed with
+    ``filt_words``.  Returns ``out_words``."""
+    note_shape("expand_words", key_sorted.shape[0], n_key, n)
+    n_words = out_words.shape[0]
+    if not B.on_cuda(frontier):
+        plane = R.expand_plane(key_sorted, voff,
+                               R._filter_bits(frontier, n_key))
+        out_words.copy_(R._pack_words(plane, n_words) & filt_words)
+        return out_words
+    dev = frontier.device
+    _check_plan(key_sorted, voff, n, dev)
+    _check_aligned(key_sorted, "key_sorted")
+    _check_words(frontier, "frontier", (-(-n_key // 32),), n_key, dev)
+    _check_words(filt_words, "filt_words", (n_words,), n, dev)
+    _check_words(out_words, "out_words", (n_words,), n, dev)
+    B.check(summary, "summary", dev, 1)
+    if summary.shape[0] != _summary_shape(frontier.shape[0])[1]:
+        raise ValueError(f"summary has {summary.shape[0]} words, want "
+                         f"{_summary_shape(frontier.shape[0])[1]}")
+    _check_index(32 * n_words, n_key)
+    if n_words > 0:
+        B.launch("rt_expand_words", B.ptr(key_sorted), B.ptr(voff), n,
+                 n_words, B.ptr(frontier), B.ptr(summary), n_key,
+                 summary.shape[0], g_in, None, 0, B.ptr(filt_words),
+                 B.ptr(out_words), None, B.stream(dev))
+        expand_words.launches += 1
+    return out_words
+
+
+expand_words.launches = 0
+
+
+def merge_hop(partial: torch.Tensor, filt_words: torch.Tensor,
+              vis_words: torch.Tensor, visited: torch.Tensor,
+              out_words: torch.Tensor, summary: torch.Tensor, g: int,
+              plane: torch.Tensor, size: torch.Tensor, n: int) -> None:
+    """The sharded k-hop's merge of one hop (``rt_merge_hop``, see
+    :func:`.ref.merge_hop`): the OR of the mesh entries' expansion words
+    ``partial`` int32[g_mesh, n_words], ANDed with the hop's predicate
+    words and ANDNOTed with the visited words, is written to
+    ``out_words`` with its summary (``2**g`` words a bit, fully written)
+    and its 0/1 int32[n] ``plane``; the visited words and plane take it,
+    and its popcount is added into ``size`` (int32[1], zeroed by the seed
+    launch)."""
+    note_shape("merge_hop", tuple(partial.shape), n)
+    if not B.on_cuda(partial):
+        nxt, summ, pl, vw, sz = R.merge_hop(partial, filt_words, vis_words,
+                                            n, g, summary.shape[0])
+        out_words.copy_(nxt)
+        summary.copy_(summ)
+        plane.copy_(pl)
+        vis_words.copy_(vw)
+        visited.copy_(visited | pl)
+        size.copy_(sz)
+        return
+    dev = partial.device
+    n_words = -(-n // 32)
+    B.check(partial, "partial", dev, 2)
+    if partial.shape[1] != n_words or partial.shape[0] < 1:
+        raise ValueError(f"partial has shape {tuple(partial.shape)}, want "
+                         f"(g, {n_words})")
+    for name, t, want in (("filt_words", filt_words, n_words),
+                          ("vis_words", vis_words, n_words),
+                          ("out_words", out_words, n_words),
+                          ("visited", visited, n), ("plane", plane, n),
+                          ("size", size, 1)):
+        B.check(t, name, dev, 1)
+        if t.shape[0] != want:
+            raise ValueError(f"{name} has {t.shape[0]} entries, want {want}")
+    B.check(summary, "summary", dev, 1)
+    if (g, summary.shape[0]) != _summary_shape(n_words):
+        raise ValueError(f"summary ({g}, {summary.shape[0]}) is not "
+                         f"_summary_shape({n_words})")
+    _check_index(32 * n_words)
+    if n_words > 0:
+        B.launch("rt_merge_hop", B.ptr(partial), partial.shape[0], n_words,
+                 n, B.ptr(filt_words), B.ptr(vis_words), B.ptr(visited),
+                 B.ptr(out_words), B.ptr(summary), summary.shape[0], g,
+                 B.ptr(plane), B.ptr(size), B.stream(dev))
+        merge_hop.launches += 1
+
+
+merge_hop.launches = 0
 
 
 def count_hop(key_sorted: torch.Tensor, voff: torch.Tensor,

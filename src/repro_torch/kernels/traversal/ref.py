@@ -168,3 +168,31 @@ def count_hop(key_sorted, voff, starts, ends, *, n_key: int, n_out: int
     plane = (wrap_int32(torch.cumsum(delta, 0))[:n_key] > 0) \
         .to(torch.int32)
     return expand_counts(key_sorted, voff, plane)
+
+
+def summary_words(words: torch.Tensor, g: int, n_sum: int) -> torch.Tensor:
+    """A frontier's summary: int32[n_sum] words whose bit ``w >> g`` is set
+    when frontier word ``w`` holds a set bit."""
+    groups = torch.zeros(32 * n_sum, dtype=torch.int32, device=words.device)
+    w = torch.nonzero(words != 0).flatten()
+    groups[w >> g] = 1
+    return _pack_words(groups, n_sum)
+
+
+def merge_hop(partial: torch.Tensor, fw: torch.Tensor,
+              vis_words: torch.Tensor, n: int, g: int, n_sum: int
+              ) -> Tuple[torch.Tensor, ...]:
+    """The sharded k-hop's merge of one hop: ``partial`` int32[g_mesh,
+    n_words] holds each mesh entry's expansion words; their OR, ANDed with
+    the hop's predicate words ``fw`` and ANDNOTed with the visited words,
+    is the hop's new frontier.  Returns ``(words, summary, plane,
+    vis_words | words, size)``: the frontier words, their summary
+    (:func:`summary_words`), its 0/1 int32[n] plane, the visited words
+    after the hop and the plane's popcount (int32[1])."""
+    x = partial[0].clone()
+    for row in partial[1:]:
+        x |= row
+    nxt = x & fw & ~vis_words
+    plane = _filter_bits(nxt, n)
+    return (nxt, summary_words(nxt, g, n_sum), plane, vis_words | nxt,
+            plane.sum().to(torch.int32).view(1))

@@ -20,8 +20,9 @@ Two cross-tick layers ride on top:
 The JAX package's ``serve/retrieval.py`` on the port's decode, filter,
 traversal and mutable-plane entries: :meth:`GraphRetriever.ingest` lands
 edges in the adjacency's delta segments, served from the next call on.
-The partition plane is not ported yet (``partitions > 1`` raises).  The
-engine defaults to ``cuda``, the port's rule, and raises without a card.
+``partitions=`` partitions the adjacency's value column
+(:mod:`repro_torch.core.partition`), and ``stats()`` reports the
+partition plane's counters.  The engine defaults to ``cuda``, the port's rule, and raises without a card.
 """
 from __future__ import annotations
 
@@ -32,9 +33,9 @@ import numpy as np
 from repro_torch.core.delta_segment import attach_delta, live_delta, merge_rows
 from repro_torch.core.edge import AdjacencyTable
 from repro_torch.core.labels import Cond, LabelFilter
-from repro_torch.core.neighbor import (_require_unpartitioned,
-                                       decode_edge_ranges, k_hop)
+from repro_torch.core.neighbor import decode_edge_ranges, k_hop
 from repro_torch.core.page_cache import DecodedPageCache, attach_page_cache
+from repro_torch.core.partition import live_partitions, partition_column
 from repro_torch.core.table import DeltaIntColumn, TokensColumn
 from repro_torch.kernels.traversal.ops import traversal_stats
 
@@ -64,7 +65,6 @@ class GraphRetriever:
                  filter_vt=None, filter_cond: Optional[Cond] = None,
                  partitions: Optional[int] = None,
                  hops: int = 1):
-        _require_unpartitioned(partitions)
         self.adj = adj
         self.tokens_col = tokens_col
         self.max_neighbors = max_neighbors
@@ -93,6 +93,12 @@ class GraphRetriever:
         col = adj.table[adj.value_col]
         self._cache_col = col if isinstance(col, DeltaIntColumn) else None
         if self._cache_col is not None:
+            if partitions is not None:
+                # explicit partition count for the value column: every
+                # decode this retriever issues runs through the partition
+                # plane (None keeps what is attached, or the
+                # REPRO_PARTITIONS default)
+                partition_column(self._cache_col.encoded, partitions)
             if page_cache_pages is not None:
                 attach_page_cache(self._cache_col, page_cache_pages)
             else:
@@ -293,6 +299,12 @@ class GraphRetriever:
                 # crosses to the device once per version, not once per
                 # dispatch (kernel engines only)
                 s["device_mirror"] = packed.device_stats()
+            parts = live_partitions(self._cache_col.encoded)
+            if parts is not None:
+                # partition plane: partition count, dispatches, pruning
+                # (partitions_pruned counts partitions skipped because
+                # their range or statistics hull missed the batch)
+                s["partitions"] = parts.stats()
         if self.label_filter is not None:
             s["filter"] = {"cond": repr(self.label_filter.cond),
                            "considered": self.filter_considered,
@@ -311,17 +323,20 @@ class GraphRetriever:
         return s
 
     def _pruning_stats(self) -> "Dict[str, object] | None":
-        """Page zone maps that dropped pages before staging
-        (``pages_*`` / ``io_saved_bytes``) and the mutable plane's segment
-        zone maps that skipped pending-row segments
-        (``delta_segments_pruned``), under the reference's section with
-        its partition count, which is 0 here (the partition plane is not
-        ported).  ``None`` until a predicate pushes down."""
+        """The statistics pushdown's three granularities in one section:
+        partition hulls that skipped whole partitions
+        (``partitions_stats_pruned``), page zone maps that dropped pages
+        before staging (``pages_*`` / ``io_saved_bytes``), and the mutable
+        plane's segment zone maps that skipped pending-row segments
+        (``delta_segments_pruned``).  ``None`` until a predicate pushes
+        down."""
         if self._cache_col is None:
             return None
         out: Dict[str, object] = \
             dict(self._cache_col.encoded.prune_stats.as_dict())
-        out["partitions_stats_pruned"] = 0
+        parts = live_partitions(self._cache_col.encoded)
+        out["partitions_stats_pruned"] = \
+            parts.stats_pruned if parts is not None else 0
         delta = getattr(self.adj, "delta", None)
         out["delta_segments_pruned"] = \
             delta.segments_pruned if delta is not None else 0

@@ -123,4 +123,10 @@ def retrieval_stats(s):
         dm = dict(s["device_mirror"])
         assert dm.pop("engines") in (["jax"], ["cpu"])
         s["device_mirror"] = dm
+    if "partitions" in s:
+        # the partition plane names its devices: torch's "cpu" against the
+        # JAX platform's CPU device
+        parts = dict(s["partitions"])
+        assert all(d == "cpu" or "CPU" in d for d in parts.pop("devices"))
+        s["partitions"] = parts
     return s

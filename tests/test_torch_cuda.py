@@ -6,8 +6,12 @@ the same CUDA tensors, and the cuda engine's ``k_hop``, ``two_hop_pac``,
 ``frontier_edge_counts``, per-dispatch retrieval, the single-range,
 RLE-label and selection entries, numeric-filtered retrieval and the
 mutable plane's reads (rows pending, page writes, a poisoned mirror and
-its heal, a compaction) against the numpy oracle (ids, counts, values,
-PACs, IOMeter and LRU counters).
+its heal, a compaction) and the partition plane's two tails (the
+single-shard tail, and the multi-device tail on a mesh naming the card
+several times, with its launches counted per mesh entry) against the
+numpy oracle (ids, counts, values, PACs, IOMeter and LRU counters);
+``rt_merge_hop`` against its plain version and the sharded k-hop against
+``khop_scan``.
 The flash attention kernel is held against its plain version at every
 head dim it is built for, in float32 and bfloat16, and a reduced LM's
 flash route against its plain route.
@@ -1106,3 +1110,147 @@ def test_compaction_then_fused_k_hop_equals_host_loop(dev, graph):
     stale = [p for k, p in adj._traversal_plans.items()
              if k[0] != adj.table["<dst>"].encoded.version]
     assert len(stale) == 1 and not stale[0]._device
+
+
+# ------------------------------ partition plane ------------------------------
+
+def _part_graph(n_parts):
+    src, dst = powerlaw_graph(N, 6, seed=13)
+    adj = TC.build_adjacency(src, dst, N, N, TC.BY_SRC, TC.ENC_GRAPHAR,
+                             page_size=PAGE)
+    TC.partition_column(adj.table["<dst>"].encoded, n_parts)
+    return adj
+
+
+def _mesh_of(monkeypatch, dev, entries):
+    """A mesh naming the card (the CPU for the torch engine) ``entries``
+    times, the multi-device tail forced; ``"cards"``: every card, which
+    ``_devices`` gives on its own (skips with fewer than two)."""
+    if entries == "cards":
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two or more cards")
+        monkeypatch.setattr(PO, "SHARD_MIN_PAGES", 0)
+        return torch.cuda.device_count()
+    if entries:
+        cpu = torch.device("cpu")
+        monkeypatch.setattr(PO, "_devices", lambda engine: (
+            dev if engine == "cuda" else cpu,) * entries)
+        monkeypatch.setattr(PO, "SHARD_MIN_PAGES", 0)
+    return entries
+
+
+@pytest.mark.parametrize("mesh,n_parts", [(0, 2), (0, 8), (8, 8), (4, 8),
+                                          (3, 3), ("cards", 8)])
+def test_partitioned_tails_cuda_equal_numpy(dev, graph, monkeypatch, mesh,
+                                            n_parts):
+    """Both tails (``mesh`` 0: the single-shard tail on one card; else the
+    multi-device tail on a mesh naming the card ``mesh`` times, ``4, 8``
+    two partitions an entry, or over every card) against the numpy engine
+    over the same partitioned column: PACs, IOMeter, LRU counters and ``k_hop``; the
+    partition counters against the torch engine's (the numpy engine
+    counts its own route's dispatches); one launch of kernels 1, 4, 2 per
+    mesh entry (``fused_gather_decode*`` count 2 a call)."""
+    _, vt = graph
+    cards = mesh == "cards"
+    mesh = _mesh_of(monkeypatch, dev, mesh)
+    out, counters, calls, adjs = {}, {}, {}, {}
+    for engine in ("cuda", "torch", "numpy"):
+        adj = adjs[engine] = _part_graph(n_parts)
+        cache = TC.attach_page_cache(adj.table["<dst>"], 24)
+        wrappers = (PK.fused_gather_decode_bitmap_batch,
+                    LK.fused_gather_decode_filter_bitmap_batch,
+                    PK.gather_decode, K.expand_words, K.merge_hop)
+        before = [w.launches for w in wrappers]
+        rng = np.random.default_rng(3)
+        res = []
+        for filt in (None, TC.LabelFilter(vt, TC.L("A") | ~TC.L("B"))):
+            for batch in (40, 300, 300):
+                m = TC.IOMeter()
+                pac = TC.retrieve_neighbors_batch(
+                    adj, rng.integers(0, N, batch), 512, m, engine=engine,
+                    filter=filt)
+                res.append((sorted((p, w.tolist())
+                                   for p, w in pac.bitmaps.items()),
+                            m.nbytes, m.nrequests, cache.stats()))
+        m = TC.IOMeter()
+        ids = TC.k_hop(adj, np.array([3, 17, 999]), 3, m, engine=engine,
+                       filter=[None, TC.LabelFilter(vt, TC.L("A")), None])
+        res.append((ids.tolist(), m.nbytes, m.nrequests, cache.stats()))
+        st = TC.live_partitions(adj.table["<dst>"].encoded).stats()
+        counters[engine] = {k: st[k] for k in ("dispatches",
+                                               "partitions_pruned",
+                                               "stats_pruned")}
+        out[engine] = res
+        calls[engine] = [w.launches - b for w, b in zip(wrappers, before)]
+    assert out["cuda"] == out["numpy"] == out["torch"]
+    assert counters["cuda"] == counters["torch"]
+    parts = TC.live_partitions(adjs["cuda"].table["<dst>"].encoded)
+    g = parts.mesh_size(mesh) if mesh else 1
+    if cards:   # each card holds its entry's block
+        assert parts.stats()["devices"] == [f"cuda:{i}" for i in range(g)]
+    fused, filtered, decode, expand, merge = calls["cuda"]
+    # 3 unfiltered and 3 filtered fused calls, each one launch (2 kernels)
+    # per mesh entry; the plan build's decode one per entry; 3 hops
+    assert (fused, filtered) == (2 * 3 * g, 2 * 3 * g)
+    assert decode == g
+    if g > 1:
+        assert (expand, merge) == (3 * g, 3)
+    else:
+        assert (expand, merge) == (0, 0)
+
+
+@pytest.mark.parametrize("n_words", [1, 33, 6144 * 32, 6144 * 32 + 1])
+@pytest.mark.parametrize("mesh", [1, 8])
+def test_merge_hop_kernel_equals_plain(dev, n_words, mesh):
+    """``rt_merge_hop`` against its plain version at ``_summary_shape``'s
+    edges (the summary's ``g`` steps from 0 to 1 past 196,608 words)."""
+    rng = np.random.default_rng(n_words)
+    n = 32 * n_words - 7
+    g, n_sum = K._summary_shape(n_words)
+
+    def words(shape, p):
+        w = rng.integers(-(1 << 31), 1 << 31, shape, dtype=np.int64)
+        w[rng.random(shape) >= p] = 0
+        w[..., -1] &= (1 << 25) - 1
+        return torch.from_numpy(w.astype(np.int32))
+    partial, fw = words((mesh, n_words), 0.05), words(n_words, 0.7)
+    vis = words(n_words, 0.5)
+    outs = {}
+    for where in ("cpu", dev):
+        vw = vis.clone().to(where)
+        visited = R._filter_bits(vw, n).to(where)
+        bufs = [torch.full((k,), -5, dtype=torch.int32, device=where)
+                for k in (n_words, n_sum, n)]
+        size = torch.zeros(1, dtype=torch.int32, device=where)
+        K.merge_hop(partial.to(where), fw.to(where), vw, visited, bufs[0],
+                    bufs[1], g, bufs[2], size, n)
+        outs[str(where)] = [t.cpu() for t in (*bufs, vw, visited, size)]
+    for a, b in zip(outs["cpu"], outs[str(dev)]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cards", [False, True])
+def test_sharded_khop_cuda_equals_khop_scan(dev, graph, cards):
+    """The multi-device k-hop on a mesh naming the card 4 times over 8
+    partitions (``ppd = 2``), or over every card, against the single-shard
+    ``khop_scan`` on the same column: visited plane, hop planes and
+    sizes."""
+    from repro_torch.kernels import shard
+    adj = _part_graph(8)
+    _, vt = graph
+    plan = TO.traversal_plan(adj, "cuda")
+    parts = TC.live_partitions(adj.table["<dst>"].encoded)
+    mesh = (dev,) * 4
+    if cards:
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two or more cards")
+        mesh = parts.mesh_devices(PO._devices("cuda"))
+    seeds = torch.tensor([3, 17, 999] + [N] * 61, dtype=torch.int32,
+                         device=dev)
+    fw = TO._filter_words([None, TC.LabelFilter(vt, TC.L("A")), None], 3,
+                          -(-N // 32), N, dev)
+    got = shard.sharded_khop(mesh, plan.sharded_arrays(parts, mesh), seeds,
+                             fw, N)
+    want = K.khop_scan(*plan.device(dev), seeds, fw, n_out=N)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

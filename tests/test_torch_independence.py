@@ -216,6 +216,53 @@ print("LOADED", bad)
 """
 
 
+PARTITION_PROBE = """
+import sys
+import numpy as np
+import torch
+import repro_torch.core as TC
+from repro_torch.data.synthetic import clustered_labels, powerlaw_graph
+from repro_torch.kernels.pac_decode import ops as pac_ops
+from repro_torch.serve.retrieval import GraphRetriever
+torch.set_num_threads(1)
+n = 600
+src, dst = powerlaw_graph(n, 5, seed=1)
+adj = TC.build_adjacency(src, dst, n, n, TC.BY_SRC, TC.ENC_GRAPHAR,
+                         page_size=64)
+labels = clustered_labels(n, ["A", "B"], run_scale=32, seed=1)
+vt = TC.VertexTable.build(TC.VertexTypeSchema("v", [], labels=["A", "B"]),
+                          {}, labels, num_vertices=n)
+filt = TC.LabelFilter(vt, TC.L("A"))
+TC.attach_page_cache(adj.table["<dst>"], 16)
+want = TC.k_hop(adj, [1, 2], 2, engine="numpy")
+for mesh in (1, 4):
+    # the multi-device tail on a mesh naming the CPU `mesh` times
+    pac_ops._devices = lambda engine, m=mesh: (torch.device("cpu"),) * m
+    pac_ops.SHARD_MIN_PAGES = 0
+    for parts in (3, 8):
+        assert TC.retrieve_neighbors_batch(adj, np.arange(40), 256,
+                                           engine="torch", filter=filt,
+                                           partitions=parts).count() > 0
+        assert (TC.k_hop(adj, [1, 2], 2, engine="torch",
+                         partitions=parts) == want).all()
+tokens = TC.TokensColumn("t", [np.arange(4, dtype=np.int32)] * n, 64)
+retr = GraphRetriever(adj, tokens, engine="torch", partitions=8)
+retr(np.arange(12))
+assert retr.stats()["partitions"]["n_parts"] == 8
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("LOADED", bad)
+"""
+
+
+def test_partitioned_retrieval_loads_neither_jax_nor_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", PARTITION_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_serving_loads_neither_jax_nor_the_jax_package():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", SERVE_PROBE], env=env,

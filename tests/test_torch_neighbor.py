@@ -146,11 +146,44 @@ def test_steady_state_keeps_shape_classes_flat(graphs):
 
 
 def test_unported_routes_raise(graphs, monkeypatch):
-    adj, vt = graphs[TC]
+    """The partition plane's former raise: the ``REPRO_PARTITIONS``
+    default (4 here) and ``partitions=2`` on ``neighbor_properties_batch``
+    now route through it, equal to the reference's (fresh adjacencies: the
+    fixture's are shared)."""
+    from repro.core import partition as RP
+    from repro_torch.core import partition as TP
+    from repro_torch.data.synthetic import powerlaw_graph
+    src, dst = powerlaw_graph(N, 6, locality=1.0, seed=31)
+    adj = {mod: mod.build_adjacency(src, dst, N, N, mod.BY_SRC,
+                                    mod.ENC_GRAPHAR, page_size=PAGE)
+           for mod in (RC, TC)}
+    monkeypatch.setattr(TP, "DEFAULT_PARTITIONS", 4)
+    monkeypatch.setattr(RP, "DEFAULT_PARTITIONS", 4)
     vs = np.arange(20)
-    monkeypatch.setenv("REPRO_PARTITIONS", "4")
-    with pytest.raises(NotImplementedError, match="partition"):
-        TC.retrieve_neighbors_batch(adj, vs, TPS, engine="torch")
+    out = {}
+    for mod, eng in ((RC, "jax"), (TC, "torch")):
+        m = mod.IOMeter()
+        pac = mod.retrieve_neighbors_batch(adj[mod], vs, TPS, m, engine=eng,
+                                           filter=mod.LabelFilter(
+                                               graphs[mod][1],
+                                               _cond(mod, "low")))
+        parts = mod.live_partitions(adj[mod].table["<dst>"].encoded)
+        assert parts.n_parts == 4
+        vals = mod.neighbor_properties_batch(
+            adj[mod], vs, adj_vt(mod), "x", m, engine=eng, partitions=2)
+        assert mod.live_partitions(
+            adj[mod].table["<dst>"].encoded).n_parts == 2
+        out[mod] = (_pac(pac), vals.tolist(), m.nbytes, m.nrequests,
+                    parts.stats_pruned, parts.dispatches)
+    assert out[TC] == out[RC]
+
+
+def adj_vt(mod):
+    """A value-side table with one int64 property, in ``mod``'s package."""
+    return mod.VertexTable.build(
+        mod.VertexTypeSchema("v", [mod.PropertySchema("x", "int64")],
+                             page_size=PAGE),
+        {"x": np.arange(N) * 7}, {}, num_vertices=N)
 
 
 def test_words_pool_double_buffers(graphs):

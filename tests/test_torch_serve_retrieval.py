@@ -288,11 +288,28 @@ def test_set_knob_and_stats_equal_the_reference():
 # ------------------------------ not ported ----------------------------------
 
 def test_ingest_and_partitions_raise(doc_lake):
+    """One partition keeps the monolithic column and no section; at
+    ``partitions=2`` (once the partition plane's raise) the retriever's
+    contexts, IOMeter, LRU and ``stats()`` -- its ``partitions`` section
+    and the pruning's ``partitions_stats_pruned`` included -- equal the
+    reference's."""
     adj, tokens_col = doc_lake
     r = GraphRetriever(adj, tokens_col, engine="numpy", partitions=1)
-    with pytest.raises(NotImplementedError, match="partition plane"):
-        GraphRetriever(adj, tokens_col, engine="numpy", partitions=2)
     assert "partitions" not in r.stats() and "mutable" not in r.stats()
+    rs = {}
+    for mod, cls, eng in ((J, JGraphRetriever, "jax"),
+                          (T, GraphRetriever, "torch")):
+        g, adj2, tok, lk = lake(mod)
+        rs[mod] = cls(adj2, tok, meter=mod.IOMeter(), engine=eng,
+                      partitions=2, page_cache_pages=16, hops=2,
+                      filter_vt=g.vertex("doc"),
+                      filter_cond=mod.L(sorted(lk.labels)[0]))
+    for vs in _batches(rs[J].adj):
+        for a, b in zip(rs[T](vs), rs[J](vs)):
+            np.testing.assert_array_equal(a, b)
+    _assert_same(rs[J], rs[T])
+    assert rs[T].stats()["partitions"]["n_parts"] == 2
+    assert "partitions_stats_pruned" in rs[T].stats()["pruning"]
 
 
 def test_mutation_epoch_follows_the_column_version():

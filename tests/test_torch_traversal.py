@@ -343,11 +343,28 @@ def test_steady_state_keeps_shape_classes_flat(graphs):
 
 
 def test_unported_routes_raise(graphs):
+    """The numpy engine still refuses the fused route; ``partitions=2``,
+    once the partition plane's raise, now partitions the column, with ids,
+    IOMeter and ``traversal_stats`` equal to the reference's (fresh
+    adjacencies: the fixture's are shared)."""
     adj, _ = graphs[TC]
     with pytest.raises(ValueError, match="kernel engine"):
         TC.k_hop(adj, np.array([0]), 2, engine="numpy", fused=True)
-    with pytest.raises(NotImplementedError, match="partition"):
-        TC.k_hop(adj, np.array([0]), 2, engine="torch", partitions=2)
+    from repro_torch.data.synthetic import powerlaw_graph
+    src, dst = powerlaw_graph(N, 6, seed=13)
+    out = {}
+    for mod, eng in ((RC, "jax"), (TC, "torch")):
+        fresh = mod.build_adjacency(src, dst, N, N, mod.BY_SRC,
+                                    mod.ENC_GRAPHAR, page_size=PAGE)
+        m = mod.IOMeter()
+        ids = mod.k_hop(fresh, np.array([0, 17, 999]), 2, m, engine=eng,
+                        filter=mod.LabelFilter(graphs[mod][1], mod.L("A")),
+                        partitions=2)
+        parts = mod.live_partitions(fresh.table["<dst>"].encoded)
+        out[mod] = (ids.tolist(), m.nbytes, m.nrequests, parts.n_parts,
+                    parts.dispatches,
+                    (RO if mod is RC else TO).traversal_stats(fresh))
+    assert out[TC] == out[RC]
 
 
 # ----------------------- IC-8's chain and BI-2's count ---------------------
