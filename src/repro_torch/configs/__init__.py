@@ -1,10 +1,10 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``list_archs()``.
 
 The configurations are data, copied from the JAX package's ``configs``
-(not imported), so both packages build the same architectures.  The port
-builds the dense attention family; a config whose layers need MoE, SSM,
-cross-attention or an encoder raises ``NotImplementedError`` when a model
-is built from it (``repro_torch.models``)."""
+(not imported), so both packages build the same architectures, and the
+port builds every one of them (``repro_torch.models``): the dense, MoE,
+SSM, hybrid, encoder-decoder and VLM families.  ``graphar_paper`` holds
+the paper's own workload knobs, outside the registry."""
 from .base import (FULL_WINDOW, LayerSpec, ModelConfig, MoESpec, SSMSpec,
                    get_config, list_archs, register)
 

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -113,10 +114,13 @@ class PartitionedColumn:
     :func:`partition_column` and cached on the column.  Holds the
     per-partition :class:`~repro_torch.core.encoding.PackedPages`, the
     pruning/dispatch counters and the device placements of the stacked
-    plan.
+    plan.  Its column is held by a weak reference (the column holds the
+    plane in ``partition_cache``), so a column its caller drops frees its
+    partitions' pages and device placements at once, with no cyclic
+    collection.
     """
 
-    col: DeltaColumn
+    _col: "weakref.ReferenceType[DeltaColumn]"
     bounds: np.ndarray              # int64 [n_parts + 1], page units
     parts: List[Partition]
     version: int = 0
@@ -133,6 +137,17 @@ class PartitionedColumn:
         default=0, repr=False, compare=False)
     _mesh_sizes: Dict[int, int] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
+
+    def __post_init__(self) -> None:
+        if not isinstance(self._col, weakref.ReferenceType):
+            self._col = weakref.ref(self._col)
+
+    @property
+    def col(self) -> DeltaColumn:
+        col = self._col()
+        if col is None:
+            raise ReferenceError("the partitioned column was dropped")
+        return col
 
     @property
     def n_parts(self) -> int:

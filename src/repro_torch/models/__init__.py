@@ -1,4 +1,4 @@
-"""The language-model stack of the dense family on PyTorch (the JAX
-package's ``models``); MoE, SSM, cross-attention and encoders are not
-ported yet (ROADMAP item 10)."""
+"""The language-model stack on PyTorch (the JAX package's ``models``):
+every registered family -- dense, MoE, SSM, hybrid, encoder-decoder and
+VLM."""
 from .model import LM, build_model, param_count

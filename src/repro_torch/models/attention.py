@@ -1,11 +1,10 @@
-"""Attention: GQA and sliding-window self-attention with KV-cache decode.
+"""Attention: GQA, sliding-window and cross attention with KV-cache decode.
 
-The JAX package's ``models/attention.py`` on PyTorch, for self-attention
-(cross-attention, the ``kv_override`` route, is not ported: ROADMAP item
-10).  The full-sequence forward with ``use_flash`` goes through the flash
-attention kernel (``kernels/flash_attention``); every other call runs the
-plain tensor code of :func:`sdpa`, as the reference leaves its einsums to
-XLA.  The reference's GSPMD sharding hints have no effect on one device
+The JAX package's ``models/attention.py`` on PyTorch.  The full-sequence
+self-attention with ``use_flash`` goes through the flash attention kernel
+(``kernels/flash_attention``); every other call -- a cached one, or cross
+attention over given keys and values (``kv_override``) -- runs the plain
+tensor code of :func:`sdpa`, as the reference leaves its einsums to XLA.  The reference's GSPMD sharding hints have no effect on one device
 and are dropped.
 
 The KV cache is written in place (the reference returns new arrays); the
@@ -125,41 +124,50 @@ def attention_apply(attn: Attention, x: torch.Tensor, *, num_heads: int,
                     num_kv_heads: int, head_dim: int,
                     positions: torch.Tensor, window: int,
                     rope_theta: float = 10_000.0, causal: bool = True,
-                    use_rope: bool = True, cache: Optional[Dict] = None,
-                    use_flash: bool = False
+                    use_rope: bool = True,
+                    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]] = None,
+                    cache: Optional[Dict] = None, use_flash: bool = False
                     ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Self-attention with an optional KV cache.
+    """Self or cross attention with an optional KV cache.
 
     * forward / training: ``cache=None`` -> (out, None);
     * prefill / decode: ``cache={'k','v','index'}`` -> writes this call's
       k/v at ``index``, attends over the whole cache (entries past
       ``index + s`` are masked by causality w.r.t. the query positions),
-      returns (out, cache).
+      returns (out, cache);
+    * cross attention: ``kv_override=(k, v, k_pos)``, already split into
+      heads: no K/V projection, no k norm, no rope on k, no cache write.
 
-    ``use_flash`` with no cache takes the flash kernel, which masks by
-    sequence order alone: like the reference's flash route, it ignores
-    ``window`` and ``positions``."""
+    ``use_flash`` on a self-attention with no cache takes the flash
+    kernel, which masks by sequence order alone: like the reference's
+    flash route, it ignores ``window`` and ``positions``."""
     b, s, _ = x.shape
     q = matmul(x, attn.q).view(b, s, num_heads, head_dim)
-    k = matmul(x, attn.k).view(b, s, num_kv_heads, head_dim)
-    v = matmul(x, attn.v).view(b, s, num_kv_heads, head_dim)
+    if kv_override is None:
+        k = matmul(x, attn.k).view(b, s, num_kv_heads, head_dim)
+        v = matmul(x, attn.v).view(b, s, num_kv_heads, head_dim)
+        k_pos = positions
+    else:
+        k, v, k_pos = kv_override
     if hasattr(attn, "q_norm"):
         q = attn.q_norm(q)
-        k = attn.k_norm(k)
+        if kv_override is None:
+            k = attn.k_norm(k)
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+        if kv_override is None:
+            k = apply_rope(k, k_pos, rope_theta)
 
-    k_pos = positions
     new_cache = None
-    if cache is not None:
+    if cache is not None and kv_override is None:
         new_cache = _write_cache(cache, k, v)
         k, v = new_cache["k"], new_cache["v"]
         t = k.shape[1]
         k_pos = torch.arange(t, dtype=torch.int32,
                              device=x.device).expand(b, t)
 
-    if use_flash and cache is None:
+    if use_flash and cache is None and kv_override is None:
         # [b, h, s, d] views: the kernel reads them and the KV heads in
         # place and writes a [b, s, h, d] tensor, so neither side copies
         from repro_torch.kernels.flash_attention import ops as fa

@@ -4,8 +4,10 @@
 as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``)
 and returns the state dict of the port's ``LM`` for the same config.  The
 stacked ``units`` (leading axis ``n_units``) are split into the unrolled
-``layers`` (unit ``u``'s layer ``j`` is ``layers.{u * unit_size + j}``);
-``prefix_{i}`` is ``prefix.{i}``; every other name is the same.  Arrays
+``layers`` (unit ``u``'s layer ``j`` is ``layers.{u * unit_size + j}``),
+and the encoder's stacked ``enc_units`` (leading axis ``encoder_layers``)
+into ``enc_layers.{u}``; ``prefix_{i}`` is ``prefix.{i}``; every other
+name (``enc_norm``, the MoE banks, the SSM leaves) is the same.  Arrays
 of JAX's bfloat16 (``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses) are carried bit for bit through their 16-bit patterns.
 """
@@ -37,27 +39,33 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _unstack(state: Dict[str, torch.Tensor], name: str, arr, n: int,
+             key) -> None:
+    """Split the stacked leaf ``name`` (leading axis ``n``) into
+    ``key(u)`` for each ``u``."""
+    arr = np.asarray(arr)
+    if arr.shape[0] != n:
+        raise ValueError(f"{name}: leading axis {arr.shape[0]} is not {n}")
+    for u in range(n):
+        state[key(u)] = to_tensor(arr[u])
+
+
 def params_from_jax(cfg: ModelConfig, tree: Mapping) -> Dict[str,
                                                             torch.Tensor]:
     """The port's state dict for the JAX parameter ``tree`` of ``cfg``."""
     state: Dict[str, torch.Tensor] = {}
     for name, arr in _flatten(tree).items():
         head, _, rest = name.partition(".")
+        unit, _, leaf = rest.partition(".")            # l{j}.<leaf>
         if head == "units":
-            unit, _, leaf = rest.partition(".")        # l{j}.<leaf>
             j = int(unit[1:])
-            arr = np.asarray(arr)
-            if arr.shape[0] != cfg.n_units:
-                raise ValueError(f"{name}: leading axis {arr.shape[0]} is "
-                                 f"not n_units {cfg.n_units}")
-            for u in range(cfg.n_units):
-                state[f"layers.{u * cfg.unit_size + j}.{leaf}"] = \
-                    to_tensor(arr[u])
+            _unstack(state, name, arr, cfg.n_units,
+                     lambda u: f"layers.{u * cfg.unit_size + j}.{leaf}")
+        elif head == "enc_units":
+            _unstack(state, name, arr, cfg.encoder_layers,
+                     lambda u: f"enc_layers.{u}.{leaf}")
         elif head.startswith("prefix_"):
             state[f"prefix.{head[len('prefix_'):]}.{rest}"] = to_tensor(arr)
-        elif head in ("enc_units", "enc_norm"):
-            raise NotImplementedError("the encoder is not ported to "
-                                      "repro_torch yet (ROADMAP item 10)")
         else:
             state[name] = to_tensor(arr)
     return state

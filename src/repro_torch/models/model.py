@@ -1,10 +1,14 @@
-"""Model assembly: the decoder-only language model of the dense family.
+"""Model assembly: decoder-only, encoder-decoder and VLM language models.
 
 The JAX package's ``models/model.py`` on PyTorch.  ``LM`` is an
 ``nn.Module``: the ``prefix`` layers, then the ``n_units`` repeating units
 unrolled into one ``ModuleList`` (no scan, no remat: PyTorch runs
-eagerly).  Parameters keep the JAX package's names and layouts, so
-``models/convert.py`` carries a JAX parameter tree across as it is.
+eagerly), and for encoder-decoder configs the encoder's layers
+(``enc_layers``, non-causal) and ``enc_norm``.  The cross-attention
+context is the encoder's output over ``batch["frames"]`` or the
+pre-projected ``batch["vision"]`` embeddings.  Parameters keep the JAX
+package's names and layouts, so ``models/convert.py`` carries a JAX
+parameter tree across as it is.
 
 The model lives on ``cuda:0`` unless the caller passes another device
 (``"cpu"`` for the plain versions, ``"meta"`` to count parameters without
@@ -22,9 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import FULL_WINDOW, ModelConfig
+from repro_torch.configs.base import FULL_WINDOW, LayerSpec, ModelConfig
 
-from .blocks import Block, check_spec, layer_apply, layer_cache_init
+from .blocks import Block, layer_apply, layer_cache_init
 from .layers import Norm, embed_init, param, softmax_cross_entropy
 
 Cache = Dict
@@ -45,13 +49,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 class LM(nn.Module):
-    """Config -> parameters, full forward, loss, KV cache, prefill and
+    """Config -> parameters, full forward, loss, caches, prefill and
     decode."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        for spec in tuple(cfg.prefix) + tuple(cfg.unit):
-            check_spec(cfg, spec)
         self.cfg = cfg
         dev = resolve_device(device)
         dt = DTYPES[cfg.param_dtype]
@@ -67,6 +69,11 @@ class LM(nn.Module):
             for _ in range(cfg.n_units) for spec in cfg.unit)
         #: per block (prefix, then unit layers) attention window, 0 = full
         self.windows = [FULL_WINDOW] * len(cfg.prefix) + list(cfg.windows())
+        if cfg.encoder_layers:
+            self.enc_layers = nn.ModuleList(
+                Block(cfg, LayerSpec(kind="attn"), 0, dt, dev)
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = Norm(cfg.norm, cfg.d_model, dt, dev)
 
     @property
     def device(self) -> torch.device:
@@ -91,6 +98,10 @@ class LM(nn.Module):
         self.lm_head.copy_(head.t())
         for block in self.blocks():
             block.init_(gen)
+        if cfg.encoder_layers:
+            for block in self.enc_layers:
+                block.init_(gen)
+            self.enc_norm.init_()
         return self
 
     # -------------------------------------------------------------- decoder
@@ -107,19 +118,45 @@ class LM(nn.Module):
         return x
 
     def _decoder(self, x: torch.Tensor, positions: torch.Tensor,
+                 cross_ctx: Optional[torch.Tensor],
                  caches: Optional[List[Dict]]
-                 ) -> Tuple[torch.Tensor, Optional[List[Dict]], float]:
-        aux = 0.0
+                 ) -> Tuple[torch.Tensor, Optional[List[Dict]],
+                            torch.Tensor]:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = [] if caches is not None else None
         for i, (block, window) in enumerate(zip(self.blocks(),
                                                 self.windows)):
             cache = None if caches is None else caches[i]
             x, c, a = layer_apply(self.cfg, block, x, positions=positions,
-                                  window=window, cache=cache)
-            aux += a
+                                  window=window, cross_ctx=cross_ctx,
+                                  cache=cache)
+            aux = aux + a
             if caches is not None:
                 new_caches.append(c)
         return x, new_caches, aux
+
+    def _encoder(self, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder: non-causal attention layers over the frames at
+        positions 0..T-1, then ``enc_norm``."""
+        b, t, _ = frames.shape
+        x = frames
+        for block in self.enc_layers:
+            x, _, _ = layer_apply(self.cfg, block, x,
+                                  positions=self._positions(b, t),
+                                  window=FULL_WINDOW, causal=False)
+        return self.enc_norm(x)
+
+    def _cross_context(self, batch: Dict) -> Optional[torch.Tensor]:
+        """``batch["frames"]`` through the encoder, or ``batch["vision"]``,
+        in the compute type; None for a decoder-only config."""
+        cfg = self.cfg
+        dt = DTYPES[cfg.compute_dtype]
+        if cfg.encoder_layers:
+            return self._encoder(torch.as_tensor(
+                batch["frames"], device=self.device).to(dt))
+        if cfg.num_vision_tokens:
+            return torch.as_tensor(batch["vision"], device=self.device).to(dt)
+        return None
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.lm_head.to(x.dtype)
@@ -132,16 +169,17 @@ class LM(nn.Module):
     @torch.no_grad()
     def forward(self, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full forward (the reference's ``LM.apply``): ``batch["tokens"]``
-        [B, S] (and optional ``positions``) -> (logits [B, S, V], aux)."""
+        [B, S] (optional ``positions``; ``frames`` or ``vision`` for the
+        cross-attention families) -> (logits [B, S, V], aux float32)."""
         tokens = self._tokens(batch["tokens"])
         b, s = tokens.shape
         positions = batch.get("positions")
         positions = self._positions(b, s) if positions is None \
             else self._tokens(positions)
-        x, _, aux = self._decoder(self._embed(tokens), positions, None)
+        x, _, aux = self._decoder(self._embed(tokens), positions,
+                                  self._cross_context(batch), None)
         x = self.final_norm(x)
-        return self._head(x), torch.full((), aux, dtype=torch.float32,
-                                         device=self.device)
+        return self._head(x), aux
 
     def loss(self, batch: Dict) -> Tuple[torch.Tensor, Dict]:
         logits, aux = self.forward(batch)
@@ -152,13 +190,16 @@ class LM(nn.Module):
         return ce + 0.01 * aux, {"ce": ce, "aux": aux, "tokens": ntok}
 
     # ----------------------------------------------------------------- cache
-    def init_cache(self, batch_size: int, max_len: int,
+    def init_cache(self, batch_size: int, max_len: int, ctx_len: int = 0,
                    dtype=torch.bfloat16, vector_index: bool = False) -> Cache:
-        """``{"index", "layers": [{"kv": {"k", "v", "index"}}, ...]}``.
+        """``{"index", "layers": [...]}``, a layer's cache holding ``kv``
+        (``{"k", "v", "index"}``) or ``ssm`` (``{"conv", "state"}``) and,
+        on a cross layer, ``cross`` (``{"k", "v"}``, ``ctx_len`` long).
         ``vector_index=True`` gives per-slot positions (an int32 [B] on the
         device; continuous batching); the default scalar index (a 0-dim
         CPU tensor) keeps all slots aligned.  The default type is bfloat16
-        whatever the model's, as in the reference."""
+        whatever the model's, as in the reference (the SSM state is
+        float32)."""
         cfg = self.cfg
         specs = list(cfg.prefix) + list(cfg.unit) * cfg.n_units
         return {
@@ -166,21 +207,24 @@ class LM(nn.Module):
                                   device=self.device)
                       if vector_index else torch.zeros((), dtype=torch.int32)),
             "layers": [layer_cache_init(cfg, spec, batch_size, max_len, dtype,
-                                        vector_index, self.device)
+                                        vector_index, self.device, ctx_len)
                        for spec in specs],
         }
 
     @torch.no_grad()
     def prefill(self, batch: Dict, cache: Cache
                 ) -> Tuple[torch.Tensor, Cache]:
-        """Run the prompt [B, S] through the model at positions 0..S-1,
-        writing its keys and values into ``cache`` (in place) at the
-        cache's index.  Returns (logits of the last position [B, 1, V],
-        cache)."""
+        """Run the prompt [B, S] (and the cross context of ``batch``)
+        through the model at positions 0..S-1, writing its keys and values
+        into ``cache`` (in place) at the cache's index, the SSM state and
+        conv tail in place, and the context's keys and values.  Returns
+        (logits of the last position [B, 1, V], cache)."""
         tokens = self._tokens(batch["tokens"])
         b, s = tokens.shape
         x, layers, _ = self._decoder(self._embed(tokens),
-                                     self._positions(b, s), cache["layers"])
+                                     self._positions(b, s),
+                                     self._cross_context(batch),
+                                     cache["layers"])
         x = self.final_norm(x)
         return self._head(x[:, -1:]), {"index": cache["index"] + s,
                                        "layers": layers}
@@ -195,7 +239,7 @@ class LM(nn.Module):
         positions = idx.to(torch.int32)[:, None] if idx.dim() == 1 else \
             torch.full((b, 1), int(idx), dtype=torch.int32,
                        device=self.device)
-        x, layers, _ = self._decoder(self._embed(tokens), positions,
+        x, layers, _ = self._decoder(self._embed(tokens), positions, None,
                                      cache["layers"])
         x = self.final_norm(x)
         return self._head(x), {"index": idx + 1, "layers": layers}

@@ -381,16 +381,19 @@ class ServeEngine:
     def _template(self, k: int) -> Dict:
         """The empty batch-``k`` prefill cache, built once per ``k``.  The
         model writes a cache in place, so a reused template holds the last
-        group's rows: its k and v are zeroed before every prefill, which
-        gives each group the reference's fresh zero cache."""
+        group's rows: every leaf (k and v, an SSM layer's conv tail, which
+        a prefill reads, and its state) is zeroed before every prefill,
+        which gives each group the reference's fresh zero cache."""
         tmpl = self._tmp_caches.get(k)
         if tmpl is None:
             tmpl = self.model.init_cache(k, self.max_len,
                                          dtype=torch.float32)
             self._tmp_caches[k] = tmpl
         for layer in tmpl["layers"]:
-            layer["kv"]["k"].zero_()
-            layer["kv"]["v"].zero_()
+            for part in layer.values():
+                for name, leaf in part.items():
+                    if name != "index":
+                        leaf.zero_()
         return tmpl
 
     def _prefill_group(self, grp: List[tuple]) -> None:

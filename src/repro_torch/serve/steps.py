@@ -27,7 +27,9 @@ def write_slots(cache: Dict, prefill_cache: Dict,
     same-length prompts) into slot ``slots[j]`` of a vector-index
     ``cache``, in place, and set those slots' index to the prefill's: the
     port of the reference engine's ``_write_slots``, which admits a group
-    of prompts into a continuous batch."""
+    of prompts into a continuous batch.  Every leaf of a layer's cache is
+    written: ``kv`` (k, v and index), ``ssm`` (conv and state) and
+    ``cross`` (k, v)."""
     if cache["index"].dim() != 1 or prefill_cache["index"].dim() != 0:
         raise ValueError("write_slots takes a vector-index cache and a "
                          "scalar-index prefill cache")
@@ -35,10 +37,17 @@ def write_slots(cache: Dict, prefill_cache: Dict,
     rows = torch.as_tensor(list(slots), dtype=torch.long, device=dev)
     n = int(prefill_cache["index"])
     for dst, src in zip(cache["layers"], prefill_cache["layers"]):
-        dkv, skv = dst["kv"], src["kv"]
-        t = min(dkv["k"].shape[1], skv["k"].shape[1])
-        dkv["k"][rows, :t] = skv["k"][:, :t].to(dkv["k"].dtype)
-        dkv["v"][rows, :t] = skv["v"][:, :t].to(dkv["v"].dtype)
-        dkv["index"][rows] = n
+        if "kv" in dst:
+            dkv, skv = dst["kv"], src["kv"]
+            t = min(dkv["k"].shape[1], skv["k"].shape[1])
+            dkv["k"][rows, :t] = skv["k"][:, :t].to(dkv["k"].dtype)
+            dkv["v"][rows, :t] = skv["v"][:, :t].to(dkv["v"].dtype)
+            dkv["index"][rows] = n
+        for part, leaves in (("ssm", ("conv", "state")),
+                             ("cross", ("k", "v"))):
+            if part in dst:
+                for leaf in leaves:
+                    d = dst[part][leaf]
+                    d[rows] = src[part][leaf].to(d.dtype)
     cache["index"][rows] = n
     return cache

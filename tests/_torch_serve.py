@@ -4,6 +4,7 @@ packages (the port's carrying the reference's ``init(0)`` weights through
 seed, and requests built twice from one seeded stream (the engines
 mutate requests in place)."""
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -22,6 +23,9 @@ torch.set_num_threads(1)
 
 #: the reference's engines beside the port's on the same inputs
 ENGINE_PAIRS = [("numpy", "numpy"), ("jax", "torch")]
+#: a reference step is decisive when its top two float32 logits lie more
+#: than this apart
+MARGIN = 1e-4
 
 _MODELS = {}
 
@@ -130,3 +134,20 @@ def retrieval_stats(s):
         assert all(d == "cpu" or "CPU" in d for d in parts.pop("devices"))
         s["partitions"] = parts
     return s
+
+
+def decisive_prefix(jm, jp, req):
+    """How many leading tokens of the reference request ``req`` are
+    decisive: the steps before the first whose top two logits, in the
+    reference's float32 forward over prompt and tokens, lie at most
+    ``MARGIN`` apart (all of them when none does)."""
+    seq = np.concatenate([np.asarray(req.prompt, np.int32),
+                          np.asarray(req.output, np.int32)])
+    logits, _ = jax.jit(jm.apply)(jp, {"tokens": jnp.asarray(seq[None])})
+    logits = np.asarray(logits[0], np.float32)
+    n = len(req.prompt)
+    for i in range(len(req.output)):
+        top2 = np.sort(logits[n - 1 + i])[-2:]
+        if top2[1] - top2[0] <= MARGIN:
+            return i
+    return len(req.output)

@@ -1254,3 +1254,129 @@ def test_sharded_khop_cuda_equals_khop_scan(dev, graph, cards):
     want = K.khop_scan(*plan.device(dev), seeds, fw, n_out=N)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_dropped_partitioned_column_frees_device_memory(dev):
+    """The partition plane holds its column weakly: a partitioned column
+    whose stacked plan was placed on the card gives its device memory back
+    when its caller drops it, with the cyclic collector off from before
+    the column is built (earlier tests' garbage collected first)."""
+    import gc
+    import weakref
+    gc.collect()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        adj = _part_graph(8)
+        vs = np.arange(0, N, 3)
+        assert TC.retrieve_neighbors_batch(adj, vs, 512, TC.IOMeter(),
+                                           engine="cuda").count() > 0
+        torch.cuda.synchronize()
+        placed = torch.cuda.memory_allocated(dev)
+        plane = weakref.ref(TC.live_partitions(adj.table["<dst>"].encoded))
+        assert placed > base and plane()._device_plans, (base, placed)
+        del adj
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated(dev)
+        assert plane() is None
+        assert after < placed, (base, placed, after)
+    finally:
+        gc.enable()
+
+
+# ------------------------- the rest of the LM stack --------------------------
+
+FAMILIES = ["deepseek-moe-16b", "qwen3-moe-30b-a3b", "mamba2-2.7b",
+            "jamba-1.5-large-398b", "whisper-small", "llama-3.2-vision-11b"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_apply_on_the_card_equals_moe_ref(dev, dtype):
+    """deepseek's reduced MoE FFN (8 experts, top 2, shared experts) at a
+    prefill shape with drops (factor 0.5) and at a decode shape (T = 4,
+    capacity 1): ``moe_apply`` against the plain per-expert loop on the
+    card, keep masks equal; float32 also against the CPU."""
+    from repro_torch.models.moe import moe_apply, moe_init, moe_ref, route
+    m = get_config("deepseek-moe-16b").reduced().moe
+    gen = torch.Generator(device=dev).manual_seed(3)
+    moe = moe_init(gen, 128, m.d_expert, m.num_experts, m.num_shared,
+                   m.d_shared, dtype, dev)
+    cpu = moe_init(None, 128, m.d_expert, m.num_experts, m.num_shared,
+                   m.d_shared, dtype, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in moe.state_dict().items()})
+    kw = dict(num_experts=m.num_experts, top_k=m.top_k)
+    for shape, factor in (((4, 64), 0.5), ((4, 1), 1.25)):
+        x = torch.randn(shape + (128,), generator=gen, device=dev).to(dtype)
+        got, aux = moe_apply(moe, x, capacity_factor=factor, **kw)
+        want, raux, keep = moe_ref(moe, x, capacity_factor=factor, **kw)
+        r = route(moe, x.reshape(-1, 128), capacity_factor=factor, **kw)
+        assert torch.equal(keep, r["keep"]) and not bool(keep.all())
+        tol = 1e-5 if dtype == torch.float32 else 3e-2
+        assert (got.float() - want.float()).abs().max().item() <= tol
+        assert abs(aux.item() - raux.item()) <= 1e-6
+        if dtype == torch.float32:
+            c, caux = moe_apply(cpu, x.cpu(), capacity_factor=factor, **kw)
+            assert (got.cpu() - c).abs().max().item() <= 1e-4
+            assert abs(aux.item() - caux.item()) <= 1e-5
+
+
+def test_ssd_chunked_on_the_card_equals_plain(dev):
+    """``ssd_chunked`` over three chunks and two groups against the
+    sequential ``ssd_reference`` on the card, float32."""
+    from repro_torch.models.ssm import ssd_chunked, ssd_reference
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, l, h, p, g, n = 2, 96, 4, 16, 2, 16
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x, B, C = rand(b, l, h, p), rand(b, l, g, n), rand(b, l, g, n)
+    dt = torch.nn.functional.softplus(rand(b, l, h)) * 0.5
+    A, D = -torch.exp(rand(h)), rand(h)
+    y, s = ssd_chunked(x, dt, A, B, C, D, 32)
+    ry, rs = ssd_reference(x, dt, A, B, C, D)
+    scale = max(1.0, ry.abs().max().item())
+    assert (y - ry).abs().max().item() <= 1e-5 * scale
+    assert (s - rs).abs().max().item() <= 1e-5 * max(1.0,
+                                                    rs.abs().max().item())
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_reduced_families_on_the_card_equal_the_cpu(dev, arch):
+    """A reduced model of each new family (every ``x_gate`` at 0.5) on the
+    card against the same weights on the CPU, float32: the forward and
+    its balance loss, and a prefill with 4 decode steps."""
+    cfg = get_config(arch).reduced()
+    cpu = build_model(cfg, "cpu").init(0)
+    for name, p in cpu.named_parameters():
+        if name.endswith("x_gate"):
+            p.data.fill_(0.5)
+    card = build_model(cfg, dev)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(6)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 32))
+             .astype(np.int32)}
+    if cfg.encoder_layers:
+        batch["frames"] = rng.standard_normal(
+            (2, cfg.default_encoder_len, cfg.d_model)).astype(np.float32)
+    if cfg.num_vision_tokens:
+        batch["vision"] = rng.standard_normal(
+            (2, cfg.num_vision_tokens, cfg.d_model)).astype(np.float32)
+    got, gaux = card(batch)
+    want, waux = cpu(batch)
+    assert (got.cpu() - want).abs().max().item() <= 2e-4
+    assert abs(gaux.item() - waux.item()) <= 2e-4
+    ctx = cfg.default_encoder_len if cfg.encoder_layers \
+        else cfg.num_vision_tokens
+    outs = []
+    for model in (card, cpu):
+        cache = model.init_cache(2, 40, ctx_len=ctx, dtype=torch.float32)
+        first = dict(batch, tokens=batch["tokens"][:, :28])
+        logits, cache = model.prefill(first, cache)
+        steps = [logits[:, -1].cpu()]
+        for t in range(28, 32):
+            logits, cache = model.decode_step(batch["tokens"][:, t:t + 1],
+                                              cache)
+            steps.append(logits[:, -1].cpu())
+        outs.append(torch.stack(steps, 1))
+    assert (outs[0] - outs[1]).abs().max().item() <= 2e-4

@@ -158,6 +158,24 @@ logits, cache = model.decode_step(sample(logits[:, -1])[:, None], cache)
 assert int(cache["index"]) == 33 and bool(torch.isfinite(logits).all())
 q = torch.zeros((1, 2, 64, 32))
 assert fa.mha(q, q[:, :1], q[:, :1]).shape == q.shape
+from repro_torch.configs.graphar_paper import PAPER_WORKLOADS
+from repro_torch.models.moe import moe_ref
+from repro_torch.models.ssm import ssd_reference
+assert "snb-sf-small" in PAPER_WORKLOADS and moe_ref and ssd_reference
+rng = np.random.default_rng(1)
+for arch in ("deepseek-moe-16b", "mamba2-2.7b", "jamba-1.5-large-398b",
+             "whisper-small", "llama-3.2-vision-11b"):
+    cfg = RC.get_config(arch).reduced().with_(n_units=1)
+    model = build_model(cfg, "cpu").init(0)
+    batch = {"tokens": tokens[:, :8]}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.zeros((2, 16, cfg.d_model))
+    if cfg.num_vision_tokens:
+        batch["vision"] = torch.ones((2, 4, cfg.d_model))
+    cache = model.init_cache(2, 16, ctx_len=16 if cfg.encoder_layers else 4)
+    logits, cache = model.prefill(batch, cache)
+    logits, cache = model.decode_step(sample(logits[:, -1])[:, None], cache)
+    assert bool(torch.isfinite(logits).all()), arch
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print("LOADED", bad)

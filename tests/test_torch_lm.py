@@ -7,7 +7,9 @@ runs them, in float32) take the reference's own ``LM.init`` weights
 through ``convert.params_from_jax``: forward, loss, prefill and
 teacher-forced decode (scalar and per-slot index) must match the
 reference within 2e-4, the layers within 1e-6, and greedy tokens
-exactly.  The flash route runs the kernel's plain version here; the
+exactly.  Gemma3 also runs at ``S = 160``, past its reduced window of 64,
+so that the sliding window bites.  The other families are held in
+``test_torch_lm_families.py`` and ``test_torch_lm_decode_families.py``.  The flash route runs the kernel's plain version here; the
 reference's runs its Pallas kernel in interpret mode.
 """
 import dataclasses
@@ -111,6 +113,20 @@ def test_config_fields_equal(arch):
         assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
         assert tc.num_layers == jc.num_layers
         assert tc.windows() == jc.windows()
+
+
+def test_graphar_paper_config_equal():
+    """``configs/graphar_paper.py``: the paper's workload knobs, copied,
+    equal field by field."""
+    from repro.configs import graphar_paper as JG
+    from repro_torch.configs import graphar_paper as TG
+    assert [f.name for f in dataclasses.fields(TG.GraphArConfig)] == \
+        [f.name for f in dataclasses.fields(JG.GraphArConfig)]
+    assert dataclasses.asdict(TG.default_config()) == \
+        dataclasses.asdict(JG.default_config())
+    assert dataclasses.asdict(TG.GraphArConfig("x", page_size=99)) == \
+        dataclasses.asdict(JG.GraphArConfig("x", page_size=99))
+    assert TG.PAPER_WORKLOADS == JG.PAPER_WORKLOADS
 
 
 # -------------------------------------------------------------- layers
@@ -400,6 +416,51 @@ def test_greedy_tokens_equal_over_8_steps():
                                   np.concatenate(jtoks, 1))
 
 
+LONG = 160      # past the reduced gemma3's window of 64
+
+
+def test_sliding_window_bites_forward():
+    """Gemma3 at ``S = 160``: the forward and the loss match the
+    reference, and differ from the same weights with no window."""
+    jm, jp, tm = pair("gemma3-4b")
+    b = batch(tm.cfg, 11, LONG)
+    jl, _ = jm.apply(jp, jbatch(b))
+    tl, _ = tm(tbatch(b))
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    np.testing.assert_allclose(float(tm.loss(tbatch(b))[0]),
+                               float(jm.loss(jp, jbatch(b))[0]), **TOL)
+    _, _, full = pair("gemma3-4b", window_pattern=(0, 0))
+    assert np.abs(_np(full(tbatch(b))[0]) - _np(tl)).max() > 1e-3
+
+
+@pytest.mark.parametrize("vector", [False, True])
+def test_sliding_window_bites_prefill_and_decode(vector):
+    """Gemma3 at ``S = 160``: a prefill of 140 tokens and 20 decode steps
+    (every query more than 64 positions past the first keys) match the
+    reference and its full forward at every step."""
+    jm, jp, tm = pair("gemma3-4b")
+    b = batch(tm.cfg, 12, LONG)
+    split = LONG - 20
+    jcache = jm.init_cache(B, max_len=LONG, dtype=jnp.float32,
+                           vector_index=vector)
+    tcache = tm.init_cache(B, max_len=LONG, dtype=torch.float32,
+                           vector_index=vector)
+    full = _np(jm.apply(jp, jbatch(b))[0])
+    jlog, jcache = jm.prefill(jp, {"tokens": jnp.asarray(
+        b["tokens"][:, :split])}, jcache)
+    tlog, tcache = tm.prefill({"tokens": _t(b["tokens"][:, :split])}, tcache)
+    np.testing.assert_allclose(_np(tlog), _np(jlog), **TOL)
+    np.testing.assert_allclose(_np(tlog)[:, 0], full[:, split - 1], **TOL)
+    for t in range(split, LONG):
+        tok = b["tokens"][:, t:t + 1]
+        jlog, jcache = jm.decode_step(jp, jnp.asarray(tok), jcache)
+        tlog, tcache = tm.decode_step(_t(tok), tcache)
+        np.testing.assert_allclose(_np(tlog), _np(jlog), **TOL,
+                                   err_msg=f"step {t}")
+        np.testing.assert_allclose(_np(tlog)[:, 0], full[:, t], **TOL,
+                                   err_msg=f"step {t} vs forward")
+
+
 # ------------------------------------------------------------ sampling
 
 @pytest.mark.parametrize("top_k,top_p", [(0, 1.0), (4, 1.0), (0, 0.7),
@@ -452,24 +513,20 @@ def _analytic(cfg):
     return cfg.vocab_size * d * 2 + cfg.num_layers * per_layer
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "stablelm-1.6b"])
+@pytest.mark.parametrize("arch", JC.list_archs())
 def test_param_count_of_full_configs(arch):
+    """Every registered architecture at full size on the ``meta`` device
+    (no memory): the reference's ``eval_shape`` count, and for the plain
+    dense ones the analytic count."""
     cfg = TC.get_config(arch)
     model = build_model(cfg, "meta")
     n = param_count(model)
     shapes = jax.eval_shape(jbuild(JC.get_config(arch)).init, 0)
     assert n == sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
-    norms = (2 * cfg.num_layers + 1) * cfg.d_model    # ln1, ln2, final
-    assert n == _analytic(cfg) + norms
+    if arch in ("smollm-360m", "stablelm-1.6b"):
+        norms = (2 * cfg.num_layers + 1) * cfg.d_model  # ln1, ln2, final
+        assert n == _analytic(cfg) + norms
     assert model.embed.dtype == torch.bfloat16
-
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-2.7b",
-                                  "whisper-small", "llama-3.2-vision-11b",
-                                  "jamba-1.5-large-398b", "deepseek-moe-16b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        build_model(TC.get_config(arch).reduced(), "cpu")
 
 
 def test_default_device_without_a_card_raises(monkeypatch):

@@ -174,6 +174,31 @@ def test_partition_cache_rebuilds_on_version_bump():
     assert fresh.parts[k].packed.page_min[local] == int(new_tail.min())
 
 
+@pytest.mark.parametrize("placed", [False, True])
+def test_dropped_partitioned_column_dies_without_a_collection(placed):
+    """The plane holds its column weakly: a partitioned column (with its
+    stacked plan placed, when ``placed``) that its caller drops is freed
+    by reference counting alone, with the cyclic collector off."""
+    import gc
+    import weakref
+    adj = _adj(T)
+    _set_parts(T, adj, 8)
+    col = _col(adj)
+    parts = TP.live_partitions(col)
+    if placed:
+        T.retrieve_neighbors_batch(adj, np.arange(0, N, 7), TPS,
+                                   T.IOMeter(), engine="torch")
+        assert parts._device_plans
+    dead_col, dead_parts = weakref.ref(col), weakref.ref(parts)
+    assert parts.col is col
+    gc.disable()
+    try:
+        del adj, col, parts
+        assert dead_col() is None and dead_parts() is None
+    finally:
+        gc.enable()
+
+
 @pytest.mark.parametrize("n_parts", (1, 2, 3, 6, 8))
 def test_mesh_size_is_largest_divisor(n_parts):
     vals = np.sort(np.random.default_rng(5).integers(0, 1 << 20, 8 * PAGE))

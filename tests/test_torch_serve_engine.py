@@ -29,8 +29,8 @@ import torch
 import repro.core as J
 import repro_torch.core as T
 from _torch_serve import (ENGINE_PAIRS, assert_same_requests,
-                          comparable_stats, engines, lake, models,
-                          requests)
+                          comparable_stats, decisive_prefix, engines, lake,
+                          models, requests)
 from repro.ft.faults import FaultPlan as JFaultPlan
 from repro.serve import engine as JE
 from repro.serve.retrieval import GraphRetriever as JGraphRetriever
@@ -41,9 +41,6 @@ from repro_torch.serve.retrieval import GraphRetriever
 from repro_torch.serve.tenancy import RequestStatus, TenantConfig
 
 MAX_LEN = 96
-#: a reference step is decisive when its top two float32 logits lie more
-#: than this apart
-MARGIN = 1e-4
 SEED = int(os.environ.get("REPRO_FAULT_SEED", "1"))
 
 
@@ -62,23 +59,6 @@ def _retrievers(jeng, teng, filtered=False, **kw):
     return out
 
 
-def _decisive_prefix(jm, jp, req):
-    """How many leading tokens of the reference request ``req`` are
-    decisive: the steps before the first whose top two logits, in the
-    reference's float32 forward over prompt and tokens, lie at most
-    ``MARGIN`` apart (all of them when none does)."""
-    seq = np.concatenate([np.asarray(req.prompt, np.int32),
-                          np.asarray(req.output, np.int32)])
-    logits, _ = jax.jit(jm.apply)(jp, {"tokens": jnp.asarray(seq[None])})
-    logits = np.asarray(logits[0], np.float32)
-    n = len(req.prompt)
-    for i in range(len(req.output)):
-        top2 = np.sort(logits[n - 1 + i])[-2:]
-        if top2[1] - top2[0] <= MARGIN:
-            return i
-    return len(req.output)
-
-
 def _assert_tokens_agree(jfin, tfin):
     """Equal request ids, prompts, contexts and statuses, and equal tokens
     on every decisive step: two streams may part only at a step that is
@@ -90,7 +70,7 @@ def _assert_tokens_agree(jfin, tfin):
         assert a.context_tokens == b.context_tokens
         assert a.status.value == b.status.value
         if a.output != b.output:
-            k = _decisive_prefix(jm, jp, b)
+            k = decisive_prefix(jm, jp, b)
             assert k < len(b.output) and a.output[:k] == b.output[:k], \
                 f"request {b.request_id} parts at a decisive step"
 
