@@ -2,7 +2,9 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them.
 
 Run from the root of the repository:  python3 chip_smoke.py
-(``--lm`` runs phases 1-2, 12-13 and the LM profile only; ``--families``
+(``--lm`` runs phases 1-2, 12-13 and the LM profile only; ``--train``
+phases 1-2, 19 and 19p, training smollm-360m at full width from the
+document lake; ``--families``
 phases 1-2 and 18, the MoE, SSM, encoder-decoder and VLM families at
 full width; ``--serve``
 phases 1-2 and 14, the serving path; ``--mutable`` phases 1-2, the
@@ -19,9 +21,9 @@ soc-LiveJournal1 set-up and phases 10-11, which drive the entries and hold
 and time kernels 11-14, phase 10's batch-16384 PAC then from the numpy
 engine.)
 
-Phases, each of which exits non-zero when it fails (12, 13, 18 and 14 run
-right after 2, in that order, so that their host timings come before any
-profiler in the process; the LM profile runs last):
+Phases, each of which exits non-zero when it fails (12, 13, 18, 14 and 19
+run right after 2, in that order, so that their host timings come before
+any profiler in the process; the LM and training profiles run last):
   1. device: require a CUDA device; print the card's name and power limit;
   2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` (timed); print
      ptxas's registers and spills, and count the tensor-core instructions
@@ -268,8 +270,9 @@ profiler in the process; the LM profile runs last):
      capacity boundaries: there the float32 flash route is held at 0.99
      and the bf16 flash route within 0.01 of the bf16 plain route; and
      on mamba2, where bf16 rounding compounds over 64 random-init layers,
-     (a) and (b) are held on its first 8 layers at full width, and
-     reported over all 64; whisper runs ``use_flash=False``, and kernel
+     the whole phase runs its first 8 layers at full width (the run's time
+     limit); whisper runs
+     ``use_flash=False``, and kernel
      15 is checked to refuse
      its lengths (no multiple of 128) rather than fall back; (b) a prefill
      of 4 x 512 seeded tokens and 32 greedy decode steps, held (except for
@@ -297,14 +300,42 @@ profiler in the process; the LM profile runs last):
      128] over 8 KV heads, ``flash_attention@d128gqa``), each against its
      plain version, timed beside it, the bound and
      ``scaled_dot_product_attention``;
+ 19. train (after 14, on its lake): smollm-360m at full width (32 layers,
+     d_model 960, 15/5 heads of 64, bf16, ``init(seed=0)``, the config's
+     ``remat="dots"`` and 4 microbatches) trained for 20 steps of 8 x 2048
+     tokens from phase 14's ``document_graph(100_000, vocab 49152,
+     mean_len 256, seed=2)`` lake (built when phase 14 did not run)
+     through ``GraphCorpusPipeline(engine="cuda")`` under ``(HighQuality |
+     News) & ~Spam``, with ``adamw(warmup_cosine(3e-4, 5, 20))``.  (a) the
+     eligible documents equal the numpy engine's, and the label filter's
+     kernel (3) launched; (b) every loss finite, the mean of the last 5
+     below the mean of the first 5; (c) one step of 4 microbatches equal
+     to one of 1 on a float32 copy at 8 x 512 (params rtol 2e-4, atol
+     5e-4; loss within rel 1e-5, grad norm within rel 1e-4);
+     (d) the bf16 loss within 2% of the float32 copy's and the cosine of
+     their flattened gradients at least 0.99; (e) ``Trainer`` for 8 steps
+     on the model's first 4 layers at full width (one microbatch of 8 x
+     512 a step, AdamW's moments in bf16 too), a
+     checkpoint every 4 under ``build/``
+     (removed after), a crash at 6,
+     against a clean run: histories within rel 1e-4; (f) a
+     ``use_flash=True`` loss under autograd raises.  Prints the warm step
+     (median of steps 3-20) split into the pipeline's host ms and the
+     step's host wall, with its forward+backward and optimizer on the
+     device's clock; tokens per second; peak ``max_memory_allocated``; a
+     checkpoint of the trained state saved and restored (bytes, seconds,
+     equal); kernel 3's launches;
  12p. lm profile: ``torch.profiler`` over one forward, prefill and decode
      step of the bf16 model: device busy ms by kernel, idle share against
      phase 12's unprofiled host wall; then (14p) 20 ticks of phase 14's
      pipelined engine on a fresh lake, every request submitted at once,
-     busy and idle share against phase 14's unprofiled median warm tick.
+     busy and idle share against phase 14's unprofiled median warm tick;
+ 19p. train profile: ``torch.profiler`` over one warm train step of phase
+     19's model at its full batch: device busy ms by kernel, idle share
+     against phase 19's unprofiled median step.
 Every launch count is set to 0 just before each of phases 4, 5, 7, 8, 10,
-12, 15, 17 and 18, phase 14's P1 drain and phase 16's pipelined drain, and
-read just after; a kernel's ``launches`` is the sum over the eleven.
+12, 15, 17, 18 and 19, phase 14's P1 drain and phase 16's pipelined drain,
+and read just after; a kernel's ``launches`` is the sum over the twelve.
 The card's name and power limit, then the kernel table as JSON, come on
 the lines before the last; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -419,11 +450,28 @@ SSD_BATCH, SSD_LEN = 2, 1024
 FAMILY_SERVE_DOCS, FAMILY_SERVE_SLOTS, FAMILY_SERVE_LEN = 10_000, 4, 512
 FAMILY_SERVE_REQUESTS, FAMILY_SERVE_NEW, FAMILY_SERVE_SOLO = 8, 16, 4
 FAMILY_REDUCED = ("jamba-1.5-large-398b", "qwen3-moe-30b-a3b")
-#: the depth at which mamba2's (a) and (b) are held: bf16 against float32
-#: top-1 on decisive positions fell 0.9992, 0.988, 0.929, 0.771 over its
-#: first 8, 16, 32 and all 64 random-init layers (H100 80GB HBM3, 700 W)
-FAMILY_HELD_UNITS = {"mamba2-2.7b": 8}
+#: the depth at which mamba2 runs: bf16 against float32 top-1 on decisive
+#: positions fell 0.9992, 0.988, 0.929, 0.771 over its first 8, 16, 32 and
+#: all 64 random-init layers (H100 80GB HBM3, 700 W), and its pass over all
+#: 64 (reported, not held) took ~25 s of the full run's 1200 s limit
+FAMILY_UNITS = {"mamba2-2.7b": 8}
 X_GATE = 0.5
+#: training (phase 19): smollm-360m at full width from phase 14's lake,
+#: 16,384 tokens a step (8 sequences of 2048, in the config's 4
+#: microbatches), AdamW under warmup-cosine; (c) and (d) on a float32 copy
+#: at seq 512; (e) the trainer's 8 steps with a checkpoint every 4 and a
+#: crash at 6, on the model's first layers; the kernel the phase must
+#: launch (the label filter's)
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 8, 20
+TRAIN_PEAK, TRAIN_WARMUP, TRAIN_WINDOW = 3e-4, 5, 5
+TRAIN_CHECK_SEQ = 512
+TRAIN_FT_STEPS, TRAIN_FT_EVERY, TRAIN_FT_FAIL = 8, 4, 6
+#: (e) holds the recovery, not the model: it runs the first 4 of the 32
+#: layers at full width, which cut its two runs (and three checkpoints of
+#: the trained state) from ~27-80 s to a few, for phase 8's acero
+#: baseline's three runs in the 1200 s limit
+TRAIN_FT_UNITS = 4
+TRAIN_KERNELS = ("cond_bitmap",)
 PARTITION_KERNELS = ("gather_decode", "fused_gather_decode_bitmap_batch",
                      "cond_bitmap", "fused_gather_decode_filter_bitmap_batch",
                      "khop_scan", "two_hop", "count_hop", "seed_words",
@@ -990,10 +1038,13 @@ def traversal_slice_phase(torch, adj, vt, card):
     return results
 
 
-def profile_ms(torch, fn, reps: int = 5):
+def profile_ms(torch, fn, reps: int = 5, events=None):
     """``torch.profiler`` over ``reps`` calls of ``fn``: host wall ms per
     call, and device ms per call by kernel or copy name (empty when the
-    profiler sees no device activity)."""
+    profiler sees no device activity), read from the raw trace.  With a
+    list ``events``, the device ms per call summed from ``prof.events()``
+    (the parsed events, the earlier reader) is appended to it, to show
+    that the two readers agree."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1006,10 +1057,15 @@ def profile_ms(torch, fn, reps: int = 5):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
     busy = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            busy[e.name] = (busy.get(e.name, 0.0)
-                            + e.time_range.elapsed_us() / 1e3 / reps)
+    # the raw trace: parsing it into FunctionEvents (prof.events()) took
+    # 45 s for one train step's events (phase 19p)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            busy[e.name()] = (busy.get(e.name(), 0.0)
+                              + e.duration_ns() / 1e6 / reps)
+    if events is not None:
+        events.append(sum(e.time_range.elapsed_us() for e in prof.events()
+                          if e.device_type == DeviceType.CUDA) / 1e3 / reps)
     return wall, busy
 
 
@@ -2221,13 +2277,18 @@ def lm_profile_phase(torch, lm):
                 {"tokens": prompt}, m16.init_cache(n_req, CACHE_LEN))),
             ("decode step", "decode_ms",
              lambda: m16.decode_step(prompt[:, :1], cache))):
-        wall, busy = profile_ms(torch, fn, reps=2)
+        # the forward's busy ms read both ways: the raw trace, which every
+        # profiled phase reads, and the parsed events
+        events = [] if what == "forward" else None
+        wall, busy = profile_ms(torch, fn, reps=2, events=events)
         total = sum(busy.values())
         out[what] = {"profiled_wall": wall, "busy": total,
                      "idle": 1 - total / lm[wall_key], "kernels": busy}
         top6 = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
-        log(f"12p. profile, one bf16 {what}: device busy {total:.3f} ms of "
-            f"{lm[wall_key]:.3f} ms unprofiled host wall (idle share "
+        both = "" if not events else \
+            f" (prof.events() reads {events[0]:.3f} ms)"
+        log(f"12p. profile, one bf16 {what}: device busy {total:.3f} ms{both} "
+            f"of {lm[wall_key]:.3f} ms unprofiled host wall (idle share "
             f"{out[what]['idle']:.3f}; {wall:.3f} ms under the profiler); "
             + "; ".join(f"{n[:50]} {ms:.3f}" for n, ms in top6))
     return out
@@ -2809,10 +2870,10 @@ def family_forward(torch, model, batch):
     return logits
 
 
-def family_forwards(torch, cfg, batch, out, hold=True):
+def family_forwards(torch, cfg, batch, out):
     """(a): the float32 copy's plain route is the reference (each model is
     built alone, so deepseek's 61 GiB fit); then the bf16 model on each of
-    its routes, top-1 held (``hold``; else reported) on the reference's
+    its routes, top-1 held on the reference's
     decisive positions.  The MoE model routes each token to its top 6 of
     64 experts under a capacity: bf16 rounding moves tokens across that
     boundary, and every move shifts the slots behind it, so its bf16
@@ -2847,7 +2908,7 @@ def family_forwards(torch, cfg, batch, out, hold=True):
         del pick
     for route in ("flash", "plain"):
         share = out.get(f"top1_{route}")
-        if share is None or not hold:
+        if share is None:
             continue
         if not moe:
             require(share[1] >= 0.99, f"{name}: bf16 {route} route top-1 "
@@ -2861,17 +2922,16 @@ def family_forwards(torch, cfg, batch, out, hold=True):
         f"{v[1]:.5f})" for k, v in out.items() if k.startswith("top1_"))
         + f" (bf16 unless named) against the float32 plain route over "
         f"{out['n']} positions ({out['n_decisive']} decisive: top two more "
-        f"than {tie:.4f} apart; max|logit| {big:.3f}); "
-        + ("held" if hold else "reported"))
+        f"than {tie:.4f} apart; max|logit| {big:.3f}); held")
     set_flash(m16, routes[0])
     return m16
 
 
-def family_decode(torch, model, batch, out, hold=True):
+def family_decode(torch, model, batch, out):
     """(b): a prefill of 4 x 512 seeded tokens (and the batch's context)
     and 32 greedy decode steps; except for MoE, the top-1 of every step
-    held (``hold``; else reported) against the plain full forward's over
-    the same tokens on its decisive steps."""
+    held against the plain full forward's over the same tokens on its
+    decisive steps."""
     import numpy as np
     cfg = model.cfg
     name = f"{cfg.name} ({cfg.num_layers} layers)"
@@ -2896,8 +2956,8 @@ def family_decode(torch, model, batch, out, hold=True):
             f"{held['n']} positions: top-1 equal {held['top1']:.5f} "
             f"(decisive {held['n_decisive']}: {held['top1_decisive']:.5f}), "
             f"max|d| {held['err']:.4f} (max|logit| {held['max']:.3f}); "
-            + ("held" if hold else "reported"))
-        require(held["all_decisive"] or not hold,
+            f"held")
+        require(held["all_decisive"],
                 f"{name}: a decisive decode step differs from the forward")
     else:
         log(f"18b. {name}: prefill {LM_BATCH}x{FAMILY_PROMPT} + "
@@ -3110,17 +3170,12 @@ def families_phase(torch, card):
         cfg = get_config(arch)
         seq = WHISPER_TEXT if cfg.encoder_layers else LM_SEQ
         batch = family_batch(torch, cfg, seq)
-        cut = FAMILY_HELD_UNITS.get(arch)
-        if cut:
-            # bf16 rounding compounds over mamba2's 64 random-init layers:
-            # (a) and (b) are held on its first layers, full width
-            out["cut"] = {}
-            model = family_forwards(torch, cfg.with_(n_units=cut), batch,
-                                    out["cut"])
-            family_decode(torch, model, batch, out["cut"])
-            del model
-            torch.cuda.empty_cache()
-        model = family_forwards(torch, cfg, batch, out, hold=not cut)
+        if arch in FAMILY_UNITS:
+            # bf16 rounding compounds over mamba2's 64 random-init layers,
+            # and the run's time limit: mamba2 runs on its first layers,
+            # full width
+            cfg = cfg.with_(n_units=FAMILY_UNITS[arch])
+        model = family_forwards(torch, cfg, batch, out)
         if cfg.encoder_layers:
             # 1,500 frames and 448 tokens are no multiple of 128: kernel 15
             # refuses them, and the model does not fall back
@@ -3136,7 +3191,7 @@ def families_phase(torch, card):
             log(f"18a. {arch}: use_flash=False (kernel 15 refuses "
                 f"{WHISPER_FRAMES} frames and {WHISPER_TEXT} tokens, no "
                 f"multiple of 128: checked, it raises)")
-        prompt, fed = family_decode(torch, model, batch, out, hold=not cut)
+        prompt, fed = family_decode(torch, model, batch, out)
         family_timing(torch, model, batch, prompt, fed, out)
         if cfg.moe is not None:
             moe_layer_check(torch, model.layers[0].moe, cfg, out)
@@ -4192,6 +4247,325 @@ def table_key(table):
     return (table.num_rows, out)
 
 
+# --------------------------------------------------------------------------
+# phase 19: training smollm-360m at full width from the GraphAr lake
+# --------------------------------------------------------------------------
+
+class TimedOptimizer:
+    """An optimizer whose ``update`` records a CUDA event on each side,
+    so that a train step splits into its forward and backward and its
+    optimizer update on the device's clock."""
+
+    def __init__(self, torch, opt):
+        from repro_torch.train.optimizer import Optimizer
+        self.torch = torch
+        self.inner = opt
+        self.marks = []
+        self.opt = Optimizer(opt.init, self.update)
+
+    def update(self, grads, state, params, layout=None):
+        ev = self.torch.cuda.Event
+        start, end = ev(enable_timing=True), ev(enable_timing=True)
+        start.record()
+        out = self.inner.update(grads, state, params, layout)
+        end.record()
+        self.marks.append((start, end))
+        return out
+
+
+def train_checkpoint_dir(name: str) -> Path:
+    """An empty directory for a checkpoint run under ``build/``."""
+    import shutil
+    d = ROOT / "build" / "chip_smoke_train" / name
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def train_phase(torch, card, lake=None):
+    """Phase 19: training at full width on the card (see the module
+    docstring); returns the measurements and what the profile (19p)
+    needs."""
+    import shutil
+    import numpy as np
+    import repro_torch.core as TC
+    from repro_torch.checkpoint.checkpointer import (restore_checkpoint,
+                                                     save_checkpoint)
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import GraphCorpusPipeline, PipelineConfig
+    from repro_torch.data.synthetic import document_graph
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.train_step import (make_train_step, model_params,
+                                              unit_layout)
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config(LM_ARCH)
+    require((cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+             cfg.head_dim, cfg.vocab_size, cfg.param_dtype, cfg.remat,
+             cfg.train_microbatches, cfg.use_flash) ==
+            (32, 960, 15, 5, 64, 49152, "bfloat16", "dots", 4, False),
+            f"{LM_ARCH} config changed")
+    n_micro = cfg.train_microbatches
+
+    def sched():
+        return warmup_cosine(TRAIN_PEAK, TRAIN_WARMUP, TRAIN_STEPS)
+
+    t0 = time.perf_counter()
+    built = lake is None
+    if built:
+        lake = document_graph(num_docs=SERVE_DOCS, vocab=cfg.vocab_size,
+                              mean_len=SERVE_MEAN_LEN, seed=2)
+    graph = serve_graph(lake)
+    t_lake = time.perf_counter() - t0
+    cond = (TC.L("HighQuality") | TC.L("News")) & ~TC.L("Spam")
+    pcfg = PipelineConfig(seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH)
+    pipe, t_filter = host_timed(torch, lambda: GraphCorpusPipeline(
+        graph, cond, pcfg, engine=ENGINE))
+    host = GraphCorpusPipeline(graph, cond, pcfg, engine="numpy")
+    require(np.array_equal(pipe.eligible, host.eligible),
+            "(a) the cuda label filter's eligible documents differ from "
+            "the numpy engine's")
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(0)
+    torch.cuda.synchronize()
+    log(f"19. set-up: lake of {lake.num_docs:,} docs "
+        f"({'built' if built else 'reused from phase 14'}) and graph in {t_lake:.1f} "
+        f"s; (a) {pipe.eligible.size:,} eligible docs under "
+        f"(HighQuality | News) & ~Spam, equal to the numpy engine's, label "
+        f"filter {t_filter:.1f} ms; {LM_ARCH} init "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    timed = TimedOptimizer(torch, adamw(sched()))
+    step = make_train_step(model, timed.opt, n_micro)
+    params = model_params(model)
+    state = timed.opt.init(params, unit_layout(model))
+    stream = pipe.batches()
+    batches, rows = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        b = next(stream)
+        t1 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, met = step(params, state, b)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        t2 = time.perf_counter()
+        o_start, o_end = timed.marks[-1]
+        rows.append({"pipeline_ms": (t1 - t0) * 1e3,
+                     "step_ms": (t2 - t1) * 1e3,
+                     "fwd_bwd_ms": start.elapsed_time(o_start),
+                     "opt_ms": o_start.elapsed_time(o_end),
+                     "loss": loss, "grad_norm": gnorm})
+        batches.append({k: b[k] for k in ("tokens", "labels")})
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in rows]
+    first = statistics.mean(losses[:TRAIN_WINDOW])
+    last = statistics.mean(losses[-TRAIN_WINDOW:])
+    require(all(math.isfinite(x) for x in losses)
+            and all(math.isfinite(r["grad_norm"]) for r in rows),
+            f"(b) a loss or gradient norm is not finite: {rows}")
+    require(last < first, f"(b) the loss did not fall: mean of the first "
+            f"{TRAIN_WINDOW} {first:.4f}, of the last {last:.4f}")
+    warm = rows[2:]
+    med = {k: statistics.median(r[k] for r in warm)
+           for k in ("pipeline_ms", "step_ms", "fwd_bwd_ms", "opt_ms")}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"losses": losses, "rows": rows, "peak_bytes": peak, **med,
+           "tokens_per_s": tokens / ((med["pipeline_ms"] + med["step_ms"])
+                                     / 1e3)}
+    log(f"19. train: {TRAIN_STEPS} steps of {tokens:,} tokens "
+        f"({TRAIN_BATCH} x {TRAIN_SEQ}, {n_micro} microbatches, remat "
+        f"{cfg.remat}); (b) loss " + " ".join(f"{x:.3f}" for x in losses)
+        + f"; mean of the first {TRAIN_WINDOW} {first:.4f} > of the last "
+        f"{last:.4f}; grad norm {rows[0]['grad_norm']:.3f} -> "
+        f"{rows[-1]['grad_norm']:.3f}; on {card}")
+    log(f"19. warm step (median of steps 3-{TRAIN_STEPS}): pipeline host "
+        f"{med['pipeline_ms']:.1f} ms, train step {med['step_ms']:.1f} ms "
+        f"host wall (forward+backward {med['fwd_bwd_ms']:.1f} ms, optimizer "
+        f"{med['opt_ms']:.1f} ms on the device's clock); "
+        f"{out['tokens_per_s']:,.0f} tokens/s with the pipeline, "
+        f"{tokens / (med['step_ms'] / 1e3):,.0f} without; peak "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; on {card}")
+
+    # the remat policy's cost: one warm step under "full" beside "dots"
+    remat_ms = {}
+    for remat in ("full", cfg.remat):
+        model.cfg = cfg.with_(remat=remat)
+        _, remat_ms[remat] = host_timed(torch, lambda: step(
+            params, state, batches[-1]))
+    model.cfg = cfg
+    out["remat_ms"] = remat_ms
+    log(f"19. remat: one warm step {remat_ms['full']:.1f} ms under "
+        f"\"full\" (every unit recomputed) beside {remat_ms[cfg.remat]:.1f} "
+        f"ms under \"{cfg.remat}\" (the projections kept, the policy "
+        f"consulted in Python on every op); on {card}")
+
+    # a bf16 checkpoint of the trained state: save, restore, equal
+    ck = train_checkpoint_dir("roundtrip")
+    tree = {"params": params, "opt": state}
+    path, save_ms = host_timed(torch, lambda: save_checkpoint(
+        str(ck), TRAIN_STEPS, tree, extra={"next_step": TRAIN_STEPS}))
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    (back, extra), restore_ms = host_timed(torch, lambda: restore_checkpoint(
+        str(ck), TRAIN_STEPS, like=tree))
+    require(extra == {"next_step": TRAIN_STEPS} and all(
+        torch.equal(back["params"][k], v) for k, v in params.items())
+        and all(torch.equal(back["opt"][m][k], v) for m in ("m", "v")
+                for k, v in state[m].items())
+        and int(back["opt"]["step"]) == TRAIN_STEPS
+        and back["params"]["embed"].dtype == torch.bfloat16,
+        "the restored checkpoint differs from the saved train state")
+    shutil.rmtree(ck)
+    out.update(ckpt_bytes=nbytes, save_ms=save_ms, restore_ms=restore_ms)
+    log(f"19. checkpoint: {nbytes / 2**30:.3f} GiB (bf16 params, float32 "
+        f"moments) saved in {save_ms / 1e3:.2f} s, restored and held equal "
+        f"in {restore_ms / 1e3:.2f} s (warm page cache) under build/; on "
+        f"{card}")
+
+    # (c) n_micro 4 == 1 and (d) bf16 against float32, from the init weights
+    # (a step never writes the model's own parameters)
+    small = {k: torch.from_numpy(np.ascontiguousarray(
+        batches[0][k][:, :TRAIN_CHECK_SEQ])).to(model.device)
+        for k in ("tokens", "labels")}
+    m32 = build_model(cfg.with_(param_dtype="float32",
+                                compute_dtype="float32"))
+    m32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    p32 = model_params(m32)
+    got = {}
+    for n in (1, n_micro):
+        o = adamw(sched())
+        got[n] = make_train_step(m32, o, n)(
+            p32, o.init(p32, unit_layout(m32)), small)
+    (q1, _, c1), (q4, _, c4) = got[1], got[n_micro]
+    worst = max(float(((q4[k] - q1[k]).abs()
+                       / (5e-4 + 2e-4 * q1[k].abs())).max()) for k in q1)
+    # the parameters alone cannot show a wrong accumulation (the clip and
+    # Adam's scale invariance hide its scale, and a first step at lr 6e-5
+    # moves no parameter past the atol): the gradient norm, taken before
+    # the clip from the accumulated gradients, is held too
+    g1, g4 = float(c1["grad_norm"]), float(c4["grad_norm"])
+    require(abs(float(c4["loss"]) - float(c1["loss"]))
+            <= 1e-5 * abs(float(c1["loss"])) and abs(g4 - g1) <= 1e-4 * g1
+            and worst <= 1.0,
+            f"(c) n_micro {n_micro} differs from n_micro 1: loss "
+            f"{float(c4['loss'])} vs {float(c1['loss'])}, grad norm {g4} vs "
+            f"{g1}, worst |diff| / (5e-4 + 2e-4 |p|) {worst:.3f}")
+    del got, q1, q4, p32
+    with torch.enable_grad():
+        l16, _ = model.loss(small)
+        g16 = torch.autograd.grad(l16, list(model.parameters()))
+        l32, _ = m32.loss(small)
+        g32 = torch.autograd.grad(l32, list(m32.parameters()))
+    dot = sum(float((a.float() * b).sum()) for a, b in zip(g16, g32))
+    n16 = math.sqrt(sum(float((a.float() ** 2).sum()) for a in g16))
+    n32 = math.sqrt(sum(float((b ** 2).sum()) for b in g32))
+    cos = dot / (n16 * n32)
+    rel = abs(float(l16) - float(l32)) / abs(float(l32))
+    require(rel <= 0.02 and cos >= 0.99,
+            f"(d) bf16 against float32: loss {float(l16):.5f} vs "
+            f"{float(l32):.5f} (rel {rel:.5f}), grad cosine {cos:.5f}")
+    out.update(micro_worst=worst, micro_gnorm_rel=abs(g4 - g1) / g1,
+               bf16_loss_rel=rel, bf16_grad_cos=cos)
+    log(f"19. (c) n_micro {n_micro} == 1 on the float32 copy at "
+        f"{TRAIN_BATCH} x {TRAIN_CHECK_SEQ}: loss {float(c4['loss']):.6f} "
+        f"vs {float(c1['loss']):.6f}, grad norm {g4:.6f} vs {g1:.6f} (rel "
+        f"{abs(g4 - g1) / g1:.2e}, tolerance 1e-4), worst |diff| / (5e-4 + "
+        f"2e-4 |p|) {worst:.3f}; (d) bf16 loss {float(l16):.5f} vs float32 "
+        f"{float(l32):.5f} (rel {rel:.5f}), gradient cosine {cos:.6f}")
+    del g16, g32, m32
+    torch.cuda.empty_cache()
+
+    # (e) the trainer: a crash at step 6, restored from step 4, against a
+    # clean run from the same init(0), all in bf16 (parameters and AdamW's
+    # moments); the recovery, not the step, is what (e) holds, so it runs
+    # the model's first TRAIN_FT_UNITS layers at full width, and its steps
+    # take one microbatch of 8 x 512 (a step's host time grows with its
+    # layers and microbatches: the remat policy's dispatch)
+    ft_model = build_model(cfg.with_(n_units=TRAIN_FT_UNITS))
+    ft_batches = [{k: np.ascontiguousarray(v[:, :TRAIN_CHECK_SEQ])
+                   for k, v in b.items()} for b in batches]
+
+    def trainer_run(name, fail):
+        d = train_checkpoint_dir(name)
+        tcfg = TrainerConfig(total_steps=TRAIN_FT_STEPS,
+                             checkpoint_every=TRAIN_FT_EVERY,
+                             checkpoint_dir=str(d), log_every=1)
+        t0 = time.perf_counter()
+        res = Trainer(ft_model, adamw(sched(), moment_dtype="bfloat16"), tcfg,
+                      lambda s: ft_batches[s]).run(
+                          simulate_failure_at=fail)
+        res["seconds"] = time.perf_counter() - t0
+        res["checkpoints"] = sorted(p.name for p in d.iterdir())
+        shutil.rmtree(d)
+        return res
+    crash = trainer_run("crash", TRAIN_FT_FAIL)
+    clean = trainer_run("clean", None)
+    want = {h["step"]: h for h in clean["history"]}
+    steps = [h["step"] for h in crash["history"]]
+    require(crash["failures"] == 1 and crash["final_step"] == TRAIN_FT_STEPS
+            and steps == list(range(1, TRAIN_FT_FAIL + 1))
+            + list(range(TRAIN_FT_EVERY + 1, TRAIN_FT_STEPS + 1))
+            and sorted(want) == list(range(1, TRAIN_FT_STEPS + 1)),
+            f"(e) the crashed run did not recover as planned: {steps}, "
+            f"{crash['failures']} failures")
+    drift = max(max(abs(h[k] - want[h["step"]][k]) / abs(want[h["step"]][k])
+                    for k in ("loss", "grad_norm"))
+                for h in crash["history"])
+    require(drift <= 1e-4, f"(e) the recovered history differs from the "
+            f"clean run's by rel {drift:.2e}")
+    out.update(ft_drift=drift, ft_seconds=(crash["seconds"],
+                                           clean["seconds"]))
+    del ft_model
+    log(f"19. (e) Trainer, {TRAIN_FT_UNITS} layers at full width, "
+        f"{TRAIN_FT_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_CHECK_SEQ} in one microbatch, bf16 moments, a checkpoint "
+        f"every "
+        f"{TRAIN_FT_EVERY}, a crash at {TRAIN_FT_FAIL}: recovered from step "
+        f"{TRAIN_FT_EVERY} ({crash['checkpoints']} left), history within "
+        f"rel {drift:.2e} of the clean run's (tolerance 1e-4; not under "
+        f"torch.use_deterministic_algorithms); {crash['seconds']:.1f} s "
+        f"and {clean['seconds']:.1f} s")
+
+    # (f) the flash route refuses autograd
+    flash = build_model(cfg.with_(use_flash=True))
+    flash.load_state_dict(model.state_dict())
+    try:
+        with torch.enable_grad():
+            flash.loss(small)
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    require("no backward kernel" in raised,
+            f"(f) a use_flash=True loss under autograd did not raise: "
+            f"{raised!r}")
+    del flash
+    log("19. (f) a use_flash=True loss under autograd raises: "
+        + raised.split(":")[0])
+    out.update(model=model, step=step, params=params, state=state,
+               batch=batches[-1])
+    return out
+
+
+def train_profile_phase(torch, train, card):
+    """``torch.profiler`` over one warm train step of phase 19's model at
+    its full batch: device busy ms by kernel, idle share against phase
+    19's unprofiled median step."""
+    t0 = time.perf_counter()
+    wall, busy = profile_ms(torch, lambda: train["step"](
+        train["params"], train["state"], train["batch"]), reps=1)
+    total = sum(busy.values())
+    step = train["step_ms"]
+    top6 = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+    log(f"19p. profile, one warm train step: device busy {total:.1f} ms of "
+        f"{step:.1f} ms median unprofiled step (idle share "
+        f"{1 - total / step:.3f}; {wall:.1f} ms under the profiler); "
+        + "; ".join(f"{kernel_name(n)[:50]} {ms:.1f}" for n, ms in top6)
+        + f" ({time.perf_counter() - t0:.1f} s) on {card}")
+    return {"busy": total, "idle": 1 - total / step, "profiled_wall": wall}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4221,6 +4595,9 @@ def main() -> int:
     only.add_argument("--families", action="store_true",
                       help="run phases 1-2 and 18 only (the MoE, SSM, "
                       "encoder-decoder and VLM families at full width)")
+    only.add_argument("--train", action="store_true",
+                      help="run phases 1-2, 19 and 19p only (training "
+                      "smollm-360m at full width from the GraphAr lake)")
     args = ap.parse_args()
     graph_only = next((f for f in ("traversal", "per-dispatch", "resident",
                                    "entries", "mutable", "partitions")
@@ -4229,6 +4606,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # the parameters are trainable: every phase but the train step (which
+    # turns gradients on for itself) runs the model's inference routes
+    torch.set_grad_enabled(False)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4289,9 +4669,10 @@ def main() -> int:
         out = phase(*args, **kwargs)
         return out, {n: w.launches for n, w in wrappers.items()}
 
-    rows, counts, serve = [], [], None
-    lm_only = args.lm or args.serve or args.families
-    if not graph_only and not args.serve and not args.families:
+    rows, counts, serve, train = [], [], None, None
+    lm_only = args.lm or args.serve or args.families or args.train
+    if not graph_only and not args.serve and not args.families \
+            and not args.train:
         # the LM slice first: its host timings come before any profiler in
         # the process (phases 5 and 8 profile); its own profile runs last
         t0 = time.perf_counter()
@@ -4309,7 +4690,7 @@ def main() -> int:
             f"({time.perf_counter() - t0:.1f} s)")
         torch.cuda.empty_cache()
 
-    if not graph_only and not args.serve and not args.lm:
+    if not graph_only and not args.serve and not args.lm and not args.train:
         # the rest of the LM stack, before any profiler in the process
         t0 = time.perf_counter()
         _, f_launches = drive(families_phase, torch, card)
@@ -4324,7 +4705,8 @@ def main() -> int:
         rows += family_flash_rows(torch)
         torch.cuda.empty_cache()
 
-    if not graph_only and not args.lm and not args.families:
+    if not graph_only and not args.lm and not args.families \
+            and not args.train:
         # the serving path, before any profiler in the process too
         t0 = time.perf_counter()
         serve = serve_phase(torch, card, drive)
@@ -4336,6 +4718,22 @@ def main() -> int:
             + ", ".join(f"{n} {c}" for n, c in s_launches.items() if c)
             + f" ({time.perf_counter() - t0:.1f} s) on {card}")
         counts.append(s_launches)
+
+    if not graph_only and not args.lm and not args.families \
+            and not args.serve:
+        # training, before any profiler in the process; on phase 14's lake
+        t0 = time.perf_counter()
+        train, r_launches = drive(train_phase, torch, card,
+                                  serve["lake"] if serve else None)
+        require(all(r_launches[n] for n in TRAIN_KERNELS)
+                and not r_launches["flash_attention"],
+                f"the label filter kernel never launched in phase 19, or "
+                f"the flash kernel did: {r_launches}")
+        log(f"19. train: checks (a)-(f) pass, launches " + ", ".join(
+            f"{n} {c}" for n, c in r_launches.items() if c)
+            + f" ({time.perf_counter() - t0:.1f} s) on {card}")
+        counts.append(r_launches)
+        torch.cuda.empty_cache()
 
     if not lm_only:
         graph_rows, graph_counts = graph_phases(torch, drive, wrappers, card,
@@ -4354,12 +4752,15 @@ def main() -> int:
             + ", ".join(f"{n} {c}" for n, c in m_launches.items() if c)
             + f" ({time.perf_counter() - t0:.1f} s) on {card}")
         counts.append(m_launches)
-    if not graph_only and not args.serve and not args.families:
+    if not graph_only and not args.serve and not args.families \
+            and not args.train:
         t0 = time.perf_counter()
         lm_profile_phase(torch, lm)
         if serve is not None:
             serve_profile_phase(torch, serve)
         log(f"12p. lm profile ({time.perf_counter() - t0:.1f} s)")
+    if train is not None:
+        train_profile_phase(torch, train, card)
     for r in rows:
         # a row named "kernel@shape" times a kernel at another shape
         r["launches"] = sum(c[r["name"].split("@")[0]] for c in counts)

@@ -17,7 +17,16 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     device (the reference's ``use_pallas=False``), which takes any shapes;
     the kernel route raises ``ValueError`` on the shapes the reference
     kernel asserts against and on layouts the kernel cannot read
-    (:func:`.kernel.check_grouped`)."""
+    (:func:`.kernel.check_grouped`), and raises ``RuntimeError`` under
+    autograd (grad mode on and an input that requires a gradient): the
+    kernel has no backward, as the reference's Pallas kernel has none, and
+    its output would carry no gradient."""
+    if use_kernel and torch.is_grad_enabled() and \
+            any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash attention has no backward kernel (neither has the "
+            "reference's): train with use_flash=False, or run the forward "
+            "under torch.no_grad()")
     b, h, sq, _ = q.shape
     h_kv = k.shape[1]
     if h % h_kv:

@@ -45,9 +45,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def param(shape, dtype, device) -> nn.Parameter:
-    """An uninitialised parameter (filled by its module's ``init_``)."""
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    """An uninitialised trainable parameter (filled by its module's
+    ``init_``, which writes it under ``torch.no_grad()``)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 # ------------------------------- norms -----------------------------------

@@ -2,29 +2,40 @@
 
 The JAX package's ``models/model.py`` on PyTorch.  ``LM`` is an
 ``nn.Module``: the ``prefix`` layers, then the ``n_units`` repeating units
-unrolled into one ``ModuleList`` (no scan, no remat: PyTorch runs
-eagerly), and for encoder-decoder configs the encoder's layers
-(``enc_layers``, non-causal) and ``enc_norm``.  The cross-attention
-context is the encoder's output over ``batch["frames"]`` or the
-pre-projected ``batch["vision"]`` embeddings.  Parameters keep the JAX
-package's names and layouts, so ``models/convert.py`` carries a JAX
-parameter tree across as it is.
+unrolled into one ``ModuleList`` (no scan: PyTorch runs eagerly), and for
+encoder-decoder configs the encoder's layers (``enc_layers``, non-causal)
+and ``enc_norm``.  The cross-attention context is the encoder's output
+over ``batch["frames"]`` or the pre-projected ``batch["vision"]``
+embeddings.  Parameters keep the JAX package's names and layouts, so
+``models/convert.py`` carries a JAX parameter tree across as it is.
 
 The model lives on ``cuda:0`` unless the caller passes another device
 (``"cpu"`` for the plain versions, ``"meta"`` to count parameters without
 memory); with no card, the default raises.  The full forward is
 :meth:`LM.forward`, the counterpart of the reference's ``LM.apply``
 (``nn.Module.apply`` is PyTorch's own method).  With ``cfg.use_flash`` it
-takes the flash attention kernel.
+takes the flash attention kernel, which has no backward: under autograd
+that route raises, as the reference's does.
+
+``forward`` and ``loss`` run with autograd (the parameters are
+trainable); ``init``, ``prefill`` and ``decode_step`` run under
+``torch.no_grad()``.  With gradients on and no cache, ``cfg.remat``
+wraps each repeating unit as the reference's ``jax.checkpoint`` does:
+``"full"`` recomputes the whole unit in the backward
+(``torch.utils.checkpoint``), ``"dots"`` keeps the outputs of the
+unbatched matrix products (``aten.mm``, the counterpart of
+``dots_with_no_batch_dims_saveable``) and recomputes the rest.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import FULL_WINDOW, LayerSpec, ModelConfig
 
@@ -122,18 +133,50 @@ class LM(nn.Module):
                  caches: Optional[List[Dict]]
                  ) -> Tuple[torch.Tensor, Optional[List[Dict]],
                             torch.Tensor]:
+        cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if caches is None and cfg.remat != "none" and \
+                torch.is_grad_enabled():
+            return self._decoder_remat(x, positions, cross_ctx, aux)
         new_caches = [] if caches is not None else None
         for i, (block, window) in enumerate(zip(self.blocks(),
                                                 self.windows)):
             cache = None if caches is None else caches[i]
-            x, c, a = layer_apply(self.cfg, block, x, positions=positions,
+            x, c, a = layer_apply(cfg, block, x, positions=positions,
                                   window=window, cross_ctx=cross_ctx,
                                   cache=cache)
             aux = aux + a
             if caches is not None:
                 new_caches.append(c)
         return x, new_caches, aux
+
+    def _decoder_remat(self, x: torch.Tensor, positions: torch.Tensor,
+                       cross_ctx: Optional[torch.Tensor], aux: torch.Tensor
+                       ) -> Tuple[torch.Tensor, None, torch.Tensor]:
+        """The training decoder with each repeating unit checkpointed (the
+        prefix layers are not, as in the reference)."""
+        cfg = self.cfg
+        n_pre, size = len(cfg.prefix), cfg.unit_size
+        blocks, windows = self.blocks(), self.windows
+        for i in range(n_pre):
+            x, _, a = layer_apply(cfg, blocks[i], x, positions=positions,
+                                  window=windows[i], cross_ctx=cross_ctx)
+            aux = aux + a
+
+        def unit(lo, x, aux, positions, cross_ctx):
+            for i in range(lo, lo + size):
+                x, _, a = layer_apply(cfg, blocks[i], x, positions=positions,
+                                      window=windows[i], cross_ctx=cross_ctx)
+                aux = aux + a
+            return x, aux
+
+        extra = {} if cfg.remat == "full" else {
+            "context_fn": functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots)}
+        for lo in range(n_pre, len(blocks), size):
+            x, aux = ckpt.checkpoint(unit, lo, x, aux, positions, cross_ctx,
+                                     use_reentrant=False, **extra)
+        return x, None, aux
 
     def _encoder(self, frames: torch.Tensor) -> torch.Tensor:
         """The encoder: non-causal attention layers over the frames at
@@ -166,7 +209,6 @@ class LM(nn.Module):
                             device=self.device).expand(b, s)
 
     # --------------------------------------------------------------- forward
-    @torch.no_grad()
     def forward(self, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full forward (the reference's ``LM.apply``): ``batch["tokens"]``
         [B, S] (optional ``positions``; ``frames`` or ``vision`` for the
@@ -243,6 +285,16 @@ class LM(nn.Module):
                                      cache["layers"])
         x = self.final_norm(x)
         return self._head(x), {"index": idx + 1, "layers": layers}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the unbatched matrix products' outputs
+    (a projection ``x @ w`` folds to ``aten.mm``), recompute the rest (the
+    attention's batched products included, as the reference's policy
+    does)."""
+    if op == torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def build_model(cfg: ModelConfig, device=None) -> LM:

@@ -863,7 +863,8 @@ def test_lm_flash_route_on_the_card(dev, arch):
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64),
                                            dtype=np.int32)).to(dev)
     before = AK.flash_attention.launches
-    got, _ = flash({"tokens": tokens})
+    with torch.no_grad():           # the kernel has no backward
+        got, _ = flash({"tokens": tokens})
     assert AK.flash_attention.launches == before + cfg.num_layers
     want, _ = plain({"tokens": tokens})
     # gemma3's reduced windows (64) do not bind at 64 tokens
@@ -1380,3 +1381,93 @@ def test_reduced_families_on_the_card_equal_the_cpu(dev, arch):
             steps.append(logits[:, -1].cpu())
         outs.append(torch.stack(steps, 1))
     assert (outs[0] - outs[1]).abs().max().item() <= 2e-4
+
+
+# ------------------------------------------------------------- training
+
+def _train_case(dev, n_micro, **over):
+    """One AdamW step of reduced smollm (float32, two units) on ``dev``
+    from the CPU model's weights.  Adam's first step moves a parameter by
+    lr x g / (|g| + eps): where |g| is of the order of eps, the summation
+    order (microbatches, the card's atomics) decides a part of lr, so lr
+    is 1e-3 for the reference's atol of 5e-4."""
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.train_step import (make_train_step, model_params,
+                                              unit_layout)
+    cfg = get_config("smollm-360m").reduced().with_(n_units=2, **over)
+    cpu = build_model(cfg, "cpu").init(0)
+    model = build_model(cfg, dev)
+    model.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(8)
+    batch = {k: rng.integers(0, cfg.vocab_size, (8, 32)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    params = model_params(model)
+    opt = adamw(1e-3)
+    return make_train_step(model, opt, n_micro)(
+        params, opt.init(params, unit_layout(model)), batch)
+
+
+@pytest.mark.parametrize("remat", ["none", "dots"])
+def test_train_step_on_the_card(dev, remat):
+    """A reduced train step on the card against the same step on the CPU
+    (loss, grad norm and new params within the reference's 2e-4 / 5e-4),
+    and n_micro 4 against 1 on the card (the grad norm too: a wrong
+    accumulation's scale would hide behind the clip and Adam's scale
+    invariance in the params)."""
+    p_card, s_card, m_card = _train_case(dev, 1, remat=remat)
+    p_cpu, _, m_cpu = _train_case(torch.device("cpu"), 1, remat=remat)
+    assert m_card["loss"].device.type == "cuda"
+    assert abs(m_card["loss"].item() - m_cpu["loss"].item()) <= \
+        1e-5 * abs(m_cpu["loss"].item())
+    assert abs(m_card["grad_norm"].item() - m_cpu["grad_norm"].item()) <= \
+        1e-4 * m_cpu["grad_norm"].item()
+    for k, v in p_cpu.items():
+        assert p_card[k].device.type == "cuda"
+        torch.testing.assert_close(p_card[k].cpu(), v, rtol=2e-4, atol=5e-4)
+    assert s_card["m"]["embed"].device.type == "cuda"
+    p4, _, m4 = _train_case(dev, 4, remat=remat)
+    assert abs(m4["loss"].item() - m_card["loss"].item()) <= \
+        1e-5 * abs(m_card["loss"].item())
+    assert abs(m4["grad_norm"].item() - m_card["grad_norm"].item()) <= \
+        1e-4 * m_card["grad_norm"].item()
+    for k, v in p_card.items():
+        torch.testing.assert_close(p4[k], v, rtol=2e-4, atol=5e-4)
+
+
+def test_bf16_checkpoint_roundtrip_from_the_card(dev, tmp_path):
+    from repro_torch.checkpoint.checkpointer import (restore_checkpoint,
+                                                     save_checkpoint)
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.train_step import model_params, unit_layout
+    cfg = get_config("smollm-360m").reduced()
+    assert cfg.with_(param_dtype="bfloat16").param_dtype == "bfloat16"
+    model = build_model(cfg.with_(param_dtype="bfloat16",
+                                  compute_dtype="bfloat16"), dev).init(0)
+    params = model_params(model)
+    state = adamw(1e-3, moment_dtype="bfloat16").init(params,
+                                                      unit_layout(model))
+    tree = {"params": params, "opt": state}
+    save_checkpoint(str(tmp_path), 7, tree, extra={"next_step": 7})
+    back, extra = restore_checkpoint(str(tmp_path), 7, like=tree)
+    assert extra == {"next_step": 7}
+    for k, v in params.items():
+        assert back["params"][k].dtype == torch.bfloat16
+        assert back["params"][k].device == v.device
+        assert torch.equal(back["params"][k], v)
+    assert back["opt"]["m"]["embed"].dtype == torch.bfloat16
+    flat, _ = restore_checkpoint(str(tmp_path), 7)
+    assert torch.equal(flat["params/embed"], params["embed"].cpu())
+
+
+def test_flash_route_refuses_autograd_on_the_card(dev):
+    cfg = get_config("smollm-360m").reduced().with_(use_flash=True)
+    model = build_model(cfg, dev).init(0)
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (2, 64), dtype=np.int32)).to(dev)
+    before = AK.flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        model.loss({"tokens": tokens, "labels": tokens})
+    assert AK.flash_attention.launches == before
+    with torch.no_grad():
+        model.loss({"tokens": tokens, "labels": tokens})
+    assert AK.flash_attention.launches == before + cfg.num_layers

@@ -150,7 +150,8 @@ cfg = RC.get_config("smollm-360m").reduced().with_(use_flash=True)
 model = build_model(cfg, "cpu").init(0)
 tokens = torch.from_numpy(np.random.default_rng(0).integers(
     0, cfg.vocab_size, (2, 32)).astype(np.int32))
-logits, _ = model({"tokens": tokens})
+with torch.no_grad():
+    logits, _ = model({"tokens": tokens})
 assert logits.shape == (2, 32, cfg.vocab_size)
 cache = model.init_cache(2, 40)
 logits, cache = model.prefill({"tokens": tokens}, cache)
@@ -271,6 +272,80 @@ bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print("LOADED", bad)
 """
+
+
+TRAIN_PROBE = """
+import os
+import sys
+import tempfile
+import numpy as np
+import torch
+import repro_torch.configs as RC
+from repro_torch.checkpoint.checkpointer import (restore_checkpoint,
+                                                 save_checkpoint)
+from repro_torch.distributed.collectives import (compress_with_feedback,
+                                                 init_error_feedback)
+from repro_torch.distributed.pipeline import bubble_fraction
+from repro_torch.ft.coordinator import Coordinator
+from repro_torch.models import build_model
+from repro_torch.train.optimizer import adafactor, adamw
+from repro_torch.train.schedule import warmup_cosine
+from repro_torch.train.train_step import (make_train_step, model_params,
+                                          unit_layout)
+from repro_torch.train.trainer import Trainer, TrainerConfig
+torch.set_num_threads(1)
+cfg = RC.get_config("smollm-360m").reduced().with_(n_units=2, remat="dots")
+model = build_model(cfg, "cpu").init(0)
+rng = np.random.default_rng(0)
+batch = {k: rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+         for k in ("tokens", "labels")}
+params = model_params(model)
+for opt in (adamw(warmup_cosine(1e-3, 2, 10), moment_dtype="int8"),
+            adafactor(1e-3)):
+    p1, s1, m = make_train_step(model, opt, 2)(
+        params, opt.init(params, unit_layout(model)), batch)
+    assert bool(torch.isfinite(m["loss"]))
+comp, _ = compress_with_feedback(p1, init_error_feedback(p1))
+assert 0 < bubble_fraction(2, 4) < 1
+with tempfile.TemporaryDirectory() as root:
+    save_checkpoint(root, 1, {"params": p1, "opt": s1})
+    tree, _ = restore_checkpoint(root, 1, like={"params": p1, "opt": s1})
+    assert all(torch.equal(tree["params"][k], v) for k, v in p1.items())
+    out = Trainer(model, adamw(1e-3), TrainerConfig(
+        total_steps=2, checkpoint_every=1,
+        checkpoint_dir=os.path.join(root, "run"), log_every=1),
+        lambda s: batch, Coordinator(1)).run()
+    assert out["final_step"] == 2
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("LOADED", bad)
+"""
+
+
+def test_training_loads_neither_jax_nor_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", TRAIN_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_training_without_a_card_raises(monkeypatch, tmp_path):
+    """The trainer's model and the launcher default to the card."""
+    import repro_torch.configs as RC
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = RC.get_config("smollm-360m").reduced()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        Trainer(build_model(cfg), adamw(1e-3), TrainerConfig(), dict)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        launch.main(["--arch", "smollm-360m", "--reduced", "--steps", "1",
+                     "--checkpoint_dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        launch.main(["--arch", "smollm-360m", "--lower-only"])
 
 
 def test_partitioned_retrieval_loads_neither_jax_nor_the_jax_package():

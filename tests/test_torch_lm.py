@@ -269,7 +269,8 @@ def test_flash_route_matches_reference_flash_route(arch):
     jm, jp, tm = pair(arch, **over)
     b = batch(tm.cfg, 5)
     jl, _ = jm.apply(jp, jbatch(b))
-    tl, _ = tm(tbatch(b))
+    with torch.no_grad():           # the kernel has no backward
+        tl, _ = tm(tbatch(b))
     np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
     _, _, plain = pair(arch, **dict(over, use_flash=False))
     pl, _ = plain(tbatch(b))
@@ -536,3 +537,34 @@ def test_default_device_without_a_card_raises(monkeypatch):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA device"):
         build_model(cfg, "cuda")
+
+
+def test_flash_route_refuses_autograd(monkeypatch):
+    """The kernel has no backward (nor has the reference's Pallas kernel):
+    with gradients on, a ``use_flash=True`` loss raises instead of
+    training everything but attention; under ``torch.no_grad()`` the
+    forward still takes the kernel route (its plain version on the CPU)
+    and gives the plain route's logits."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    _, _, tm = pair("smollm-360m", use_flash=True)
+    _, _, plain = pair("smollm-360m")
+    b = tbatch(batch(tm.cfg, 6))
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        tm.loss(b)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        tm(b)
+    calls = []
+    real = K.flash_attention_into
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(K, "flash_attention_into", counted)
+    with torch.no_grad():
+        tl, _ = tm(b)
+    assert len(calls) == tm.cfg.num_layers
+    np.testing.assert_allclose(_np(tl), _np(plain(b)[0]), **TOL)
+    # the plain route trains: its loss has a gradient for every parameter
+    loss, _ = plain.loss(b)
+    grads = torch.autograd.grad(loss, list(plain.parameters()))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
