@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them.
 
 Run from the root of the repository:  python3 chip_smoke.py
-(``--lm`` runs phases 1-2, 12-13 and the LM profile only; ``--train``
+(``--lm`` runs phases 1-2, 12-13 and the LM profile only; ``--launch``
+phases 1-2 and 20, the launch layer; ``--train``
 phases 1-2, 19 and 19p, training smollm-360m at full width from the
 document lake; ``--families``
 phases 1-2 and 18, the MoE, SSM, encoder-decoder and VLM families at
@@ -76,9 +77,11 @@ any profiler in the process; the LM and training profiles run last):
      ``fused_decode*_bitmap_batch`` kernels must have launched;
   8. ldbc: ``ldbc_like(scale=40)`` (400,000 persons, 3,200,000 messages)
      built with ``build_snb_graphar`` and ``build_snb_baseline``; IS-3,
-     IC-8 (with and without ``reply_label="TagClass1"``, and once for the
+     IC-8 (the person with the most messages and one seeded person, each
+     with and without ``reply_label="TagClass1"``, and once for the
      fused hop 2's (person, tag class) with the most labeled replies,
-     whose answer must not be empty) and BI-2 for each tag class, under
+     whose answer must not be empty) and BI-2 for the first
+     ``LDBC_BI2_CLASSES`` of the 8 tag classes, under
      the resident route and then the per-dispatch one, each run held
      against the numpy engine (result and IOMeter) and the acero baseline
      (result), timed (host ms, median of 3) beside acero; each route's
@@ -271,11 +274,12 @@ any profiler in the process; the LM and training profiles run last):
      and the bf16 flash route within 0.01 of the bf16 plain route; and
      on mamba2, where bf16 rounding compounds over 64 random-init layers,
      the whole phase runs its first 8 layers at full width (the run's time
-     limit); whisper runs
+     limit; deepseek its first 8, llama-vision its first 10, to make room
+     for phase 20); whisper runs
      ``use_flash=False``, and kernel
      15 is checked to refuse
      its lengths (no multiple of 128) rather than fall back; (b) a prefill
-     of 4 x 512 seeded tokens and 32 greedy decode steps, held (except for
+     of 4 x 512 seeded tokens and 16 greedy decode steps, held (except for
      MoE, whose capacity depends on the batch shape) against the plain
      full forward over the same tokens, top-1 equal on every decisive
      step; (c) one deepseek MoE layer at T = 8192 (64 experts, top 6,
@@ -302,25 +306,25 @@ any profiler in the process; the LM and training profiles run last):
      ``scaled_dot_product_attention``;
  19. train (after 14, on its lake): smollm-360m at full width (32 layers,
      d_model 960, 15/5 heads of 64, bf16, ``init(seed=0)``, the config's
-     ``remat="dots"`` and 4 microbatches) trained for 20 steps of 8 x 2048
+     ``remat="dots"`` and 4 microbatches) trained for 6 steps of 8 x 2048
      tokens from phase 14's ``document_graph(100_000, vocab 49152,
      mean_len 256, seed=2)`` lake (built when phase 14 did not run)
      through ``GraphCorpusPipeline(engine="cuda")`` under ``(HighQuality |
-     News) & ~Spam``, with ``adamw(warmup_cosine(3e-4, 5, 20))``.  (a) the
+     News) & ~Spam``, with ``adamw(warmup_cosine(3e-4, 5, 6))``.  (a) the
      eligible documents equal the numpy engine's, and the label filter's
-     kernel (3) launched; (b) every loss finite, the mean of the last 5
-     below the mean of the first 5; (c) one step of 4 microbatches equal
+     kernel (3) launched; (b) every loss finite, the mean of the last 3
+     below the mean of the first 3; (c) one step of 4 microbatches equal
      to one of 1 on a float32 copy at 8 x 512 (params rtol 2e-4, atol
      5e-4; loss within rel 1e-5, grad norm within rel 1e-4);
      (d) the bf16 loss within 2% of the float32 copy's and the cosine of
-     their flattened gradients at least 0.99; (e) ``Trainer`` for 8 steps
+     their flattened gradients at least 0.99; (e) ``Trainer`` for 6 steps
      on the model's first 4 layers at full width (one microbatch of 8 x
      512 a step, AdamW's moments in bf16 too), a
-     checkpoint every 4 under ``build/``
-     (removed after), a crash at 6,
+     checkpoint every 3 under ``build/``
+     (removed after), a crash at 5,
      against a clean run: histories within rel 1e-4; (f) a
      ``use_flash=True`` loss under autograd raises.  Prints the warm step
-     (median of steps 3-20) split into the pipeline's host ms and the
+     (median of steps 3-6) split into the pipeline's host ms and the
      step's host wall, with its forward+backward and optimizer on the
      device's clock; tokens per second; peak ``max_memory_allocated``; a
      checkpoint of the trained state saved and restored (bytes, seconds,
@@ -333,6 +337,30 @@ any profiler in the process; the LM and training profiles run last):
  19p. train profile: ``torch.profiler`` over one warm train step of phase
      19's model at its full batch: device busy ms by kernel, idle share
      against phase 19's unprofiled median step.
+ 20. launch (last, after every profile, the earlier phases' models freed),
+     smollm-360m at full width: (a) the dry-run (``launch/dryrun.py``) of
+     the reference's ``tests/test_dryrun_small.py`` cells (smollm-360m
+     ``train_4k``, mamba2-2.7b ``decode_32k``, whisper-small
+     ``prefill_32k`` on the 2x4 test mesh, smollm-360m ``train_4k`` on
+     2x2x2), traced on ``meta``, each ``ok`` with its roofline terms, and
+     ``python -m repro_torch.launch.train --arch smollm-360m
+     --lower-only`` in a subprocess (exit 0, its row ``ok``);
+     ``torch.cuda.memory_allocated`` unchanged across (a); (b) smollm's
+     three cells run on the card at the largest batch that holds
+     (``LAUNCH_*``: a train step of one microbatch of rows of 4096, a
+     prefill cut to 16384, decode cut in slots of a 32768 cache) and
+     traced on ``meta`` at the same cut on a one-entry mesh: the dry-run's
+     parameter, optimizer and cache bytes equal to the real tensors',
+     the step's peak ``max_memory_allocated`` at least the dry-run's
+     argument bytes, the profiler's device busy ms printed beside
+     ``t_compute`` and ``t_memory``; (c) a bf16 checkpoint of the model's
+     parameters from ``save_checkpoint`` under ``build/`` restored by
+     ``elastic_restore`` onto the 2x4 test mesh naming ``cuda:0``: every
+     leaf's ``full()`` and each shard (its ``indices()`` slice) bit-equal
+     to the saved tree, device memory after placement within 1% of the
+     tree's bytes and back to its value before once the shards are
+     dropped; (d) ``repro_torch.launch.serve.main`` for 8 requests of 16
+     tokens at full width on ``cuda:0``: 8 x 16 tokens served.
 Every launch count is set to 0 just before each of phases 4, 5, 7, 8, 10,
 12, 15, 17, 18 and 19, phase 14's P1 drain and phase 16's pipelined drain,
 and read just after; a kernel's ``launches`` is the sum over the twelve.
@@ -383,8 +411,13 @@ COUNT_HOP_KERNELS = ("interval_words_kernel", "count_tiles_kernel")
 ENTRY_KERNELS = ("bitmap", "fused_decode_bitmap", "rle_to_bitmap",
                  "bitmap_select")
 #: ldbc_like(40): 400,000 persons and 3,200,000 messages, the order of
-#: LDBC SNB SF1's posts and comments
+#: LDBC SNB SF1's posts and comments; BI-2 runs for the first 4 of its 8
+#: tag classes (TagClass3, the profiled one and row 7b's, among them) and
+#: IC-8 for the person with the most messages and 1 seeded person (all 8
+#: classes and 2 persons before phase 20 needed the room: a query ~10-13 s,
+#: most of it acero's three runs)
 LDBC_SCALE = 40
+LDBC_BI2_CLASSES, LDBC_IC8_PERSONS = 4, 1
 #: where the kernel phase runs and which engine the slice drives
 DEVICE = "cuda:0"
 ENGINE = "cuda"
@@ -445,7 +478,8 @@ FAMILY_ARCHS = ("deepseek-moe-16b", "llama-3.2-vision-11b", "mamba2-2.7b",
                 "whisper-small")
 FAMILY_FLASH = ("deepseek-moe-16b", "llama-3.2-vision-11b")
 WHISPER_TEXT, WHISPER_FRAMES = 448, 1500
-FAMILY_PROMPT, FAMILY_STEPS, FAMILY_TIMED_STEPS = 512, 32, 8
+#: 16 decode steps a model (32 before phase 20 needed the room)
+FAMILY_PROMPT, FAMILY_STEPS, FAMILY_TIMED_STEPS = 512, 16, 8
 SSD_BATCH, SSD_LEN = 2, 1024
 FAMILY_SERVE_DOCS, FAMILY_SERVE_SLOTS, FAMILY_SERVE_LEN = 10_000, 4, 512
 FAMILY_SERVE_REQUESTS, FAMILY_SERVE_NEW, FAMILY_SERVE_SOLO = 8, 16, 4
@@ -453,25 +487,49 @@ FAMILY_REDUCED = ("jamba-1.5-large-398b", "qwen3-moe-30b-a3b")
 #: the depth at which mamba2 runs: bf16 against float32 top-1 on decisive
 #: positions fell 0.9992, 0.988, 0.929, 0.771 over its first 8, 16, 32 and
 #: all 64 random-init layers (H100 80GB HBM3, 700 W), and its pass over all
-#: 64 (reported, not held) took ~25 s of the full run's 1200 s limit
-FAMILY_UNITS = {"mamba2-2.7b": 8}
+#: 64 (reported, not held) took ~25 s of the full run's 1200 s limit;
+#: deepseek-moe-16b runs its dense layer and 7 of its 27 MoE units,
+#: llama-3.2-vision-11b 2 of its 8 units of 5 layers (one cross layer
+#: each), at full width: the depth cut that made room for phase 20
+FAMILY_UNITS = {"mamba2-2.7b": 8, "deepseek-moe-16b": 7,
+                "llama-3.2-vision-11b": 2}
 X_GATE = 0.5
 #: training (phase 19): smollm-360m at full width from phase 14's lake,
 #: 16,384 tokens a step (8 sequences of 2048, in the config's 4
-#: microbatches), AdamW under warmup-cosine; (c) and (d) on a float32 copy
-#: at seq 512; (e) the trainer's 8 steps with a checkpoint every 4 and a
-#: crash at 6, on the model's first layers; the kernel the phase must
+#: microbatches), AdamW under warmup-cosine, 6 steps (20 before phase 20
+#: needed the room: the warm median runs over steps 3-6, the loss held
+#: over the first and last 3); (c) and (d) on a float32 copy
+#: at seq 512; (e) the trainer's 6 steps (one a train step's batch) with
+#: a checkpoint every 3 and a crash at 5, on the model's first layers (8,
+#: 4 and 6 before phase 20 needed the room); the kernel the phase must
 #: launch (the label filter's)
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 8, 20
-TRAIN_PEAK, TRAIN_WARMUP, TRAIN_WINDOW = 3e-4, 5, 5
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 8, 6
+TRAIN_PEAK, TRAIN_WARMUP, TRAIN_WINDOW = 3e-4, 5, 3
 TRAIN_CHECK_SEQ = 512
-TRAIN_FT_STEPS, TRAIN_FT_EVERY, TRAIN_FT_FAIL = 8, 4, 6
+TRAIN_FT_STEPS, TRAIN_FT_EVERY, TRAIN_FT_FAIL = 6, 3, 5
 #: (e) holds the recovery, not the model: it runs the first 4 of the 32
 #: layers at full width, which cut its two runs (and three checkpoints of
 #: the trained state) from ~27-80 s to a few, for phase 8's acero
 #: baseline's three runs in the 1200 s limit
 TRAIN_FT_UNITS = 4
 TRAIN_KERNELS = ("cond_bitmap",)
+#: the launch layer (phase 20): the dry-run's four cells of the reference's
+#: ``tests/test_dryrun_small.py`` on its test meshes; then smollm-360m's
+#: three cells run on the card at the largest batch that holds, from these
+#: candidates (a train step of one microbatch of rows of 4096; a prefill
+#: cut to LAUNCH_PREFILL_SEQ, since [1, 15, 32768, 32768] float32 scores
+#: are 64 GB; decode cut in slots, since 128 slots of a 32768 cache are
+#: 172 GB in bf16), each traced on ``meta`` at the same cut
+LAUNCH_CELLS = (("smollm-360m", "train_4k", False),
+                ("mamba2-2.7b", "decode_32k", False),
+                ("whisper-small", "prefill_32k", False),
+                ("smollm-360m", "train_4k", True))
+#: each list opens one above the largest that held on an otherwise empty
+#: card, so that the phase shows the refusal too (it logs both)
+LAUNCH_TRAIN_ROWS = (11, 10, 8, 4, 2, 1)
+LAUNCH_PREFILL_SEQ, LAUNCH_PREFILL_ROWS = 16384, (2, 1)
+LAUNCH_DECODE_SLOTS = (52, 48, 44, 32, 16)
+LAUNCH_SERVE_REQUESTS, LAUNCH_SERVE_TOKENS = 8, 16
 PARTITION_KERNELS = ("gather_decode", "fused_gather_decode_bitmap_batch",
                      "cond_bitmap", "fused_gather_decode_filter_bitmap_batch",
                      "khop_scan", "two_hop", "count_hop", "seed_words",
@@ -1287,10 +1345,12 @@ def ldbc_phase(torch, card, wrappers):
             "no fused labeled IC-8 has a non-empty answer")
     queries = [("IS-3", int(p), None) for p in
                (int(np.argmax(knows.degrees())), *persons[:2])]
-    queries += [("IC-8", int(p), lab) for p in (top_msgs, *persons[2:])
+    queries += [("IC-8", int(p), lab)
+                for p in (top_msgs, *persons[2:2 + LDBC_IC8_PERSONS])
                 for lab in (None, "TagClass1")]
     queries += [ic8_fused_label]
-    queries += [("BI-2", name, None) for name in snb.tagclass_names]
+    queries += [("BI-2", name, None)
+                for name in snb.tagclass_names[:LDBC_BI2_CLASSES]]
     log(f"ldbc: fused labeled IC-8: person {best_p} "
         f"({int(msgs[best_p])} messages), {ic8_fused_label[2]}, "
         f"{int(labeled[best_c, best_p])} labeled replies")
@@ -2929,7 +2989,7 @@ def family_forwards(torch, cfg, batch, out):
 
 def family_decode(torch, model, batch, out):
     """(b): a prefill of 4 x 512 seeded tokens (and the batch's context)
-    and 32 greedy decode steps; except for MoE, the top-1 of every step
+    and 16 greedy decode steps; except for MoE, the top-1 of every step
     held against the plain full forward's over the same tokens on its
     decisive steps."""
     import numpy as np
@@ -4566,6 +4626,271 @@ def train_profile_phase(torch, train, card):
     return {"busy": total, "idle": 1 - total / step, "profiled_wall": wall}
 
 
+# --------------------------------------------------------------------------
+# phase 20: the launch layer (dry-run, its roofline against the card,
+# elastic restore, the serve CLI)
+# --------------------------------------------------------------------------
+
+def launch_dir(name: str) -> Path:
+    """An empty directory for phase 20 under ``build/``."""
+    import shutil
+    d = ROOT / "build" / "chip_smoke_launch" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def row_terms(row) -> str:
+    return (f"t_compute {row['t_compute_s'] * 1e3:.3f} ms, t_memory "
+            f"{row['t_memory_s'] * 1e3:.3f} ms, t_collective "
+            f"{row['t_collective_s'] * 1e3:.3f} ms ({row['collectives']}), "
+            f"bottleneck {row['bottleneck']}, useful "
+            f"{row['useful_flops_ratio']:.3f}, args "
+            f"{row['memory']['argument_size_in_bytes'] / 1e9:.3f} GB/dev")
+
+
+def nbytes(tree) -> int:
+    """The bytes of the tensors in ``tree``, as the dry-run counts them."""
+    import repro_torch.launch.dryrun as DR
+    return DR._nbytes(DR._flat(tree, []))
+
+
+def largest(torch, sizes, run):
+    """``(size, run(size))`` for the first of ``sizes`` (largest first)
+    whose run the card holds; each refused size is freed and logged."""
+    import gc
+    for n in sizes:
+        try:
+            return n, run(n)
+        except torch.cuda.OutOfMemoryError:
+            pass
+        # outside the handler: the error's traceback no longer holds the
+        # refused run's tensors, so the cache can give their memory back
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"20. (b) {n} does not fit the card; trying the next")
+    raise RuntimeError(f"none of {sizes} fits the card")
+
+
+def launch_real_cells(torch, card, model, cfg):
+    """Phase 20 (b): smollm-360m's train, prefill and decode cells run on
+    the card at cut sizes, each beside its dry-run on ``meta`` at the same
+    cut (a mesh of one entry naming the card): the dry-run's parameter
+    and optimizer (or cache) bytes against the real tensors', the peak
+    against the argument bytes, the profiler's device busy beside the
+    roofline terms."""
+    import numpy as np
+    import repro_torch.launch.dryrun as DR
+    from repro_torch.launch.mesh import virtual_mesh
+    from repro_torch.launch.shapes import ShapeDef
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.train_step import (make_train_step, model_params,
+                                              unit_layout)
+    one = virtual_mesh((1, 1), ("data", "model"))
+    dev = model.device
+    gen = np.random.default_rng(20)
+    out = {}
+
+    def tokens(b, s):
+        return torch.from_numpy(gen.integers(
+            0, cfg.vocab_size, (b, s)).astype(np.int32)).to(dev)
+
+    def cell(kind, name, b, s, run, real):
+        """Profile ``run`` (after a warm call) with the peak reset, then
+        trace the same cut on meta and hold the two."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wall, busy = profile_ms(torch, run, reps=1)
+        peak = torch.cuda.max_memory_allocated()
+        c = cfg.with_(train_microbatches=1) if kind == "train" else cfg
+        row = DR.roofline_row(LM_ARCH, c, ShapeDef(name, kind, s, b), one,
+                              "1x1")
+        mem = row["memory"]
+        for key, want in real.items():
+            require(mem[key] == want, f"20. (b) {name}: the dry-run's {key} "
+                    f"{mem[key]:.0f} != the card's {want}")
+        require(peak >= mem["argument_size_in_bytes"],
+                f"20. (b) {name}: peak {peak} below the dry-run's argument "
+                f"bytes {mem['argument_size_in_bytes']:.0f}")
+        t_c, t_m = row["t_compute_s"] * 1e3, row["t_memory_s"] * 1e3
+        dev_ms = sum(busy.values())
+        out[name] = {"batch": b, "seq": s, "busy_ms": dev_ms,
+                     "wall_ms": wall, "t_compute_ms": t_c,
+                     "t_memory_ms": t_m, "peak": peak,
+                     "args": mem["argument_size_in_bytes"],
+                     "trace_s": row["compile_s"]}
+        log(f"20. (b) {name} cut to {b} x {s}: device busy {dev_ms:.1f} ms "
+            f"(host wall {wall:.1f} ms under the profiler) beside the "
+            f"dry-run's t_compute {t_c:.1f} ms and t_memory {t_m:.1f} ms "
+            f"(busy / max(terms) {dev_ms / max(t_c, t_m):.2f}; traced "
+            f"{row['aten_ops']:,} aten ops in {row['compile_s']:.1f} s); "
+            + ", ".join(f"{k} {v:,}" for k, v in real.items())
+            + f" equal to the dry-run's; peak max_memory_allocated "
+            f"{peak / 1e9:.2f} GB >= args "
+            f"{mem['argument_size_in_bytes'] / 1e9:.2f} GB; on {card}")
+
+    # train_4k: one microbatch of rows of 4096
+    opt = adamw(warmup_cosine(3e-4, 100, 10_000),
+                moment_dtype=DR.moment_dtype_for(cfg))
+    params = model_params(model)
+    state = opt.init(params, unit_layout(model))
+    step = make_train_step(model, opt, 1, accum_dtype=torch.bfloat16)
+    real = {"params_bytes": nbytes(params),
+            "opt_state_bytes": nbytes(state)}
+
+    def train(b):
+        batch = {"tokens": tokens(b, 4096), "labels": tokens(b, 4096)}
+        cell("train", "train_4k", b, 4096,
+             lambda: step(params, state, batch), real)
+    largest(torch, LAUNCH_TRAIN_ROWS, train)
+    del params, state, step
+    torch.cuda.empty_cache()
+    real = {"params_bytes": nbytes(list(model.parameters()))}
+
+    # prefill_32k: the sequence cut
+    def prefill(b):
+        s = LAUNCH_PREFILL_SEQ
+        cache = model.init_cache(b, s)
+        batch = {"tokens": tokens(b, s)}
+        cell("prefill", "prefill_32k", b, s, lambda: model.prefill(
+            batch, cache), {**real, "cache_bytes": nbytes(cache)})
+    largest(torch, LAUNCH_PREFILL_ROWS, prefill)
+    torch.cuda.empty_cache()
+
+    # decode_32k: the slots cut
+    def decode(b):
+        cache = model.init_cache(b, 32768)
+        cache["index"].fill_(32767)
+        toks = tokens(b, 1)
+        cell("decode", "decode_32k", b, 32768, lambda: model.decode_step(
+            toks, cache), {**real, "cache_bytes": nbytes(cache)})
+    largest(torch, LAUNCH_DECODE_SLOTS, decode)
+    torch.cuda.empty_cache()
+    return out
+
+
+def launch_phase(torch, card):
+    """Phase 20: the launch layer on the card (see the module docstring)."""
+    import os
+    import shutil
+    import repro_torch.launch.dryrun as DR
+    from repro_torch.checkpoint.checkpointer import save_checkpoint
+    from repro_torch.checkpoint.reshard import elastic_restore
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import describe, make_test_mesh
+    from repro_torch.models import build_model
+    out = {}
+    # (a) the dry-run: nothing allocated on the card; --lower-only's
+    # subprocess runs beside the four rows traced here
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    d = launch_dir("lower_only")
+    lower = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         LM_ARCH, "--lower-only"], cwd=d, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    try:
+        for arch, shape, multi in LAUNCH_CELLS:
+            row = DR.run_cell(arch, shape, multi,
+                              mesh_factory=make_test_mesh)
+            require(row["status"] == "ok" and row["t_compute_s"] > 0
+                    and row["t_memory_s"] > 0 and row["coll_count"] == 0,
+                    f"20. (a) {arch} {shape}: {row}")
+            log(f"20. (a) dry-run {arch} {shape} on {row['mesh']}: "
+                f"{row_terms(row)}; traced on meta in "
+                f"{row['compile_s']:.1f} s")
+        _, err = lower.communicate(timeout=300)
+    finally:
+        if lower.poll() is None:
+            lower.kill()
+            lower.wait()
+    require(lower.returncode == 0, f"20. (a) --lower-only exited "
+            f"{lower.returncode}: {err[-2000:]}")
+    row = json.loads((d / "dryrun_report.json").read_text())[0]
+    require(row["status"] == "ok", f"20. (a) --lower-only: {row}")
+    log(f"20. (a) launch.train --lower-only: {row['arch']} {row['shape']} "
+        f"on {row['mesh']}: {row_terms(row)} (the subprocess done "
+        f"{time.perf_counter() - t0:.1f} s into (a))")
+    torch.cuda.synchronize()
+    require(torch.cuda.memory_allocated() == mem0,
+            f"20. (a) the dry-run allocated on the card: "
+            f"{torch.cuda.memory_allocated() - mem0} B")
+    out["a_s"] = time.perf_counter() - t0
+    log(f"20. (a) 5 dry-run rows ok, memory_allocated unchanged at {mem0} B "
+        f"({out['a_s']:.1f} s)")
+
+    # (b) the dry-run against the card
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg).init(0)
+    out["cells"] = launch_real_cells(torch, card, model, cfg)
+    out["b_s"] = time.perf_counter() - t0
+    log(f"20. (b) three cells held against their dry-runs "
+        f"({out['b_s']:.1f} s)")
+
+    # (c) elastic_restore of a full-width bf16 checkpoint onto 2x4 x cuda:0
+    t0 = time.perf_counter()
+    host = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    like = {n: p.to("meta") for n, p in host.items()}
+    del model
+    torch.cuda.empty_cache()
+    ck = launch_dir("ckpt")
+    save_checkpoint(str(ck), 1, host)
+    tree_bytes = nbytes(host)
+    mesh = make_test_mesh()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    placed, _ = elastic_restore(str(ck), 1, like, mesh, cfg)
+    torch.cuda.synchronize()
+    used = torch.cuda.memory_allocated() - mem0
+    require(abs(used - tree_bytes) <= 0.01 * tree_bytes,
+            f"20. (c) placement took {used} B for a tree of {tree_bytes} B")
+    shards = 0
+    for n, p in host.items():
+        sh = placed[n]
+        require(torch.equal(sh.full().cpu(), p),
+                f"20. (c) {n}: full() differs from the saved tree")
+        for idx, s in zip(sh.indices(), sh.shards):
+            require(s.device == torch.device("cuda", 0)
+                    and torch.equal(s.cpu(), p[idx]),
+                    f"20. (c) {n}: a shard is not its indices()' slice")
+            shards += 1
+    del placed, sh, s
+    shutil.rmtree(ck)
+    torch.cuda.synchronize()
+    require(torch.cuda.memory_allocated() == mem0,
+            "20. (c) the shards were not freed")
+    out["c_s"] = time.perf_counter() - t0
+    log(f"20. (c) elastic_restore of {LM_ARCH}'s bf16 checkpoint "
+        f"({len(host)} leaves, {tree_bytes / 1e9:.3f} GB) onto "
+        f"{describe(mesh)} x {mesh.devices.flat[0]}: {shards} shards "
+        f"bit-equal to their indices()' slices, every full() equal; "
+        f"{used / 1e9:.3f} GB on the "
+        f"card ({used / tree_bytes:.4f} of the tree), freed after "
+        f"({out['c_s']:.1f} s) on {card}")
+    del host, like
+
+    # (d) the serve CLI at full width
+    t0 = time.perf_counter()
+    res = serve.main(["--arch", LM_ARCH, "--requests",
+                      str(LAUNCH_SERVE_REQUESTS), "--max_new_tokens",
+                      str(LAUNCH_SERVE_TOKENS)])
+    require(res["requests"] == LAUNCH_SERVE_REQUESTS and res["tokens"] ==
+            LAUNCH_SERVE_REQUESTS * LAUNCH_SERVE_TOKENS,
+            f"20. (d) the serve CLI served {res}")
+    torch.cuda.empty_cache()
+    out["d_s"] = time.perf_counter() - t0
+    log(f"20. (d) serve CLI: {res['requests']} requests x "
+        f"{LAUNCH_SERVE_TOKENS} tokens at full width in {res['ticks']} ticks "
+        f"({res['steps']} batched decode steps, {res['seconds']:.2f} s) "
+        f"({out['d_s']:.1f} s) on {card}")
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4598,6 +4923,10 @@ def main() -> int:
     only.add_argument("--train", action="store_true",
                       help="run phases 1-2, 19 and 19p only (training "
                       "smollm-360m at full width from the GraphAr lake)")
+    only.add_argument("--launch", action="store_true",
+                      help="run phases 1-2 and 20 only (the launch layer: "
+                      "the dry-run, its roofline against the card, "
+                      "elastic restore, the serve CLI)")
     args = ap.parse_args()
     graph_only = next((f for f in ("traversal", "per-dispatch", "resident",
                                    "entries", "mutable", "partitions")
@@ -4670,9 +4999,10 @@ def main() -> int:
         return out, {n: w.launches for n, w in wrappers.items()}
 
     rows, counts, serve, train = [], [], None, None
-    lm_only = args.lm or args.serve or args.families or args.train
+    lm_only = args.lm or args.serve or args.families or args.train \
+        or args.launch
     if not graph_only and not args.serve and not args.families \
-            and not args.train:
+            and not args.train and not args.launch:
         # the LM slice first: its host timings come before any profiler in
         # the process (phases 5 and 8 profile); its own profile runs last
         t0 = time.perf_counter()
@@ -4690,7 +5020,8 @@ def main() -> int:
             f"({time.perf_counter() - t0:.1f} s)")
         torch.cuda.empty_cache()
 
-    if not graph_only and not args.serve and not args.lm and not args.train:
+    if not graph_only and not args.serve and not args.lm and not args.train \
+            and not args.launch:
         # the rest of the LM stack, before any profiler in the process
         t0 = time.perf_counter()
         _, f_launches = drive(families_phase, torch, card)
@@ -4706,7 +5037,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     if not graph_only and not args.lm and not args.families \
-            and not args.train:
+            and not args.train and not args.launch:
         # the serving path, before any profiler in the process too
         t0 = time.perf_counter()
         serve = serve_phase(torch, card, drive)
@@ -4720,7 +5051,7 @@ def main() -> int:
         counts.append(s_launches)
 
     if not graph_only and not args.lm and not args.families \
-            and not args.serve:
+            and not args.serve and not args.launch:
         # training, before any profiler in the process; on phase 14's lake
         t0 = time.perf_counter()
         train, r_launches = drive(train_phase, torch, card,
@@ -4753,7 +5084,7 @@ def main() -> int:
             + f" ({time.perf_counter() - t0:.1f} s) on {card}")
         counts.append(m_launches)
     if not graph_only and not args.serve and not args.families \
-            and not args.train:
+            and not args.train and not args.launch:
         t0 = time.perf_counter()
         lm_profile_phase(torch, lm)
         if serve is not None:
@@ -4761,6 +5092,16 @@ def main() -> int:
         log(f"12p. lm profile ({time.perf_counter() - t0:.1f} s)")
     if train is not None:
         train_profile_phase(torch, train, card)
+    if not graph_only and not args.lm and not args.serve \
+            and not args.families and not args.train:
+        # the launch layer last: (b) profiles, and runs the card's largest
+        # batches with the earlier phases' models freed
+        lm = serve = train = None
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        launch_phase(torch, card)
+        log(f"20. launch: (a)-(d) pass ({time.perf_counter() - t0:.1f} s) "
+            f"on {card}")
     for r in rows:
         # a row named "kernel@shape" times a kernel at another shape
         r["launches"] = sum(c[r["name"].split("@")[0]] for c in counts)

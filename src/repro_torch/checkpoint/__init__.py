@@ -1,2 +1,2 @@
 """Checkpoints on PyTorch (the JAX package's ``checkpoint``): atomic
-sharded saves and the reshard plan."""
+sharded saves, the reshard plan and elastic restore onto a mesh."""

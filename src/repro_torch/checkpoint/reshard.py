@@ -1,16 +1,91 @@
-"""Elastic resharding: the chunk-movement plan.
+"""Elastic resharding: restore a checkpoint onto a different mesh/topology.
 
-The JAX package's ``checkpoint/reshard.py``, its plan only.  Checkpoints
-store *global* logical arrays, so moving between meshes is a metadata
-problem, not a data problem: ``plan_reshard`` reports, per leaf, which
-ranges of the old shards each new shard reads -- on a real cluster this
-drives host-to-host transfer planning.  Placing a restored tree onto a
-mesh (the reference's ``device_put_resharded`` and ``elastic_restore``)
-needs the port's mesh sharding rules, which do not exist yet.
+The JAX package's ``checkpoint/reshard.py`` on PyTorch.  Checkpoints
+store *global* logical arrays (host-side), so moving between meshes is a
+metadata problem, not a data problem: the restore path re-chunks each
+leaf for the new mesh's shardings (``distributed/sharding.py``).  This is
+the mechanism behind elastic scale-down (lose a pod, resume on one) and
+scale-up.
+
+A placed leaf is a :class:`Sharded` value: one contiguous tensor per mesh
+entry, on the entry's device, holding the slice ``indices()`` gives it.
+On a virtual mesh (``launch/mesh.py``: every entry names one device)
+entries on one device with the same slice share one tensor, as they would
+share one buffer on a real card, so a tree placed on a mesh naming one
+card 8 times takes the tree's bytes and not 8 times them.
+
+``plan_reshard`` additionally reports, per leaf, which byte ranges each new
+device needs -- on a real cluster this drives host-to-host transfer
+planning; here it documents/tests the chunking math.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import dataclasses
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
+                                              shard_params,
+                                              tree_leaves_with_path,
+                                              tree_map_with_path)
+from repro_torch.models.convert import to_tensor
+
+
+@dataclasses.dataclass
+class Sharded:
+    """One leaf placed on a mesh: ``shards[i]`` is mesh entry ``i``'s
+    part (the mesh's device order), ``full()`` the global tensor again."""
+    spec: PartitionSpec
+    mesh: Any
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    shards: List[torch.Tensor]
+
+    @property
+    def sharding(self) -> NamedSharding:
+        return NamedSharding(self.mesh, self.spec)
+
+    def indices(self) -> List[Tuple[slice, ...]]:
+        return self.sharding.indices(self.shape)
+
+    def full(self) -> torch.Tensor:
+        """The global tensor, assembled on the first shard's device."""
+        out = torch.empty(self.shape, dtype=self.dtype,
+                          device=self.shards[0].device)
+        for idx, shard in zip(self.indices(), self.shards):
+            out[idx] = shard
+        return out
+
+
+def _host_tensor(leaf) -> torch.Tensor:
+    return leaf if isinstance(leaf, torch.Tensor) else to_tensor(leaf)
+
+
+def place(leaf, sharding: NamedSharding) -> Sharded:
+    """``leaf`` split over ``sharding``'s mesh: each distinct (device,
+    slice) copied once into a fresh contiguous tensor on the device."""
+    t = _host_tensor(leaf)
+    mesh = sharding.mesh
+    shards, made = [], {}
+    for dev, idx in zip(mesh.devices.flat,
+                        sharding.indices(tuple(t.shape))):
+        key = (str(dev), tuple((s.start, s.stop) for s in idx))
+        if key not in made:
+            part = t[idx]
+            made[key] = torch.empty(part.shape, dtype=t.dtype,
+                                    device=dev).copy_(part)
+        shards.append(made[key])
+    return Sharded(sharding.spec, mesh, tuple(t.shape), t.dtype, shards)
+
+
+def device_put_resharded(tree, mesh, cfg=None):
+    """Place a host tree onto ``mesh`` with the framework sharding rules
+    (``cfg`` names the unit size of a tree holding the port's unit
+    parameters, ``layers.{i}.*``)."""
+    shardings = dict(tree_leaves_with_path(shard_params(tree, mesh, cfg)))
+    return tree_map_with_path(lambda p, leaf: place(leaf, shardings[p]),
+                              tree)
 
 
 def plan_reshard(shape: Tuple[int, ...], old_spec_shards: int,
@@ -39,3 +114,36 @@ def plan_reshard(shape: Tuple[int, ...], old_spec_shards: int,
         plan.append({"new_shard": new_i, "reads": reads,
                      "bytes_factor": sum(r["length"] for r in reads) / n})
     return plan
+
+
+def _host_cast(arr, ref):
+    """A restored leaf (numpy, or a bfloat16 tensor) in ``ref``'s type, on
+    the host."""
+    if isinstance(ref, torch.Tensor):
+        return _host_tensor(arr).to(ref.dtype)
+    if isinstance(arr, torch.Tensor):      # bfloat16 into a numpy leaf
+        arr = arr.float().numpy()
+    return arr.astype(ref.dtype) if hasattr(ref, "dtype") else arr
+
+
+def elastic_restore(directory: str, step: int, like, new_mesh,
+                    cfg=None) -> Tuple[Any, Dict]:
+    """Restore a checkpoint saved on any mesh onto ``new_mesh``: the port's
+    checkpointer reads each shard file (the reference's bfloat16 ones
+    too), then every leaf of ``like``'s structure (tensors on any device,
+    ``meta`` included, or numpy arrays: only shapes and types are read) is
+    placed under the sharding rules.  Returns (the placed tree, extra)."""
+    from .checkpointer import restore_checkpoint
+    by_path, extra = restore_checkpoint(directory, step)
+
+    def one(path, ref):
+        key = "/".join(str(p) for p in path)
+        if key not in by_path:
+            raise KeyError(f"checkpoint missing leaf {key}")
+        arr = by_path[key]
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: checkpoint shape {tuple(arr.shape)} "
+                             f"!= expected {tuple(ref.shape)}")
+        return _host_cast(arr, ref)
+    return device_put_resharded(tree_map_with_path(one, like), new_mesh,
+                                cfg), extra

@@ -5,9 +5,12 @@ end (the trainer on seeded random batches), on the card by default:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --reduced --steps 50 [--device cpu]
 
-``--lower-only`` (the reference's production lowering check through its
-dry-run driver) waits for the launch item of ROADMAP.md and raises
-``NotImplementedError``.
+Production check of one cell with no execution: ``--lower-only`` runs
+the port's dry-run (``launch/dryrun.py``: the ``train_4k`` cell traced on
+``meta`` over the 16x16 mesh, no card needed) in a subprocess, as the
+reference runs its own, and exits with its code:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+      --lower-only
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ def main(argv=None) -> None:
     ap.add_argument("--reduced", action="store_true",
                     help="CPU-sized reduced config")
     ap.add_argument("--lower-only", action="store_true",
-                    help="lower+compile the production train cell and exit")
+                    help="trace the production train cell on meta and exit")
     ap.add_argument("--seq_len", type=int, default=256)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--checkpoint_dir", default=os.path.join(
@@ -34,9 +37,11 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     if args.lower_only:
-        raise NotImplementedError(
-            "--lower-only needs the port's dry-run driver, which comes with "
-            "the launch item of ROADMAP.md")
+        import subprocess
+        import sys
+        raise SystemExit(subprocess.call(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             args.arch, "--shape", "train_4k", "--mesh", "single"]))
 
     import numpy as np
 

@@ -122,8 +122,12 @@ def _aux_loss(probs: torch.Tensor, experts: torch.Tensor,
               num_experts: int) -> torch.Tensor:
     """Switch's load-balance loss ``E * sum_e f_e * p_e`` (every
     assignment counted, dropped or not, as the reference counts)."""
-    counts = torch.bincount(experts.reshape(-1),
-                            minlength=num_experts).float()
+    flat = experts.reshape(-1)
+    # a scatter rather than ``bincount``, which has no meta kernel (the
+    # dry-run traces the layer on the meta device)
+    counts = torch.zeros(num_experts, dtype=torch.int64,
+                         device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat)).float()
     ce = counts / max(experts.numel(), 1)
     return num_experts * (probs.mean(dim=0) * ce).sum()
 

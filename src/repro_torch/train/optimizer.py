@@ -92,10 +92,20 @@ def _dequantize_int8(s: Dict, like: torch.Tensor) -> torch.Tensor:
     return full[..., :shape[-1]].reshape(like.shape)
 
 
+def _int8_zeros(shape, device) -> Dict:
+    """``_quantize_int8`` of zeros of ``shape``, built directly: q 0 and
+    every block's scale the clamp's 1e-12."""
+    shape = tuple(shape) or (1,)
+    blocks = shape[:-1] + (-(-shape[-1] // QBLOCK),)
+    return {"q": torch.zeros(blocks + (QBLOCK,), dtype=torch.int8,
+                             device=device),
+            "scale": torch.full(blocks + (1,), 1e-12, dtype=torch.float32,
+                                device=device)}
+
+
 def _moment_init(p: torch.Tensor, dtype: str):
     if dtype == "int8":
-        return _quantize_int8(torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device))
+        return _int8_zeros(p.shape, p.device)
     return torch.zeros(p.shape, dtype=_DTYPES[dtype], device=p.device)
 
 

@@ -1471,3 +1471,55 @@ def test_flash_route_refuses_autograd_on_the_card(dev):
     with torch.no_grad():
         model.loss({"tokens": tokens, "labels": tokens})
     assert AK.flash_attention.launches == before + cfg.num_layers
+
+
+def test_device_put_resharded_on_the_card(dev):
+    """A reduced smollm's bf16 parameters placed on the 2x4 mesh naming the
+    card 8 times: every leaf's full() equals the host tree, each shard is
+    its slice of it, one tensor per distinct slice (the tree's bytes on the
+    card, not 8 times them), and the shards are freed after."""
+    import repro_torch.distributed.sharding as S
+    from repro_torch.checkpoint.reshard import device_put_resharded
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train.train_step import model_params
+    cfg = get_config("smollm-360m").reduced().with_(param_dtype="bfloat16")
+    params = model_params(build_model(cfg, "cpu").init(0))
+    mesh = make_test_mesh(device=dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    placed = device_put_resharded(params, mesh, cfg)
+    used = torch.cuda.memory_allocated(dev) - before
+    tree_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    assert tree_bytes <= used <= tree_bytes + 512 * 8 * len(params)
+    specs = S.shard_params(params, mesh, cfg)
+    for n, p in params.items():
+        sh = placed[n]
+        assert sh.spec == specs[n].spec
+        assert all(s.device == dev and s.is_contiguous() for s in sh.shards)
+        assert torch.equal(sh.full().cpu(), p)
+        for idx, s in zip(sh.indices(), sh.shards):
+            assert torch.equal(s.cpu(), p[idx])
+    del placed, sh, s
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) == before
+
+
+def test_serve_cli_on_the_card(dev):
+    from repro_torch.launch import serve
+    out = serve.main(["--arch", "smollm-360m", "--reduced", "--device",
+                      str(dev)])
+    assert out["requests"] == 8 and out["tokens"] == 8 * 16
+    assert out["ticks"] > 0 and out["steps"] > 0
+
+
+def test_dryrun_allocates_nothing_on_the_card(dev):
+    import repro_torch.launch.dryrun as DR
+    from repro_torch.launch.mesh import make_test_mesh
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    row = DR.run_cell("smollm-360m", "train_4k", False,
+                      mesh_factory=lambda multi_pod: make_test_mesh(
+                          multi_pod=multi_pod, device=dev))
+    assert row["status"] == "ok" and row["t_compute_s"] > 0
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) == before

@@ -322,6 +322,53 @@ print("LOADED", bad)
 """
 
 
+LAUNCH_PROBE = """
+import sys
+import tempfile
+import torch
+import repro_torch.configs as RC
+from repro_torch.checkpoint.checkpointer import save_checkpoint
+from repro_torch.checkpoint.reshard import (device_put_resharded,
+                                            elastic_restore)
+from repro_torch.distributed.sharding import constrain, shard_params
+from repro_torch.launch import dryrun, report, roofline, serve, shapes
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.models import build_model
+from repro_torch.train.train_step import model_params
+torch.set_num_threads(1)
+row = dryrun.run_cell("whisper-small", "prefill_32k", False,
+                      mesh_factory=make_test_mesh)
+assert row["status"] == "ok" and row["t_memory_s"] > 0
+assert report.analytic_memory_floor("smollm-360m", "train_4k", 256, False)
+cfg = RC.get_config("smollm-360m").reduced()
+params = model_params(build_model(cfg, "cpu").init(0))
+mesh = make_test_mesh(device="cpu")
+placed = device_put_resharded(params, mesh, cfg)
+assert all(torch.equal(placed[n].full(), p) for n, p in params.items())
+with tempfile.TemporaryDirectory() as d:
+    save_checkpoint(d, 1, params)
+    back, _ = elastic_restore(d, 1, params, mesh, cfg)
+assert torch.equal(back["embed"].shards[0], placed["embed"].shards[0])
+with mesh:
+    assert constrain(params["embed"], "dp", "model") is params["embed"]
+assert serve.main(["--arch", "smollm-360m", "--reduced", "--requests", "2",
+                   "--max_new_tokens", "2", "--device", "cpu"])["tokens"] == 4
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("LOADED", bad)
+"""
+
+
+def test_launch_loads_neither_jax_nor_the_jax_package():
+    """A dry-run row, a placement, an elastic restore, a constraint and
+    the serve CLI."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", LAUNCH_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_training_loads_neither_jax_nor_the_jax_package():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", TRAIN_PROBE], env=env,
@@ -344,8 +391,17 @@ def test_training_without_a_card_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA device"):
         launch.main(["--arch", "smollm-360m", "--reduced", "--steps", "1",
                      "--checkpoint_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --lower-only needs no card: it runs the port's dry-run on meta in a
+    # subprocess and exits with its code
+    calls = []
+    monkeypatch.setattr("subprocess.call",
+                        lambda argv: calls.append(argv) or 0)
+    with pytest.raises(SystemExit) as e:
         launch.main(["--arch", "smollm-360m", "--lower-only"])
+    assert e.value.code == 0
+    assert calls[0][1:] == ["-m", "repro_torch.launch.dryrun", "--arch",
+                            "smollm-360m", "--shape", "train_4k", "--mesh",
+                            "single"]
 
 
 def test_partitioned_retrieval_loads_neither_jax_nor_the_jax_package():
