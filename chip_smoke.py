@@ -3,7 +3,8 @@
 
 Run from the root of the repository:  python3 chip_smoke.py
 (``--lm`` runs phases 1-2, 12-13 and the LM profile only; ``--launch``
-phases 1-2 and 20, the launch layer; ``--train``
+phases 1-2 and 20, the launch layer; ``--sharded`` phases 1-2 and 21,
+sharded execution on a world of NCCL ranks; ``--train``
 phases 1-2, 19 and 19p, training smollm-360m at full width from the
 document lake; ``--families``
 phases 1-2 and 18, the MoE, SSM, encoder-decoder and VLM families at
@@ -77,11 +78,10 @@ any profiler in the process; the LM and training profiles run last):
      ``fused_decode*_bitmap_batch`` kernels must have launched;
   8. ldbc: ``ldbc_like(scale=40)`` (400,000 persons, 3,200,000 messages)
      built with ``build_snb_graphar`` and ``build_snb_baseline``; IS-3,
-     IC-8 (the person with the most messages and one seeded person, each
-     with and without ``reply_label="TagClass1"``, and once for the
-     fused hop 2's (person, tag class) with the most labeled replies,
-     whose answer must not be empty) and BI-2 for the first
-     ``LDBC_BI2_CLASSES`` of the 8 tag classes, under
+     IC-8 (the person with the most messages, unlabeled, and the fused
+     hop 2's (person, tag class) with the most labeled replies, whose
+     answer must not be empty) and BI-2 for ``LDBC_BI2_CLASSES`` (1 of
+     the 8 tag classes), under
      the resident route and then the per-dispatch one, each run held
      against the numpy engine (result and IOMeter) and the acero baseline
      (result), timed (host ms, median of 3) beside acero; each route's
@@ -337,14 +337,16 @@ any profiler in the process; the LM and training profiles run last):
  19p. train profile: ``torch.profiler`` over one warm train step of phase
      19's model at its full batch: device busy ms by kernel, idle share
      against phase 19's unprofiled median step.
- 20. launch (last, after every profile, the earlier phases' models freed),
-     smollm-360m at full width: (a) the dry-run (``launch/dryrun.py``) of
-     the reference's ``tests/test_dryrun_small.py`` cells (smollm-360m
-     ``train_4k``, mamba2-2.7b ``decode_32k``, whisper-small
-     ``prefill_32k`` on the 2x4 test mesh, smollm-360m ``train_4k`` on
-     2x2x2), traced on ``meta``, each ``ok`` with its roofline terms, and
-     ``python -m repro_torch.launch.train --arch smollm-360m
-     --lower-only`` in a subprocess (exit 0, its row ``ok``);
+ 20. launch (after every profile, the earlier phases' models freed),
+     smollm-360m at full width: (a) (under ``--launch``; phase 21 (a)
+     traces the same rows in the full script) the dry-run
+     (``launch/dryrun.py``) of the reference's
+     ``tests/test_dryrun_small.py`` cells (smollm-360m ``train_4k``,
+     mamba2-2.7b ``decode_32k``, whisper-small ``prefill_32k`` on the
+     2x4 test mesh, smollm-360m ``train_4k`` on 2x2x2), traced on
+     ``meta``, each ``ok`` with its roofline terms, and ``python -m
+     repro_torch.launch.train --arch smollm-360m --lower-only`` in a
+     subprocess (exit 0, its row ``ok``);
      ``torch.cuda.memory_allocated`` unchanged across (a); (b) smollm's
      three cells run on the card at the largest batch that holds
      (``LAUNCH_*``: a train step of one microbatch of rows of 4096, a
@@ -361,9 +363,46 @@ any profiler in the process; the LM and training profiles run last):
      tree's bytes and back to its value before once the shards are
      dropped; (d) ``repro_torch.launch.serve.main`` for 8 requests of 16
      tokens at full width on ``cuda:0``: 8 x 16 tokens served.
+ 21. sharded (last; ``--sharded`` alone): (a) the dry-run on a fake world
+     (``launch/mesh.py:fake_world``): phase 20's four cells and
+     smollm-360m ``train_4k`` on 16x16 (``launch.train --lower-only``),
+     each traced as rank 0 of the mesh's ranks on ``meta`` in a process
+     of its own, all started with the phase and run during (b)'s set-up,
+     (b)'s ranks waiting for them before their first timed step:
+     ``coll_count``, collective bytes by op and ``t_collective`` beside
+     the virtual row (each ``ok``, no collective; the train cells must
+     issue collectives);
+     and the same cut as (b) (smollm-360m, 8 x 2048) on (b)'s mesh;
+     (b) a world of ``torch.cuda.device_count()`` NCCL ranks spawned
+     from the script (``--sharded-rank``), one a card: a (1, 1) mesh on
+     one card, (data 2, model 2) on four.  Each rank: smollm-360m at full
+     width (bf16, ``init(seed=0)``, 4 microbatches, remat "dots") placed
+     by the sharding rules (``shard_model``), 3 train steps of 8 x 2048
+     from phase 14's lake (pickled by the parent; its 100,000 docs built
+     when phase 14 did not run), each data rank's shard through
+     ``GraphCorpusPipeline(engine="cuda")`` (kernel 3), the global batch
+     a DTensor of the data ranks' local ones; rank 0 then runs the
+     one-card steps on the same weights and gathered batches: losses
+     within 1e-2, and the sharded forward's top-1 equal to the one-card
+     forward's on every decisive position (phase 12's rule); the first,
+     cold, step traced for its NCCL collectives (count and bytes), the
+     warm step the median of the other two; stablelm-1.6b at full width
+     on the flash route, 4 x 2048, kernel 15 on each rank's local heads
+     (``local_map``), top-1 equal to the same card's one-rank forward on
+     every decisive position; phase 20's bf16 checkpoint of
+     smollm-360m (written again under ``build/``) restored by
+     ``elastic_restore`` onto the mesh, each rank holding exactly its
+     ``indices()`` slices.  Printed per rank: step ms, peak memory, the
+     NCCL collectives a step beside the dry-run's for the same cut.  A
+     rank that fails (NCCL, the kernels' build, a check) or does not end
+     within 400 s fails the phase (a collective waits 120 s at most).
+     Each rank counts its own launches of
+     kernels 3 and 15 over its sharded steps and forward; the phase's
+     counts are their sums.
 Every launch count is set to 0 just before each of phases 4, 5, 7, 8, 10,
-12, 15, 17, 18 and 19, phase 14's P1 drain and phase 16's pipelined drain,
-and read just after; a kernel's ``launches`` is the sum over the twelve.
+12, 15, 17, 18, 19 and 21 (in each of its ranks), phase 14's P1 drain and
+phase 16's pipelined drain, and read just after; a kernel's ``launches``
+is the sum over the thirteen.
 The card's name and power limit, then the kernel table as JSON, come on
 the lines before the last; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -411,13 +450,16 @@ COUNT_HOP_KERNELS = ("interval_words_kernel", "count_tiles_kernel")
 ENTRY_KERNELS = ("bitmap", "fused_decode_bitmap", "rle_to_bitmap",
                  "bitmap_select")
 #: ldbc_like(40): 400,000 persons and 3,200,000 messages, the order of
-#: LDBC SNB SF1's posts and comments; BI-2 runs for the first 4 of its 8
-#: tag classes (TagClass3, the profiled one and row 7b's, among them) and
-#: IC-8 for the person with the most messages and 1 seeded person (all 8
-#: classes and 2 persons before phase 20 needed the room: a query ~10-13 s,
-#: most of it acero's three runs)
+#: LDBC SNB SF1's posts and comments; BI-2 runs for 1 of its 8 tag classes
+#: (TagClass3, the profiled one and row 7b's) and IC-8 for the person with
+#: the most messages, unlabeled (the labeled hop is the fused query's): all
+#: 8 classes and 2 persons before phase 20 needed the room, 4 classes and 2
+#: persons before phase 21, 2 classes and 1 person labeled too before its
+#: room was measured on a slow host (a query ~10-13 s, most of it acero's
+#: three runs)
 LDBC_SCALE = 40
-LDBC_BI2_CLASSES, LDBC_IC8_PERSONS = 4, 1
+LDBC_BI2_CLASSES, LDBC_IC8_PERSONS = ("TagClass3",), 0
+LDBC_IC8_LABELS = (None,)
 #: where the kernel phase runs and which engine the slice drives
 DEVICE = "cuda:0"
 ENGINE = "cuda"
@@ -477,6 +519,459 @@ LOCAL_VERTICES, LOCAL_DEGREE = 1 << 20, 16
 FAMILY_ARCHS = ("deepseek-moe-16b", "llama-3.2-vision-11b", "mamba2-2.7b",
                 "whisper-small")
 FAMILY_FLASH = ("deepseek-moe-16b", "llama-3.2-vision-11b")
+# --------------------------------------------------------------------------
+# phase 21: sharded execution (a fake world's dry-run, a world of NCCL
+# ranks, one a card)
+# --------------------------------------------------------------------------
+
+#: the mesh of the NCCL world by the number of cards
+SHARDED_MESHES = {1: ((1, 1), ("data", "model")),
+                  4: ((2, 2), ("data", "model"))}
+#: smollm-360m's train steps (8 x 2048 from phase 14's lake, the config's
+#: 4 microbatches) and stablelm-1.6b's flash forward
+SHARDED_STEPS, SHARDED_FLASH_ARCH = 3, "stablelm-1.6b"
+SHARDED_FLASH_BATCH = 4
+#: every rank done within this many seconds, or the phase fails
+SHARDED_JOIN_S = 400
+SHARDED_KERNELS = ("cond_bitmap", "flash_attention")
+
+
+def sharded_dir(name: str = "") -> Path:
+    import shutil
+    d = ROOT / "build" / "chip_smoke_sharded" / name
+    if name:
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+    return d
+
+
+def trace_cell_main(argv) -> int:
+    """``--trace-cell ARCH SHAPE MULTI OUT VIRTUAL [BATCH SEQ MESH]``: one
+    dry-run cell of the test meshes in its own process (phase 21 (a) runs
+    them side by side): the fake world's row, and with VIRTUAL ``1`` the
+    virtual mesh's too, as JSON to OUT.  With BATCH, SEQ and MESH
+    (``1x1`` or ``2x2``) a train cell of that cut on that mesh."""
+    import repro_torch.launch.dryrun as DR
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import (distributed_mesh, fake_world,
+                                         make_test_mesh, virtual_mesh)
+    from repro_torch.launch.shapes import ShapeDef
+    import os
+    import torch
+    torch.set_num_threads(1)
+    os.nice(10)              # behind the ranks' untimed set-up
+    arch, shape, multi, out = argv[0], argv[1], argv[2] == "1", argv[3]
+    virtual = argv[4] == "1"
+    t0 = time.perf_counter()
+    rows = {}
+    if len(argv) > 5:
+        b, s, mesh_id = int(argv[5]), int(argv[6]), argv[7]
+        dims = tuple(int(x) for x in mesh_id.split("x"))
+        cfg, cut = get_config(arch), ShapeDef(shape, "train", s, b)
+        axes = ("data", "model")
+        if virtual:
+            rows["virtual"] = DR.roofline_row(arch, cfg, cut, virtual_mesh(
+                dims, axes, "cpu"), mesh_id)
+        with fake_world(dims[0] * dims[1]):
+            rows["fake"] = DR.roofline_row(arch, cfg, cut, distributed_mesh(
+                dims, axes), mesh_id)
+    else:
+        rows["fake"] = DR.run_cell(arch, shape, multi,
+                                   mesh_factory=make_test_mesh, fake=True)
+        if virtual:
+            rows["virtual"] = DR.run_cell(arch, shape, multi,
+                                          mesh_factory=make_test_mesh)
+    rows["seconds"] = time.perf_counter() - t0
+    Path(out).write_text(json.dumps(rows, default=str))
+    return 0
+
+
+def sharded_rank_main(argv) -> int:
+    """``--sharded-rank RANK WORLD PORT DIR``: one rank of phase 21 (b)
+    (see the module docstring); writes ``DIR/rank{RANK}.json``."""
+    import pickle
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import repro_torch.core as TC
+    from repro_torch.checkpoint.reshard import elastic_restore
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (GraphCorpusPipeline,
+                                           PipelineConfig, global_batch)
+    from repro_torch.distributed.sharding import (rank_slices,
+                                                  shard_params,
+                                                  tree_leaves_with_path)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as AK
+    from repro_torch.kernels.label_filter import kernel as LK
+    from repro_torch.launch.dryrun import TraceCounter
+    from repro_torch.launch.mesh import distributed_mesh, init_world
+    from repro_torch.launch.roofline import parse_collectives
+    from repro_torch.models import build_model
+    from repro_torch.models.model import shard_model
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.train_step import (make_train_step, model_params,
+                                              unit_layout)
+    rank, world, port, d = int(argv[0]), int(argv[1]), int(argv[2]), \
+        Path(argv[3])
+    require(torch.cuda.is_available(), "21. a rank without a card")
+    torch.set_grad_enabled(False)
+    out = {"rank": rank}
+    dev = init_world(rank, world, f"tcp://localhost:{port}",
+                     backend="nccl", timeout_s=120)
+    require(dev.type == "cuda", f"21. rank {rank} is on {dev}")
+    _build.library()                 # the parent's build, or fails here
+    shape, axes = SHARDED_MESHES[world]
+    mesh = distributed_mesh(shape, axes)
+    out["coordinate"] = mesh.coordinate()
+    wrappers = {"cond_bitmap": LK.cond_bitmap,
+                "flash_attention": AK.flash_attention}
+    for w in wrappers.values():
+        w.launches = 0
+
+    # smollm-360m: each data rank's shard of the lake, 3 sharded steps
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    with open(d / "lake.pkl", "rb") as f:
+        lake = pickle.load(f)
+    cond = (TC.L("HighQuality") | TC.L("News")) & ~TC.L("Spam")
+    pcfg = PipelineConfig(seq_len=TRAIN_SEQ, batch_size=TRAIN_BATCH
+                          // (world // shape[-1]))
+    pipe = GraphCorpusPipeline(serve_graph(lake), cond, pcfg, engine=ENGINE,
+                               mesh=mesh)
+    out["eligible"] = int(pipe.eligible.size)
+    out["shard"] = [pipe.cfg.shard_id, pipe.cfg.num_shards]
+    model = build_model(cfg, dev).init(0)
+    one = {n: p.detach().clone() for n, p in model.named_parameters()}
+    shard_model(model, mesh)
+    out["setup_s"] = time.perf_counter() - t0
+    opt = adamw(warmup_cosine(TRAIN_PEAK, TRAIN_WARMUP, SHARDED_STEPS))
+    step = make_train_step(model, opt, cfg.train_microbatches)
+    params = model_params(model)
+    state = opt.init(params, unit_layout(model))
+    from repro_torch.distributed.sharding import place
+    state = place(state, shard_params(state, mesh, cfg))
+    stream = pipe.batches()
+    batches, losses, ms = [], [], []
+    # nothing timed beside (a)'s tracers: the parent marks their end
+    t0 = time.perf_counter()
+    while not (d / "traced").exists():
+        require(time.perf_counter() - t0 < SHARDED_JOIN_S,
+                f"21. rank {rank}: (a)'s tracers never ended")
+        time.sleep(0.1)
+    out["wait_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mesh:
+        for i in range(SHARDED_STEPS):
+            b = global_batch({k: v for k, v in next(stream).items()
+                              if k in ("tokens", "labels")}, mesh)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if i:
+                params, state, met = step(params, state, b)
+            else:               # the cold step's collectives, traced
+                with TraceCounter(meta_only=False) as tc:
+                    params, state, met = step(params, state, b)
+            losses.append(float(met["loss"]))
+            ms.append((time.perf_counter() - t1) * 1e3)
+            batches.append({k: v.full_tensor() for k, v in b.items()})
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        # the forward of the initial weights (the model's own; the steps
+        # trained copies), every rank taking part in its collectives
+        got = model({"tokens": batches[0]["tokens"]})[0].full_tensor()
+        coll = parse_collectives(tc.records)
+        out["nccl_bytes"], out["nccl_count"] = coll.total_bytes, coll.count
+        out["nccl_by_op"] = coll.by_op
+    out["losses"], out["step_ms"] = losses, ms
+    out["steps_s"] = time.perf_counter() - t0
+    require(all(math.isfinite(x) for x in losses),
+            f"21. rank {rank}: a loss is not finite: {losses}")
+
+    # stablelm-1.6b's flash forward: kernel 15 on this rank's local heads
+    t0 = time.perf_counter()
+    scfg = get_config(SHARDED_FLASH_ARCH).with_(use_flash=True)
+    smodel = shard_model(build_model(scfg, dev).init(0), mesh)
+    gen = np.random.default_rng(21)
+    toks = torch.from_numpy(gen.integers(
+        0, scfg.vocab_size, (SHARDED_FLASH_BATCH, TRAIN_SEQ)).astype(
+            np.int32)).to(dev)
+    with mesh:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        slog = smodel({"tokens": toks})[0].full_tensor()
+        torch.cuda.synchronize()
+        out["flash_ms"] = (time.perf_counter() - t1) * 1e3
+    out["launches"] = {n: w.launches for n, w in wrappers.items()}
+
+    # (checks, uncounted) the one-card forward of the same weights
+    plain = build_model(scfg, dev)
+    plain.load_state_dict({n: p.full_tensor() for n, p in
+                           smodel.named_parameters()})
+    del smodel
+    ref = plain({"tokens": toks})[0].float()
+    mask, _ = decisive(torch, ref)
+    same = slog.argmax(-1) == ref.argmax(-1)
+    out["flash"] = {"err": (slog.float() - ref).abs().max().item(),
+                    "max": ref.abs().max().item(),
+                    "n_decisive": int(mask.sum()),
+                    "all_decisive": bool(same[mask].all())}
+    require(out["flash"]["all_decisive"],
+            f"21. rank {rank}: stablelm's sharded flash forward picks "
+            f"another top-1 on a decisive position: {out['flash']}")
+    del plain, ref, slog
+    torch.cuda.empty_cache()
+    out["flash_s"] = time.perf_counter() - t0
+
+    # phase 20's bf16 checkpoint onto the mesh: this rank's slices only
+    like = {n: t.to("meta") for n, t in one.items()}
+    t1 = time.perf_counter()
+    placed, _ = elastic_restore(str(d / "ckpt"), 1, like, mesh, cfg)
+    torch.cuda.synchronize()
+    out["restore_ms"] = (time.perf_counter() - t1) * 1e3
+    shardings = dict(tree_leaves_with_path(shard_params(like, mesh, cfg)))
+    n_ok = 0
+    for (path,), leaf in tree_leaves_with_path(placed):
+        part = leaf.to_local()
+        want = one[path][rank_slices(shardings[(path,)], leaf.shape)]
+        require(part.device == dev and torch.equal(part, want),
+                f"21. rank {rank}: {path} restored is not its slice")
+        n_ok += 1
+    out["restored_leaves"] = n_ok
+    out["restored_bytes"] = sum(leaf.to_local().numel()
+                                * leaf.to_local().element_size()
+                                for leaf in placed.values())
+    del placed
+
+    # the one-card steps on the same weights and batches (rank 0)
+    t0 = time.perf_counter()
+    if rank == 0:
+        ref_model = build_model(cfg, dev)
+        ref_model.load_state_dict(one)
+        ref_step = make_train_step(ref_model, opt,
+                                   cfg.train_microbatches)
+        p1 = {n: t.clone() for n, t in one.items()}
+        s1 = opt.init(p1, unit_layout(ref_model))
+        ref_losses = []
+        first = ref_model({"tokens": batches[0]["tokens"]})[0].float()
+        for b in batches:
+            p1, s1, met = ref_step(p1, s1, b)
+            ref_losses.append(float(met["loss"]))
+        mask, _ = decisive(torch, first)
+        same = got.argmax(-1) == first.argmax(-1)
+        out["one_card"] = {"losses": ref_losses,
+                           "n_decisive": int(mask.sum()),
+                           "all_decisive": bool(same[mask].all()),
+                           "err": (got.float() - first).abs().max().item()}
+        require(all(abs(a - b) <= 1e-2 for a, b in zip(losses, ref_losses)),
+                f"21. the sharded losses {losses} are not within 1e-2 of "
+                f"the one-card steps' {ref_losses}")
+        require(out["one_card"]["all_decisive"],
+                f"21. the sharded forward picks another top-1 than the "
+                f"one-card forward on a decisive position: {out['one_card']}")
+        del ref_model, p1, s1, first
+    del params, state, batches, got
+    torch.cuda.empty_cache()
+    out["one_card_s"] = time.perf_counter() - t0
+    (d / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_traces(d, shape, env):
+    """Phase 21 (a)'s tracers, one process a cell, started together: the
+    four cells (their virtual rows too), (b)'s cut on (b)'s mesh, and
+    ``launch.train --lower-only``."""
+    traces = []
+    cut = (LM_ARCH, f"train_{TRAIN_SEQ}", False, "0",
+           str(TRAIN_BATCH), str(TRAIN_SEQ), "x".join(map(str, shape)))
+    cells = [(a, sh, m, "1") for a, sh, m in LAUNCH_CELLS] + [cut]
+    for i, (arch, sh, multi, *extra) in enumerate(cells):
+        f = d / f"cell{i}.json"
+        traces.append((arch, sh, multi, f, subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--trace-cell",
+             arch, sh, "1" if multi else "0", str(f)] + extra,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    # smollm-360m train_4k on 16x16: the CLI's own row, from a fake world
+    # of 256 (phase 20 (a) runs it under --launch)
+    lower = d / "lower_only"
+    lower.mkdir()
+    traces.append((LM_ARCH, "train_4k@16x16", False,
+                   lower / "dryrun_report.json", subprocess.Popen(
+                       [sys.executable, "-m", "repro_torch.launch.train",
+                        "--arch", LM_ARCH, "--lower-only"], cwd=lower,
+                       env=env, stdout=subprocess.PIPE,
+                       stderr=subprocess.STDOUT, text=True)))
+    return traces, cut[1]
+
+
+def sharded_phase(torch, card, lake=None):
+    """Phase 21: sharded execution (see the module docstring); returns
+    the kernels' launches summed over the ranks."""
+    import os
+    import pickle
+    import socket
+    from repro_torch.checkpoint.checkpointer import save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import document_graph
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    require(n in SHARDED_MESHES, f"21. no mesh for {n} cards")
+    shape, axes = SHARDED_MESHES[n]
+    d = sharded_dir("run")
+    cfg = get_config(LM_ARCH)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # (a) traces during (b)'s set-up; the ranks wait for it before any
+    # timed step
+    traces, cut_shape = sharded_traces(d, shape, env)
+    ranks = []
+    try:
+        deadline = time.perf_counter() + SHARDED_JOIN_S
+        # (b)'s inputs: phase 14's lake and phase 20's bf16 checkpoint
+        if lake is None:
+            lake = document_graph(num_docs=SERVE_DOCS, vocab=cfg.vocab_size,
+                                  mean_len=SERVE_MEAN_LEN, seed=2)
+        with open(d / "lake.pkl", "wb") as f:
+            pickle.dump(lake, f, protocol=pickle.HIGHEST_PROTOCOL)
+        model = build_model(cfg).init(0)
+        host = {k: p.detach().cpu() for k, p in model.named_parameters()}
+        del model
+        torch.cuda.empty_cache()
+        save_checkpoint(str(d / "ckpt"), 1, host)
+        del host
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        for r in range(n):
+            log_f = open(d / f"rank{r}.log", "w")
+            ranks.append((subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--sharded-rank", str(r), str(n), str(port), str(d)],
+                env=dict(env, LOCAL_RANK=str(r)), stdout=log_f,
+                stderr=subprocess.STDOUT), log_f))
+        for *_, p in traces:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1))
+        a_s = time.perf_counter() - t0
+        (d / "traced").touch()
+        for p, _ in ranks:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1))
+        b_s = time.perf_counter() - t0
+    finally:
+        for p, f in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+        for *_, p in traces:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, _) in enumerate(ranks):
+        require(p.returncode == 0, f"21. rank {r} exited {p.returncode}: "
+                + (d / f"rank{r}.log").read_text()[-3000:])
+    res = [json.loads((d / f"rank{r}.json").read_text()) for r in range(n)]
+    launches = {k: sum(r["launches"][k] for r in res)
+                for k in SHARDED_KERNELS}
+    require(all(launches.values()), f"21. a kernel of the sharded path "
+            f"never launched: {launches}")
+    one = res[0]["one_card"]
+    log(f"21. (b) a world of {n} NCCL rank(s) on {describe_mesh(shape, axes)}"
+        f": {LM_ARCH} at full width, {SHARDED_STEPS} steps of {TRAIN_BATCH} "
+        f"x {TRAIN_SEQ} from phase 14's lake (each data rank's shard through "
+        f"GraphCorpusPipeline(engine=\"cuda\")), losses "
+        + " ".join(f"{x:.4f}" for x in res[0]["losses"])
+        + " beside the one-card steps' " + " ".join(
+            f"{x:.4f}" for x in one["losses"])
+        + f" (within 1e-2); forward top-1 equal on all {one['n_decisive']:,} "
+        f"decisive positions (max |d| {one['err']:.4f}); launches "
+        + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f" ({b_s:.1f} s with the set-up; (a)'s tracers done {a_s:.1f} s "
+        f"in, before the ranks' first timed step) on {card}")
+    for r in res:
+        fl = r["flash"]
+        warm = statistics.median(r["step_ms"][1:])
+        log(f"21. (b) rank {r['rank']} {r['coordinate']} on cuda:"
+            f"{r['rank'] % n}: shard {r['shard'][0]} of {r['shard'][1]} "
+            f"({r['eligible']:,} eligible docs); step ms "
+            + " ".join(f"{x:.1f}" for x in r["step_ms"])
+            + f" (the first traced; warm median {warm:.1f} ms of the "
+            f"{SHARDED_STEPS - 1} untraced, "
+            f"{TRAIN_BATCH * TRAIN_SEQ / warm * 1e3 / n:,.0f}"
+            f" tokens/s a card); peak max_memory_allocated "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB; NCCL collectives a step "
+            f"(traced) {r['nccl_count']} moving {r['nccl_bytes']:,} B "
+            f"{r['nccl_by_op']}; {SHARDED_FLASH_ARCH} flash forward "
+            f"{SHARDED_FLASH_BATCH} x {TRAIN_SEQ} {r['flash_ms']:.1f} ms, "
+            f"kernel 15 {r['launches']['flash_attention']} launches on the "
+            f"local heads, top-1 equal on all {fl['n_decisive']:,} decisive "
+            f"positions of the one-card forward (max |d| {fl['err']:.4f} of "
+            f"{fl['max']:.2f}); elastic_restore of phase 20's bf16 "
+            f"checkpoint: {r['restored_leaves']} leaves, "
+            f"{r['restored_bytes'] / 2**20:.1f} MiB of this rank's slices "
+            f"in {r['restore_ms']:.1f} ms; seconds: set-up "
+            f"{r['setup_s']:.1f}, waiting for (a) {r['wait_s']:.1f}, steps "
+            f"{r['steps_s']:.1f}, flash forward and its check "
+            f"{r['flash_s']:.1f}, one-card steps "
+            f"{r['one_card_s']:.1f}; on {card}")
+    # (a) the fake world's rows beside the virtual ones; every cell is
+    # reported before a failed one fails the phase
+    failed = []
+    for arch, sh, multi, f, p in traces:
+        if p.returncode != 0:
+            failed.append(f"tracing {arch} {sh} exited {p.returncode}: "
+                          + p.stdout.read()[-1500:])
+            log(f"21. (a) {arch} {sh}: FAILED, {failed[-1]}")
+            continue
+        rows = json.loads(f.read_text())
+        if isinstance(rows, list):             # the CLI's report
+            rows = {"fake": rows[0], "seconds": rows[0]["compile_s"]}
+        fake = rows["fake"]
+        if fake["status"] != "ok" or (
+                sh.startswith("train") and fake["chips"] > 1
+                and not (fake["coll_count"] > 0
+                         and fake["t_collective_s"] > 0)):
+            failed.append(f"{arch} {sh}: {fake}")
+            log(f"21. (a) {arch} {sh}: FAILED, {failed[-1][:1500]}")
+            continue
+        side = rows.get("virtual")
+        if side and not (side["status"] == "ok" and side["t_compute_s"] > 0
+                         and side["t_memory_s"] > 0
+                         and side["coll_count"] == 0):
+            failed.append(f"{arch} {sh} on the virtual mesh: {side}")
+            log(f"21. (a) {arch} {sh}: FAILED, {failed[-1][:1500]}")
+            continue
+        log(f"21. (a) {arch} {sh} {'2x2x2' if multi else fake['mesh']} on "
+            f"a fake world of {fake['chips']}: coll_count "
+            f"{fake['coll_count']}, bytes by op {fake['coll_by_op']}, "
+            f"t_collective {fake['t_collective_s'] * 1e3:.3f} ms, t_memory "
+            f"{fake['t_memory_s'] * 1e3:.3f} ms, t_compute "
+            f"{fake['t_compute_s'] * 1e3:.3f} ms"
+            + (f"; virtual row t_memory {side['t_memory_s'] * 1e3:.3f} ms, "
+               f"t_compute {side['t_compute_s'] * 1e3:.3f} ms, "
+               f"t_collective {side['t_collective_s'] * 1e3:.3f} ms"
+               if side else "")
+            + f" (traced in {rows['seconds']:.1f} s)")
+        if sh == cut_shape:
+            log(f"21. (a) the same cut as (b): the dry-run's collectives a "
+                f"step {fake['coll_count']} moving "
+                f"{fake['coll_ici_bytes'] + fake['coll_dcn_bytes']:,} B "
+                f"beside NCCL's traced {res[0]['nccl_count']} moving "
+                f"{res[0]['nccl_bytes']:,} B on rank 0")
+    require(not failed, "21. (a) " + " | ".join(failed))
+    import shutil
+    shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+def describe_mesh(shape, axes) -> str:
+    return " x ".join(f"{a}={n}" for a, n in zip(axes, shape))
+
+
 WHISPER_TEXT, WHISPER_FRAMES = 448, 1500
 #: 16 decode steps a model (32 before phase 20 needed the room)
 FAMILY_PROMPT, FAMILY_STEPS, FAMILY_TIMED_STEPS = 512, 16, 8
@@ -1347,10 +1842,10 @@ def ldbc_phase(torch, card, wrappers):
                (int(np.argmax(knows.degrees())), *persons[:2])]
     queries += [("IC-8", int(p), lab)
                 for p in (top_msgs, *persons[2:2 + LDBC_IC8_PERSONS])
-                for lab in (None, "TagClass1")]
+                for lab in LDBC_IC8_LABELS]
     queries += [ic8_fused_label]
     queries += [("BI-2", name, None)
-                for name in snb.tagclass_names[:LDBC_BI2_CLASSES]]
+                for name in LDBC_BI2_CLASSES]
     log(f"ldbc: fused labeled IC-8: person {best_p} "
         f"({int(msgs[best_p])} messages), {ic8_fused_label[2]}, "
         f"{int(labeled[best_c, best_p])} labeled replies")
@@ -4770,8 +5265,10 @@ def launch_real_cells(torch, card, model, cfg):
     return out
 
 
-def launch_phase(torch, card):
-    """Phase 20: the launch layer on the card (see the module docstring)."""
+def launch_phase(torch, card, dry_run: bool = True):
+    """Phase 20: the launch layer on the card (see the module docstring);
+    ``dry_run=False`` leaves (a), the four rows and ``--lower-only``, to
+    phase 21 (a)."""
     import os
     import shutil
     import repro_torch.launch.dryrun as DR
@@ -4792,9 +5289,10 @@ def launch_phase(torch, card):
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          LM_ARCH, "--lower-only"], cwd=d, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"))) \
+        if dry_run else None
     try:
-        for arch, shape, multi in LAUNCH_CELLS:
+        for arch, shape, multi in LAUNCH_CELLS if dry_run else ():
             row = DR.run_cell(arch, shape, multi,
                               mesh_factory=make_test_mesh)
             require(row["status"] == "ok" and row["t_compute_s"] > 0
@@ -4803,25 +5301,28 @@ def launch_phase(torch, card):
             log(f"20. (a) dry-run {arch} {shape} on {row['mesh']}: "
                 f"{row_terms(row)}; traced on meta in "
                 f"{row['compile_s']:.1f} s")
-        _, err = lower.communicate(timeout=300)
+        if lower is not None:
+            _, err = lower.communicate(timeout=300)
     finally:
-        if lower.poll() is None:
+        if lower is not None and lower.poll() is None:
             lower.kill()
             lower.wait()
-    require(lower.returncode == 0, f"20. (a) --lower-only exited "
-            f"{lower.returncode}: {err[-2000:]}")
-    row = json.loads((d / "dryrun_report.json").read_text())[0]
-    require(row["status"] == "ok", f"20. (a) --lower-only: {row}")
-    log(f"20. (a) launch.train --lower-only: {row['arch']} {row['shape']} "
-        f"on {row['mesh']}: {row_terms(row)} (the subprocess done "
-        f"{time.perf_counter() - t0:.1f} s into (a))")
+    if lower is not None:
+        require(lower.returncode == 0, f"20. (a) --lower-only exited "
+                f"{lower.returncode}: {err[-2000:]}")
+        row = json.loads((d / "dryrun_report.json").read_text())[0]
+        require(row["status"] == "ok", f"20. (a) --lower-only: {row}")
+        log(f"20. (a) launch.train --lower-only: {row['arch']} "
+            f"{row['shape']} on {row['mesh']}: {row_terms(row)} (the "
+            f"subprocess done {time.perf_counter() - t0:.1f} s into (a))")
     torch.cuda.synchronize()
     require(torch.cuda.memory_allocated() == mem0,
             f"20. (a) the dry-run allocated on the card: "
             f"{torch.cuda.memory_allocated() - mem0} B")
     out["a_s"] = time.perf_counter() - t0
     log(f"20. (a) 5 dry-run rows ok, memory_allocated unchanged at {mem0} B "
-        f"({out['a_s']:.1f} s)")
+        f"({out['a_s']:.1f} s)" if dry_run else
+        "20. (a) the dry-run's rows: in phase 21 (a), beside its fake worlds")
 
     # (b) the dry-run against the card
     t0 = time.perf_counter()
@@ -4927,6 +5428,10 @@ def main() -> int:
                       help="run phases 1-2 and 20 only (the launch layer: "
                       "the dry-run, its roofline against the card, "
                       "elastic restore, the serve CLI)")
+    only.add_argument("--sharded", action="store_true",
+                      help="run phases 1-2 and 21 only (sharded execution "
+                      "on a world of NCCL ranks, one a card, and the "
+                      "dry-run on a fake world)")
     args = ap.parse_args()
     graph_only = next((f for f in ("traversal", "per-dispatch", "resident",
                                    "entries", "mutable", "partitions")
@@ -5000,9 +5505,9 @@ def main() -> int:
 
     rows, counts, serve, train = [], [], None, None
     lm_only = args.lm or args.serve or args.families or args.train \
-        or args.launch
+        or args.launch or args.sharded
     if not graph_only and not args.serve and not args.families \
-            and not args.train and not args.launch:
+            and not args.train and not args.launch and not args.sharded:
         # the LM slice first: its host timings come before any profiler in
         # the process (phases 5 and 8 profile); its own profile runs last
         t0 = time.perf_counter()
@@ -5021,7 +5526,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     if not graph_only and not args.serve and not args.lm and not args.train \
-            and not args.launch:
+            and not args.launch and not args.sharded:
         # the rest of the LM stack, before any profiler in the process
         t0 = time.perf_counter()
         _, f_launches = drive(families_phase, torch, card)
@@ -5037,7 +5542,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     if not graph_only and not args.lm and not args.families \
-            and not args.train and not args.launch:
+            and not args.train and not args.launch and not args.sharded:
         # the serving path, before any profiler in the process too
         t0 = time.perf_counter()
         serve = serve_phase(torch, card, drive)
@@ -5051,7 +5556,7 @@ def main() -> int:
         counts.append(s_launches)
 
     if not graph_only and not args.lm and not args.families \
-            and not args.serve and not args.launch:
+            and not args.serve and not args.launch and not args.sharded:
         # training, before any profiler in the process; on phase 14's lake
         t0 = time.perf_counter()
         train, r_launches = drive(train_phase, torch, card,
@@ -5084,7 +5589,7 @@ def main() -> int:
             + f" ({time.perf_counter() - t0:.1f} s) on {card}")
         counts.append(m_launches)
     if not graph_only and not args.serve and not args.families \
-            and not args.train and not args.launch:
+            and not args.train and not args.launch and not args.sharded:
         t0 = time.perf_counter()
         lm_profile_phase(torch, lm)
         if serve is not None:
@@ -5092,16 +5597,30 @@ def main() -> int:
         log(f"12p. lm profile ({time.perf_counter() - t0:.1f} s)")
     if train is not None:
         train_profile_phase(torch, train, card)
+    lake = serve["lake"] if serve else None
     if not graph_only and not args.lm and not args.serve \
-            and not args.families and not args.train:
-        # the launch layer last: (b) profiles, and runs the card's largest
+            and not args.families and not args.train and not args.sharded:
+        # the launch layer: (b) profiles, and runs the card's largest
         # batches with the earlier phases' models freed
         lm = serve = train = None
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        launch_phase(torch, card)
+        # (a), the dry-run's rows on meta, runs in phase 21 (a) when phase
+        # 21 follows
+        launch_phase(torch, card, dry_run=args.launch)
         log(f"20. launch: (a)-(d) pass ({time.perf_counter() - t0:.1f} s) "
             f"on {card}")
+    if not graph_only and not args.lm and not args.serve \
+            and not args.families and not args.train and not args.launch:
+        # sharded execution last: its ranks are processes of their own,
+        # each counting its own launches; the counts are their sums
+        lm = serve = train = None
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        counts.append({**{n: 0 for n in wrappers},
+                       **sharded_phase(torch, card, lake)})
+        log(f"21. sharded: (a) and (b) pass ({time.perf_counter() - t0:.1f} "
+            f"s) on {card}")
     for r in rows:
         # a row named "kernel@shape" times a kernel at another shape
         r["launches"] = sum(c[r["name"].split("@")[0]] for c in counts)
@@ -5239,4 +5758,8 @@ def entry_phases(torch, drive, adj, truth, batches, oracle, card):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.exit(sharded_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--trace-cell"]:
+        sys.exit(trace_cell_main(sys.argv[2:]))
     sys.exit(main())

@@ -4,7 +4,7 @@ The JAX package's ``checkpoint/checkpointer.py`` on PyTorch, with the same
 files: ``<dir>/step_<N>/`` holds one ``.npy`` shard file per leaf and
 ``manifest.json`` (the step, the ``extra`` dict, and per leaf its path,
 file, shape, dtype, the first 16 hex digits of the file's sha256 and the
-``process_index``, 0 on one card).  A checkpoint is *committed* by
+``process_index``: the writer's rank, 0 on one card).  A checkpoint is *committed* by
 renaming ``step_<N>.tmp -> step_<N>`` after every shard and the manifest
 are written -- the restore path only ever sees committed checkpoints,
 which is the invariant the FT coordinator restarts against.  Shards are
@@ -18,6 +18,13 @@ so the shard is byte for byte the reference's) and read back through an
 int16 view, keyed by the manifest's ``dtype``.  The reference's own
 restore cannot read such a leaf (``astype`` of a void array raises); the
 port reads both packages' bfloat16 checkpoints.
+
+A tree of DTensors (a distributed mesh, ``launch/mesh.py``) is saved as
+its global arrays: every rank takes part in gathering each leaf in turn,
+and rank 0 writes, so the files and manifest are a one-card save's (its
+``process_index`` the writer's rank); the other ranks wait for the
+commit.  Restored into a ``like`` of DTensors, each rank keeps its own
+part of each leaf.
 """
 from __future__ import annotations
 
@@ -137,28 +144,51 @@ def _load(fpath: str, dtype: str, sha: Optional[str]):
     return arr
 
 
+def _full(leaf):
+    """A DTensor leaf's global tensor (a collective every rank takes part
+    in); anything else as it is."""
+    return leaf.full_tensor() if hasattr(leaf, "full_tensor") else leaf
+
+
+def _writer(leaves) -> Optional[int]:
+    """This process's rank where the tree holds DTensors, else None."""
+    if any(hasattr(leaf, "full_tensor") for _, leaf in leaves):
+        import torch.distributed as dist
+        return dist.get_rank()
+    return None
+
+
 def save_checkpoint(directory: str, step: int, tree,
                     extra: Optional[Dict] = None) -> str:
     """Write + atomically commit one checkpoint. Returns final path."""
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
+    leaves = _flat_with_paths(tree)
+    rank = _writer(leaves)
+    if rank:                         # not the writer: gather, then wait
+        for _, leaf in leaves:
+            _full(leaf)
+        import torch.distributed as dist
+        dist.barrier()
+        return final
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "created": time.time(),
                 "extra": extra or {}, "leaves": []}
 
-    def write(item):
-        i, (path, leaf) = item
+    def write(i, path, leaf):
         arr, dtype = _host(leaf)
         fname = f"shard_{i:05d}.npy"
         return {"path": path, "file": fname, "shape": list(arr.shape),
                 "dtype": dtype, "sha": _save(os.path.join(tmp, fname), arr,
                                              dtype),
-                "process_index": 0}
+                "process_index": rank or 0}
     with ThreadPoolExecutor(_WORKERS) as pool:
-        manifest["leaves"] = list(pool.map(
-            write, enumerate(_flat_with_paths(tree))))
+        # gathers run here in leaf order, the same on every rank
+        futures = [pool.submit(write, i, path, _full(leaf))
+                   for i, (path, leaf) in enumerate(leaves)]
+        manifest["leaves"] = [f.result() for f in futures]
     mpath = os.path.join(tmp, "manifest.json")
     with open(mpath, "w") as f:
         json.dump(manifest, f)
@@ -167,6 +197,9 @@ def save_checkpoint(directory: str, step: int, tree,
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)  # atomic commit
+    if rank is not None:
+        import torch.distributed as dist
+        dist.barrier()
     return final
 
 
@@ -189,7 +222,19 @@ def latest_checkpoint(directory: str) -> Optional[int]:
 
 def _cast(arr, ref):
     """A restored leaf in the type (and, for a tensor, on the device) of
-    ``ref``."""
+    ``ref``; for a DTensor ``ref``, this rank's part of it placed as
+    ``ref`` is."""
+    if hasattr(ref, "device_mesh"):
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.distributed.sharding import local_range
+        idx = tuple(slice(lo, lo + n) for lo, n in (
+            local_range(ref, d) for d in range(ref.dim())))
+        t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(arr)
+        part = t[idx].to(device=ref.to_local().device, dtype=ref.dtype)
+        return DTensor.from_local(part.contiguous(), ref.device_mesh,
+                                  ref.placements, run_check=False,
+                                  shape=ref.shape, stride=ref.stride())
     if isinstance(ref, torch.Tensor):
         t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(arr)
         return t.to(device=ref.device, dtype=ref.dtype)

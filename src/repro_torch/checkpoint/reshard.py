@@ -14,6 +14,11 @@ entries on one device with the same slice share one tensor, as they would
 share one buffer on a real card, so a tree placed on a mesh naming one
 card 8 times takes the tree's bytes and not 8 times them.
 
+On a distributed mesh (``launch/mesh.py``: one ``torch.distributed`` rank
+an entry) a placed leaf is a DTensor instead: each rank reads only its own
+slices of each shard file (``indices()`` at its coordinate, through a
+memory map) and builds its part, with no collective.
+
 ``plan_reshard`` additionally reports, per leaf, which byte ranges each new
 device needs -- on a real cluster this drives host-to-host transfer
 planning; here it documents/tests the chunking math.
@@ -21,12 +26,16 @@ planning; here it documents/tests the chunking math.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Any, Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
-                                              shard_params,
+                                              from_part, is_distributed,
+                                              rank_slices, shard_params,
                                               tree_leaves_with_path,
                                               tree_map_with_path)
 from repro_torch.models.convert import to_tensor
@@ -79,13 +88,21 @@ def place(leaf, sharding: NamedSharding) -> Sharded:
     return Sharded(sharding.spec, mesh, tuple(t.shape), t.dtype, shards)
 
 
+def _rank_part(leaf, sharding: NamedSharding):
+    """This rank's part of a host leaf as a DTensor (a distributed
+    mesh)."""
+    t = _host_tensor(leaf)
+    return from_part(t[rank_slices(sharding, t.shape)], sharding, t.shape)
+
+
 def device_put_resharded(tree, mesh, cfg=None):
     """Place a host tree onto ``mesh`` with the framework sharding rules
     (``cfg`` names the unit size of a tree holding the port's unit
-    parameters, ``layers.{i}.*``)."""
+    parameters, ``layers.{i}.*``): :class:`Sharded` leaves on a virtual
+    mesh, DTensors holding this rank's slices on a distributed one."""
     shardings = dict(tree_leaves_with_path(shard_params(tree, mesh, cfg)))
-    return tree_map_with_path(lambda p, leaf: place(leaf, shardings[p]),
-                              tree)
+    put = _rank_part if is_distributed(mesh) else place
+    return tree_map_with_path(lambda p, leaf: put(leaf, shardings[p]), tree)
 
 
 def plan_reshard(shape: Tuple[int, ...], old_spec_shards: int,
@@ -132,8 +149,11 @@ def elastic_restore(directory: str, step: int, like, new_mesh,
     checkpointer reads each shard file (the reference's bfloat16 ones
     too), then every leaf of ``like``'s structure (tensors on any device,
     ``meta`` included, or numpy arrays: only shapes and types are read) is
-    placed under the sharding rules.  Returns (the placed tree, extra)."""
+    placed under the sharding rules.  Returns (the placed tree, extra).
+    On a distributed mesh each rank reads only its own slices."""
     from .checkpointer import restore_checkpoint
+    if is_distributed(new_mesh):
+        return _restore_rank_parts(directory, step, like, new_mesh, cfg)
     by_path, extra = restore_checkpoint(directory, step)
 
     def one(path, ref):
@@ -147,3 +167,35 @@ def elastic_restore(directory: str, step: int, like, new_mesh,
         return _host_cast(arr, ref)
     return device_put_resharded(tree_map_with_path(one, like), new_mesh,
                                 cfg), extra
+
+
+def _restore_rank_parts(directory: str, step: int, like, mesh,
+                        cfg=None) -> Tuple[Any, Dict]:
+    """:func:`elastic_restore` onto a distributed mesh: each leaf's shard
+    file memory-mapped and this rank's slices of it copied out (its
+    checksum is not checked: that needs every byte)."""
+    from .checkpointer import BF16
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    files = {leaf["path"]: leaf for leaf in manifest["leaves"]}
+    shardings = dict(tree_leaves_with_path(shard_params(like, mesh, cfg)))
+
+    def one(p, ref):
+        key = "/".join(str(k) for k in p)
+        if key not in files:
+            raise KeyError(f"checkpoint missing leaf {key}")
+        meta = files[key]
+        if tuple(meta["shape"]) != tuple(ref.shape):
+            raise ValueError(f"{key}: checkpoint shape "
+                             f"{tuple(meta['shape'])} != expected "
+                             f"{tuple(ref.shape)}")
+        arr = np.load(os.path.join(path, meta["file"]), mmap_mode="r")
+        part = np.ascontiguousarray(arr[rank_slices(shardings[p],
+                                                    arr.shape)])
+        t = torch.from_numpy(part.view(np.int16)).view(torch.bfloat16) \
+            if meta["dtype"] == BF16 else torch.from_numpy(part)
+        return from_part(_host_cast(t, ref) if isinstance(
+            ref, torch.Tensor) else t, shardings[p], tuple(ref.shape))
+
+    return tree_map_with_path(one, like), manifest["extra"]

@@ -17,11 +17,18 @@ package's ``data/pipeline.py`` over the port's ``core``: the same graph
 and seed give the same batches.  The label filter runs on ``engine``,
 ``cuda`` by default as every entry of the port (the reference's runs on
 numpy); ``numpy`` and ``torch`` run it on the host.
+
+On a distributed mesh (``launch/mesh.py``) each data rank streams its own
+shard: given the ``mesh``, the pipeline takes ``shard_id`` and
+``num_shards`` from the rank's data coordinate (the ``pod`` and ``data``
+axes, pod major), so ranks that differ only on ``model`` read the same
+shard, and :func:`global_batch` makes their rank-local batches one
+batch-sharded global batch.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -42,13 +49,51 @@ class PipelineConfig:
     seed: int = 0
 
 
+def data_shard(mesh) -> Tuple[int, int]:
+    """(shard_id, num_shards) of this rank on a distributed mesh: its
+    position over the data axes (``pod`` major) and their size."""
+    from repro_torch.distributed.sharding import data_axes
+    coord = mesh.coordinate()
+    shard, n = 0, 1
+    for a in data_axes(mesh):
+        shard = shard * mesh.shape[a] + coord[a]
+        n *= mesh.shape[a]
+    return shard, n
+
+
+def global_batch(batch: Dict, mesh) -> Dict:
+    """A data rank's local batch (arrays [b, ...]) as the global batch of
+    DTensors [b * num_shards, ...], batch over the data axes and the same
+    on every ``model`` rank, with no collective; other entries as they
+    are."""
+    import torch
+
+    from repro_torch.distributed.sharding import (NamedSharding, P, _dp,
+                                                  from_part)
+    n = data_shard(mesh)[1]
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, (np.ndarray, torch.Tensor)) and np.ndim(v) >= 1:
+            t = torch.as_tensor(np.asarray(v) if isinstance(v, np.ndarray)
+                                else v)
+            spec = P(_dp(mesh), *([None] * (t.dim() - 1)))
+            v = from_part(t, NamedSharding(mesh, spec),
+                          (t.shape[0] * n,) + tuple(t.shape[1:]))
+        out[k] = v
+    return out
+
+
 class GraphCorpusPipeline:
     """Streams packed LM batches from a GraphAr document graph."""
 
     def __init__(self, graph: Graph, cond: Optional[Cond],
                  cfg: PipelineConfig, doc_type: str = "doc",
                  edge_name: str = "doc-links-doc",
-                 tokens_prop: str = "tokens", engine: str = "cuda"):
+                 tokens_prop: str = "tokens", engine: str = "cuda",
+                 mesh=None):
+        if mesh is not None:
+            sid, n = data_shard(mesh)
+            cfg = dataclasses.replace(cfg, shard_id=sid, num_shards=n)
         self.graph = graph
         self.cfg = cfg
         self.meter = IOMeter()

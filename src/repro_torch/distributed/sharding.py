@@ -32,25 +32,30 @@ return :class:`NamedSharding` values: a (mesh, spec) pair with
 ``shard_shape`` and ``indices`` (one tuple of slices per mesh entry, in the
 mesh's device order, as JAX's ``devices_indices_map`` gives them).
 
+On a distributed mesh (``launch/mesh.py``: one ``torch.distributed``
+rank an entry) a spec is DTensor placements (:func:`placements`) and
+:func:`place` puts a tree under its shardings as DTensors.
 ``constrain`` and ``constrain_like_params`` resolve their specs against
-the mesh entered with ``with mesh:`` as the reference's do.  Where every
-entry of that mesh names the tensor's own device they return the tensor
-unchanged: nothing moves on one card.  A mesh naming more than one device
-raises ``NotImplementedError`` (sharded execution across cards needs
-``torch.distributed``, see ROADMAP.md).  The port's model and train step
-do not call them.
+the mesh entered with ``with mesh:`` as the reference's do: on a
+distributed mesh they redistribute to the resolved spec (the reference's
+``with_sharding_constraint``; the model, attention and train step call
+them where the reference does).  Where every entry of a virtual mesh
+names the tensor's own device they return the tensor unchanged: nothing
+moves on one card.  A virtual mesh naming more than one device raises
+``NotImplementedError``: it has no ranks to run on.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.convert import UNIT_HEADS, reference_leaf
 
 
 class PartitionSpec(tuple):
@@ -294,6 +299,7 @@ def reference_path(path: Sequence, cfg: Optional[ModelConfig] = None
     unit's, whose leading axis the port does not have.  A path already in
     the reference's layout (``units/l0/attn/q``) maps to itself.  A unit's
     parameter needs ``cfg`` (its unit size)."""
+    from repro_torch.models.convert import UNIT_HEADS, reference_leaf
     out: List[str] = []
     stacked = False
     for key in path:
@@ -329,6 +335,7 @@ def _cache_path(path: Sequence, cfg: ModelConfig
     """The reference's path of a port cache leaf: layer ``i`` of the
     port's ``layers`` list (prefix layers first) is ``prefix_{i}`` or a
     unit's ``units/l{j}`` (stacked), through :func:`reference_leaf`."""
+    from repro_torch.models.convert import reference_leaf
     path = [str(p) for p in path]
     if len(path) < 2 or path[0] != "layers":
         return tuple(path), False
@@ -435,16 +442,158 @@ def _context_mesh():
 
 
 def _placed(x, mesh) -> None:
-    """Raise unless every entry of ``mesh`` names ``x``'s device."""
+    """Raise unless every entry of the virtual ``mesh`` names ``x``'s
+    device."""
     devices = set(mesh.devices.flat)
     if len(devices) > 1:
         raise NotImplementedError(
-            f"the mesh names {len(devices)} devices: sharded execution "
-            f"across cards needs torch.distributed and a 4-card cell "
-            f"(ROADMAP.md)")
+            f"the virtual mesh names {len(devices)} devices: sharded "
+            f"execution needs a distributed mesh over torch.distributed "
+            f"ranks (launch.mesh.distributed_mesh)")
     if devices != {x.device}:
         raise ValueError(f"the tensor is on {x.device}, the mesh names "
                          f"{devices.pop()}")
+
+
+def is_distributed(mesh) -> bool:
+    """A mesh over ``torch.distributed`` ranks (``launch/mesh.py``)."""
+    return getattr(mesh, "device_mesh", None) is not None
+
+
+def placements(spec, mesh) -> list:
+    """``spec`` as DTensor placements on a distributed ``mesh``: on each
+    dim of its ``DeviceMesh`` that a dim's entry names, ``Shard(dim)``;
+    ``Replicate()`` on the rest.  A tuple entry splits its dim over its
+    axes in order, major first, which DTensor does in the mesh's order,
+    so a tuple out of the mesh's order raises; a mesh dim that folds
+    several axes (``pod`` and ``data``) is named by all of them at once."""
+    from torch.distributed.tensor import Replicate, Shard
+    dims = list(mesh.mesh_dims)
+    out = [Replicate()] * len(dims)
+    for d, entry in enumerate(spec):
+        axes, pos = list(_axes(entry)), []
+        while axes:
+            k = next((k for k, dim in enumerate(dims)
+                      if tuple(axes[:len(dim)]) == dim), None)
+            if k is None:
+                raise ValueError(f"{spec}: {entry} does not name whole dims "
+                                 f"of the mesh's {tuple(dims)}")
+            pos.append(k)
+            axes = axes[len(dims[k]):]
+        if pos != sorted(pos):
+            raise ValueError(f"{spec}: the axes {entry} are not in the "
+                             f"mesh's order {tuple(mesh.axis_names)}")
+        for k in pos:
+            out[k] = Shard(d)
+    return out
+
+
+class _Constrain(torch.autograd.Function):
+    """Redistribute to ``pl``, and the gradient to ``pl`` too: the
+    transpose of the reference's ``with_sharding_constraint`` is the same
+    constraint on the cotangent, so the backward meets the placements the
+    forward was given (DTensor's ``redistribute`` would send the gradient
+    back to the input's placement instead)."""
+
+    @staticmethod
+    def forward(ctx, x, dm, pl):
+        ctx.dm, ctx.pl = dm, pl
+        return x.redistribute(dm, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != tuple(ctx.pl):
+            g = g.redistribute(ctx.dm, ctx.pl)
+        return g, None, None
+
+
+def to_dtensor(x, spec, mesh):
+    """``x`` as a DTensor on the distributed ``mesh`` under ``spec``: a
+    DTensor is redistributed (a no-op where it is placed so already), its
+    gradient constrained alike; a plain tensor holds the global value,
+    the same on every rank, and is cut to this rank's part with no
+    collective (differentiably, so a tensor of the model's graph stays in
+    it)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    dm, pl = mesh.device_mesh, tuple(placements(spec, mesh))
+    if not isinstance(x, DTensor):
+        if x.device != mesh.device:
+            raise ValueError(f"the tensor is on {x.device}, this rank's "
+                             f"device is {mesh.device}")
+        x = DTensor.from_local(x, dm, [Replicate()] * dm.ndim,
+                               run_check=False)
+    elif x.device_mesh != dm:
+        raise ValueError("the DTensor lies on another mesh")
+    if tuple(x.placements) == pl and not x.requires_grad:
+        return x
+    return _Constrain.apply(x, dm, pl)
+
+
+def place(tree, shardings):
+    """Place ``tree`` under its shardings (a matching tree of
+    :class:`NamedSharding`): on a distributed mesh each leaf becomes a
+    DTensor holding this rank's part (moved to this rank's device first;
+    a DTensor is redistributed; a scalar, such as a step counter or a
+    cache index, stays the plain tensor it is, the same on every rank); on a
+    virtual mesh the tree is returned as it is (one card holds every
+    entry's part)."""
+    specs = dict(tree_leaves_with_path(shardings))
+
+    def one(path, leaf):
+        sh = specs[path]
+        if not is_distributed(sh.mesh) or not hasattr(leaf, "shape"):
+            return leaf
+        if len(leaf.shape) == 0:       # a counter: the same on every rank
+            return leaf
+        from torch.distributed.tensor import DTensor
+        if isinstance(leaf, DTensor):
+            return to_dtensor(leaf, sh.spec, sh.mesh)
+        leaf = torch.as_tensor(leaf).detach()
+        return to_dtensor(leaf.to(sh.mesh.device), sh.spec,
+                          sh.mesh).detach()
+
+    return tree_map_with_path(one, tree)
+
+
+def rank_slices(sharding: NamedSharding, shape) -> Tuple[slice, ...]:
+    """The slices of a global array of ``shape`` that this rank holds on
+    ``sharding``'s distributed mesh: ``indices()`` at its coordinate."""
+    import torch.distributed as dist
+    return sharding.indices(tuple(shape))[dist.get_rank()]
+
+
+def from_part(part, sharding: NamedSharding, shape):
+    """A DTensor of global ``shape`` from this rank's ``part`` (the slices
+    :func:`rank_slices` gives it), moved to this rank's device; no
+    collective."""
+    from torch.distributed.tensor import DTensor
+    mesh = sharding.mesh
+    part = torch.as_tensor(part).to(mesh.device).contiguous()
+    stride = tuple(int(x) for x in torch.empty(
+        tuple(shape), device="meta").stride())
+    return DTensor.from_local(part, mesh.device_mesh,
+                              placements(sharding.spec, mesh),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def local_range(x, dim: int) -> Tuple[int, int]:
+    """(first index, length) of this rank's stretch of a DTensor's
+    ``dim``, split evenly (as the rules split) over the mesh dims that
+    shard it, major first; computed from the rank's coordinate, with no
+    tensor made."""
+    from torch.distributed.tensor import Shard
+    dm, n = x.device_mesh, x.shape[dim]
+    coord = dm.get_coordinate()
+    k, parts = 0, 1
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            if type(p) is not Shard:
+                raise NotImplementedError(f"placement {p} of dim {dim}")
+            k = k * dm.size(i) + coord[i]
+            parts *= dm.size(i)
+    size = n // parts
+    return k * size, size
 
 
 def constraint_spec(shape, axes: Sequence, mesh) -> P:
@@ -462,16 +611,44 @@ def constraint_spec(shape, axes: Sequence, mesh) -> P:
     return _validate(P(*resolved), shape, mesh)
 
 
+def spmd():
+    """A context for one rank's program on the ambient mesh: on a
+    distributed mesh, plain tensors mix with DTensors as replicated ones
+    (``implicit_replication``; a plain tensor the program makes is the
+    same on every rank); elsewhere nothing."""
+    mesh = _context_mesh()
+    if mesh is None or not is_distributed(mesh):
+        return contextlib.nullcontext()
+    return _implicit_replication()
+
+
+@contextlib.contextmanager
+def _implicit_replication():
+    """DTensor's ``implicit_replication``, nestable: it restores the
+    setting it found (DTensor's own clears it on exit)."""
+    from torch.distributed.tensor import DTensor
+    disp = DTensor._op_dispatcher
+    before = disp._allow_implicit_replication
+    disp._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        disp._allow_implicit_replication = before
+
+
 def constrain_like_params(tree, cfg: Optional[ModelConfig] = None):
     """Constrain a parameter-shaped tree (e.g. gradients) to the
     parameter rules against the ambient mesh: no-op without one, the tree
-    itself where the mesh names only its leaves' device."""
+    itself where a virtual mesh names only its leaves' device, each leaf
+    redistributed to its parameter's spec on a distributed mesh."""
     mesh = _context_mesh()
     if mesh is None:
         return tree
 
     def one(path, leaf):
-        leaf_spec(path, leaf.shape, mesh, cfg)
+        spec = leaf_spec(path, leaf.shape, mesh, cfg)
+        if is_distributed(mesh):
+            return to_dtensor(leaf, spec, mesh)
         _placed(leaf, mesh)
         return leaf
 
@@ -481,11 +658,15 @@ def constrain_like_params(tree, cfg: Optional[ModelConfig] = None):
 def constrain(x, *axes):
     """The reference's ``with_sharding_constraint`` against the ambient
     mesh.  ``axes`` entries: "dp" -> all data axes, "model", or None.
-    Without a mesh (smoke tests, one-device runs) it is a no-op; on a mesh
-    naming only ``x``'s device it returns ``x``."""
+    Without a mesh (smoke tests, one-device runs) it is a no-op; on a
+    virtual mesh naming only ``x``'s device it returns ``x``; on a
+    distributed mesh it redistributes ``x`` to the resolved spec (a plain
+    tensor is the global value, as :func:`to_dtensor` takes it)."""
     mesh = _context_mesh()
     if mesh is None:
         return x
-    constraint_spec(x.shape, axes, mesh)
+    spec = constraint_spec(x.shape, axes, mesh)
+    if is_distributed(mesh):
+        return to_dtensor(x, spec, mesh)
     _placed(x, mesh)
     return x

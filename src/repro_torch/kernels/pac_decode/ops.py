@@ -41,7 +41,8 @@ multi-device tail (:mod:`repro_torch.kernels.shard`: one launch per mesh
 entry, then a merge).  The mesh comes from :func:`_devices`.
 
 Engines: ``numpy`` (the host oracle), ``torch`` (the kernels' plain
-PyTorch versions, on the CPU) and ``cuda`` (the kernels, on ``cuda:0``).
+PyTorch versions, on the CPU) and ``cuda`` (the kernels, on the current
+CUDA device: ``cuda:0``, or a rank's own).
 The staged vectors and their padding classes are the JAX package's.
 """
 from __future__ import annotations
@@ -98,8 +99,10 @@ _WORDS_POOL: Dict[Tuple[str, int], "deque"] = {}
 
 def engine_device(engine: str) -> torch.device:
     """The device a kernel engine runs on: ``torch`` -> the CPU (plain
-    versions), ``cuda`` -> ``cuda:0`` (the kernels).  ``cuda`` with no
-    card raises: nothing falls back to the CPU."""
+    versions), ``cuda`` -> the current CUDA device (the kernels; ``cuda:0``
+    unless a rank of a distributed world set its own,
+    ``launch/mesh.py:init_world``).  ``cuda`` with no card raises:
+    nothing falls back to the CPU."""
     if engine == "torch":
         return torch.device("cpu")
     if engine == "cuda":
@@ -107,7 +110,7 @@ def engine_device(engine: str) -> torch.device:
             raise RuntimeError("engine='cuda' needs a CUDA device and none "
                                "is available (engine='torch' runs the "
                                "plain versions on the CPU)")
-        return torch.device("cuda", 0)
+        return torch.device("cuda", torch.cuda.current_device())
     raise ValueError(f"unknown engine {engine!r}; want one of {ENGINES}")
 
 

@@ -35,10 +35,22 @@ the cache on the plain route, and training refuses the flash route), and a
 kernel reached on ``meta`` raises (``kernels/_build.py:on_cuda``), which
 makes the cell a ``FAIL`` row: no route is switched quietly.
 
-Per-device FLOPs and bytes are the traced global figures over the mesh's
-entries: the port has no partitioner, so no involuntary replication is
-observable.  A virtual mesh issues no collective, so ``t_collective`` is 0
-and the row says so.
+A cell's mesh is a *fake world* (``launch/mesh.py:fake_world``) of the
+mesh's size, 256 or 512 ranks held by this process as rank 0: the mesh is
+a distributed one over it, the parameters, optimizer state, batch and
+cache are DTensors over ``meta`` parts placed by the sharding rules, and
+the step runs rank 0's part of the SPMD program, its sharding constraints
+redistributing as on cards.  Per-device FLOPs and bytes are rank 0's own
+(the local ops its DTensors issue: :class:`TraceCounter` lets DTensor
+dispatch its ops and counts what comes back down; DTensor's shape
+propagation on fake tensors is not counted), and its collectives are the
+records :func:`~repro_torch.launch.roofline.parse_collectives` prices on
+NVLink inside a node and the network across nodes.  The fake group moves
+nothing, so no bytes are allocated and every collective completes at
+once.  A cell whose model the port does not run on a distributed mesh
+yet (MoE layers, a vision context: :func:`fake_traceable`) keeps the
+virtual mesh's row: the global trace divided by the mesh's entries, with
+no collective, and the row says so.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun               # all cells
@@ -56,13 +68,18 @@ import traceback
 from typing import Dict, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from repro_torch.configs import ASSIGNED_ARCHS, get_config
-from repro_torch.distributed.sharding import (nbytes_per_device, shard_batch,
-                                              shard_cache, shard_params)
-from repro_torch.launch.mesh import describe, make_production_mesh
+from repro_torch.distributed.sharding import (is_distributed,
+                                              nbytes_per_device, place,
+                                              shard_batch, shard_cache,
+                                              shard_params)
+from repro_torch.launch.mesh import (describe, fake_world,
+                                     make_production_mesh)
 from repro_torch.launch.roofline import (CHIPS_PER_NODE, HBM_BYTES,
                                          CollectiveStats, Roofline,
                                          active_params, model_flops,
@@ -70,6 +87,7 @@ from repro_torch.launch.roofline import (CHIPS_PER_NODE, HBM_BYTES,
 from repro_torch.launch.shapes import (SHAPES, ShapeDef, batch_specs,
                                        cache_specs, supported_shapes)
 from repro_torch.models import build_model
+from repro_torch.models.model import shard_model
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
 from repro_torch.train.optimizer import adamw
 from repro_torch.train.schedule import warmup_cosine
@@ -78,9 +96,14 @@ from repro_torch.train.train_step import (make_train_step, model_params,
 
 #: what a virtual mesh's row says of its collectives
 VIRTUAL_COLLECTIVES = "none issued on a virtual mesh"
-#: what a row says of its per-device figures
+#: what a virtual mesh's row says of its per-device figures
 PER_DEVICE = ("traced global / chips: no partitioner, so no involuntary "
               "replication is observable")
+#: what a fake world's row says of them
+PER_DEVICE_FAKE = ("rank 0's local trace on a fake world of {} ranks "
+                   "(DTensor parts on meta)")
+FAKE_COLLECTIVES = ("traced: rank 0's collectives on a fake world of {} "
+                    "ranks")
 
 # --------------------------------------------------------------------------
 # counting a trace
@@ -93,6 +116,8 @@ _NO_TRAFFIC = frozenset((
     "aten.new_empty_strided.default", "aten._unsafe_view.default",
     "aten.detach.default", "aten.alias.default", "aten.lift_fresh.default",
     "aten.set_.source_Storage_storage_offset",
+    "_c10d_functional.wait_tensor.default",
+    "_c10d_functional._wrap_tensor_autograd.default",
 ))
 #: gathers: the first input is read only where the output's rows come from
 _GATHERS = frozenset(("aten.embedding.default", "aten.index.Tensor",
@@ -183,18 +208,40 @@ class TraceCounter(TorchDispatchMode):
     op's target counts once); a gather's table counts as its output's
     bytes and a scatter's target as its values', not whole.  Collective
     calls are kept as ``(op, result bytes, group ranks)`` records for
-    :func:`~repro_torch.launch.roofline.parse_collectives`."""
+    :func:`~repro_torch.launch.roofline.parse_collectives`.
 
-    def __init__(self):
+    An op on DTensors is handed to DTensor (``NotImplemented``), whose
+    local ops and collectives come back through this mode and are counted
+    with their local shapes; DTensor's shape propagation, which runs the
+    op on fake tensors of the global shapes, is not counted.  These local
+    ops' FLOPs are summed too (``flops``: PyTorch's FLOP formulas), as
+    ``FlopCounterMode`` would count DTensor ops at their global shapes.
+    ``meta_only`` leaves out ops on no ``meta`` tensor: the host-side
+    index bookkeeping DTensor does for its placements."""
+
+    def __init__(self, meta_only: bool = False):
         super().__init__()
+        self.meta_only = meta_only
         self.bytes = 0
         self.ops = 0
+        self.flops = 0
         self.records = []
         self._kinds: Dict = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        if any(issubclass(t, FakeTensor) for t in types):
+            return func(*args, **kwargs)
         out = func(*args, **kwargs)
+        if self.meta_only and not any(
+                t.device.type == "meta"
+                for t in _flat(out, _flat(args, _flat(kwargs, [])))):
+            return out
+        count = flop_registry.get(func._overloadpacket)
+        if count is not None:
+            self.flops += count(*args, **kwargs, out_val=out)
         kind = self._kinds.get(func)
         if kind is None:
             kind = self._kinds[func] = _classify(func)
@@ -223,14 +270,22 @@ class TraceCounter(TorchDispatchMode):
 _KEYS = ("flops", "bytes", "ici", "dcn", "coll_count")
 
 
-def trace_costs(fn, args, chips_per_node: int = CHIPS_PER_NODE) -> Dict:
+def trace_costs(fn, args, chips_per_node: int = CHIPS_PER_NODE,
+                mesh=None) -> Dict:
     """Run ``fn(*args)`` on its ``meta`` inputs under the FLOP counter and
-    :class:`TraceCounter`: global FLOPs, bytes, aten ops and collectives."""
-    with torch.no_grad(), FlopCounterMode(display=False) as fc, \
-            TraceCounter() as tc:
-        fn(*args)
+    :class:`TraceCounter`: global FLOPs, bytes, aten ops and collectives;
+    on a distributed ``mesh`` (entered for the run), rank 0's own."""
+    if mesh is not None and is_distributed(mesh):
+        with torch.no_grad(), mesh, TraceCounter(meta_only=True) as tc:
+            fn(*args)
+        flops = tc.flops
+    else:
+        with torch.no_grad(), FlopCounterMode(display=False) as fc, \
+                TraceCounter() as tc:
+            fn(*args)
+        flops = fc.get_total_flops()
     coll = parse_collectives(tc.records, chips_per_node)
-    return {"flops": float(fc.get_total_flops()), "bytes": float(tc.bytes),
+    return {"flops": float(flops), "bytes": float(tc.bytes),
             "ici": float(coll.ici_bytes), "dcn": float(coll.dcn_bytes),
             "coll_count": float(coll.count), "by_op": coll.by_op,
             "ops": tc.ops}
@@ -261,10 +316,17 @@ def build_cell(cfg, shape: ShapeDef, mesh, *, batch_override: int = None,
     """Returns (fn, args, in_shardings): the cell's step and its ``meta``
     inputs, with the shardings of each input tree.  The model holds its
     parameters, so a prefill/decode step ignores its first argument, which
-    is there for the argument bytes."""
+    is there for the argument bytes.  On a distributed mesh the inputs
+    (and the model's parameters) are DTensors placed by their
+    shardings."""
     model = build_model(cfg, "meta")
     b = batch_override or shape.batch
     shape = dataclasses.replace(shape, batch=b)
+
+    def placed(args, in_sh):
+        if not is_distributed(mesh):
+            return args
+        return tuple(place(a, s) for a, s in zip(args, in_sh))
 
     if shape.kind == "train":
         params = model_params(model)
@@ -282,7 +344,7 @@ def build_cell(cfg, shape: ShapeDef, mesh, *, batch_override: int = None,
             in_sh = (shard_params(grads, mesh, cfg),
                      shard_params(state, mesh, cfg),
                      shard_params(params, mesh, cfg))
-            return fn, (grads, state, params), in_sh
+            return fn, placed((grads, state, params), in_sh), in_sh
         fn = make_train_step(model, opt, n_micro=cfg.train_microbatches,
                              accum_dtype=torch.bfloat16
                              if cfg.param_dtype == "bfloat16"
@@ -291,14 +353,17 @@ def build_cell(cfg, shape: ShapeDef, mesh, *, batch_override: int = None,
         in_sh = (shard_params(params, mesh, cfg),
                  shard_params(state, mesh, cfg),
                  shard_batch(batch, mesh, shape.batch))
-        return fn, (params, state, batch), in_sh
+        return fn, placed((params, state, batch), in_sh), in_sh
 
+    if is_distributed(mesh):
+        shard_model(model, mesh)
     params = {n: p.detach() for n, p in model.named_parameters()}
     batch = batch_specs(cfg, shape, with_labels=False)
     cache = cache_specs(model, cfg, shape)
     in_sh = (shard_params(params, mesh, cfg),
              shard_batch(batch, mesh, shape.batch),
              shard_cache(cache, mesh, shape.batch, cfg))
+    params, batch, cache = placed((params, batch, cache), in_sh)
     if shape.kind == "prefill":
         step = make_prefill_step(model)
         return (lambda _, batch, cache: step(batch, cache)), \
@@ -323,14 +388,16 @@ def probe_roofline(cfg, shape: ShapeDef, mesh,
     """
     if shape.kind != "train":
         fn, args, _ = build_cell(cfg, shape, mesh)
-        return trace_costs(fn, args, chips_per_node)
+        return trace_costs(fn, args, chips_per_node, mesh)
     n = cfg.train_microbatches
     one = cfg.with_(train_microbatches=1)
     micro_b = shape.batch // n
     c = trace_costs(*build_cell(one, shape, mesh,
-                                batch_override=micro_b)[:2], chips_per_node)
+                                batch_override=micro_b)[:2], chips_per_node,
+                    mesh)
     o = trace_costs(*build_cell(one, shape, mesh, batch_override=micro_b,
-                                train_opt_only=True)[:2], chips_per_node)
+                                train_opt_only=True)[:2], chips_per_node,
+                    mesh)
     out = {k: n * max(c[k] - o[k], 0.0) + o[k] for k in _KEYS}
     out["by_op"] = {k: n * c["by_op"].get(k, 0) for k in c["by_op"]}
     out["ops"] = n * (c["ops"] - o["ops"]) + o["ops"]
@@ -367,9 +434,11 @@ def roofline_row(arch: str, cfg, shape: ShapeDef, mesh, mesh_id: str,
                            dcn_bytes=int(costs["dcn"]),
                            by_op=costs["by_op"],
                            count=int(costs["coll_count"]))
+    fake = is_distributed(mesh)
+    per = 1 if fake else chips        # a fake world's trace is rank 0's
     rf = Roofline(arch=arch, shape=shape.name, mesh=mesh_id, chips=chips,
-                  flops_per_device=costs["flops"] / chips,
-                  bytes_per_device=costs["bytes"] / chips, coll=coll,
+                  flops_per_device=costs["flops"] / per,
+                  bytes_per_device=costs["bytes"] / per, coll=coll,
                   model_flops=model_flops(cfg, shape.kind, shape.batch,
                                           shape.seq),
                   per_device_memory=memory)
@@ -377,24 +446,41 @@ def roofline_row(arch: str, cfg, shape: ShapeDef, mesh, mesh_id: str,
     virtual = len(set(mesh.devices.flat)) == 1
     row.update({"status": "ok", "compile_s": elapsed,
                 "coll_by_op": costs["by_op"],
-                "raw_scanned_flops_per_dev": costs["flops"] / chips,
+                "raw_scanned_flops_per_dev": costs["flops"] / per,
                 "probes": False, "aten_ops": costs["ops"],
-                "per_device": PER_DEVICE,
-                "collectives": VIRTUAL_COLLECTIVES
+                "per_device": PER_DEVICE_FAKE.format(chips) if fake
+                else PER_DEVICE,
+                "collectives": FAKE_COLLECTIVES.format(chips) if fake
+                else VIRTUAL_COLLECTIVES
                 if virtual and not coll.count else "traced"})
     return row
 
 
+def fake_traceable(cfg) -> bool:
+    """Whether the port runs ``cfg`` on a distributed mesh: MoE routing
+    (``searchsorted``) has no DTensor rule, and a vision context, placed
+    as a batch input, splits the cross-attention's K/V heads unevenly."""
+    return not (any(l.moe for l in cfg.prefix + cfg.unit)
+                or cfg.num_vision_tokens)
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
-             mesh_factory=make_production_mesh) -> Dict:
+             mesh_factory=make_production_mesh, fake: bool = False) -> Dict:
+    """One cell's row: on a fake world of the mesh's size (``fake``), or
+    on the virtual mesh."""
     from repro_torch.launch.report import analytic_memory_floor
     mesh = mesh_factory(multi_pod=multi_pod)
     cfg = get_config(arch)
     mesh_id = (("2x16x16" if multi_pod else "16x16")
                if mesh_factory is make_production_mesh else describe(mesh))
-    return roofline_row(arch, cfg, SHAPES[shape_name], mesh, mesh_id,
-                        analytic_memory_floor(arch, shape_name, mesh.size,
-                                              multi_pod))
+    floor = analytic_memory_floor(arch, shape_name, mesh.size, multi_pod)
+    if not fake:
+        return roofline_row(arch, cfg, SHAPES[shape_name], mesh, mesh_id,
+                            floor)
+    with fake_world(mesh.size):
+        mesh = mesh_factory(multi_pod=multi_pod, distributed=True)
+        return roofline_row(arch, cfg, SHAPES[shape_name], mesh, mesh_id,
+                            floor)
 
 
 def main(argv=None) -> None:
@@ -430,7 +516,8 @@ def main(argv=None) -> None:
                 tag = f"{arch} | {shape_name} | {mesh_id}"
                 print(f"[trace on meta] {tag} ...", flush=True)
                 try:
-                    row = run_cell(arch, shape_name, multi)
+                    row = run_cell(arch, shape_name, multi,
+                                   fake=fake_traceable(cfg))
                     print(f"  ok in {row['compile_s']:.1f}s  "
                           f"bottleneck={row['bottleneck']}  "
                           f"t=(c {row['t_compute_s']:.3e}, "

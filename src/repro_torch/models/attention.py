@@ -15,10 +15,15 @@ device.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+
+from repro_torch.distributed.sharding import (_context_mesh, constrain,
+                                              constraint_spec, is_distributed,
+                                              placements)
 
 from .layers import Norm, apply_rope, linear_init, matmul, param
 
@@ -60,19 +65,33 @@ def attention_init(gen: Optional[torch.Generator], d_model: int,
     return attn
 
 
-def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
-         causal: bool) -> torch.Tensor:
-    """q: [B,S,H,dh]; k/v: [B,T,KV,dh]; positions int32 [B,S]/[B,T].
+def heads_parallel(num_heads: int) -> bool:
+    """The reference's test: the ambient mesh has a ``model`` axis that
+    divides the heads."""
+    mesh = _context_mesh()
+    return (mesh is not None and "model" in mesh.axis_names
+            and num_heads % mesh.shape["model"] == 0)
 
-    Under ``causal``, key t attends iff ``0 <= q_pos - k_pos < window``.
-    Logits and softmax in float32; the probabilities are cast to
-    ``v.dtype`` before the PV product, as the reference casts them."""
-    b, s, h, dh = q.shape
-    kv = k.shape[2]
-    if kv != h:
-        k = k.repeat_interleave(h // kv, dim=2)
-        v = v.repeat_interleave(h // kv, dim=2)
+
+def repeat_kv(k: torch.Tensor, h: int) -> torch.Tensor:
+    """[B, T, KV, dh] -> [B, T, H, dh], KV head j serving heads
+    ``j * H/KV ..`` (``repeat_interleave``), as a broadcast and a merge
+    of the two head dims: a KV-head sharding becomes the same split of
+    the query heads."""
+    b, t, kv, dh = k.shape
+    if kv == h:
+        return k
+    return k[:, :, :, None, :].expand(b, t, kv, h // kv, dh) \
+        .reshape(b, t, h, dh)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
+            causal: bool) -> torch.Tensor:
+    """The plain attention on whole (or one rank's local) tensors:
+    q [B,S,H,dh], k/v [B,T,KV,dh] -> [B,S,H,dh]."""
+    h, dh = q.shape[2], q.shape[3]
+    k, v = repeat_kv(k, h), repeat_kv(v, h)
     scale = 1.0 / (dh ** 0.5)
     logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
     if causal:
@@ -80,8 +99,128 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = (diff >= 0) & (diff < window)
         logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
-    return out.reshape(b, s, h * dh)
+    return torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
+         causal: bool) -> torch.Tensor:
+    """q: [B,S,H,dh]; k/v: [B,T,KV,dh]; positions int32 [B,S]/[B,T].
+
+    Under ``causal``, key t attends iff ``0 <= q_pos - k_pos < window``.
+    Logits and softmax in float32; the probabilities are cast to
+    ``v.dtype`` before the PV product, as the reference casts them.  On a
+    distributed mesh the reference's three branches (``attention.py:
+    64-89``) place q, k and v, and each rank attends over its part
+    (:func:`_sdpa_sharded`)."""
+    b, s, h, dh = q.shape
+    mesh = _context_mesh()
+    if mesh is not None and is_distributed(mesh):
+        out = _sdpa_sharded(q, k, v, q_pos, k_pos, window, causal, mesh)
+    else:
+        out = _attend(q, k, v, q_pos, k_pos, window, causal)
+    # heads stay split for the row-parallel output projection; the
+    # sequence-parallel and decode outputs are gathered whole (the
+    # gradient of the merged heads meets the split on head boundaries)
+    heads = "model" if heads_parallel(h) and s > 1 else None
+    return constrain(out.reshape(b, s, h * dh), "dp", None, heads)
+
+
+def _sdpa_sharded(q, k, v, q_pos, k_pos, window, causal, mesh):
+    """The reference's branches on a distributed mesh, each a local
+    attention through ``local_map`` with its placements stated (DTensor's
+    own rules for the batched products would have to merge a split head
+    dim with the batch, which it refuses):
+
+    * s > 1, heads dividing ``model``: q, k, v split by heads; every
+      rank attends over its own heads;
+    * s > 1 otherwise: queries split by sequence over ``model``, K/V
+      whole; a rank's K/V gradients are partial sums over ``model``;
+    * decode (s == 1): the KV length split over ``model`` (flash-decode):
+      each rank's partial softmax is combined by a max and two sums over
+      ``model``."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    b, s, h, dh = q.shape
+    hp = heads_parallel(h)
+
+    if s > 1 and hp:
+        if k.shape[2] % mesh.shape["model"]:
+            k, v = _repeat_whole(k, h), _repeat_whole(v, h)
+        ax = ("dp", None, "model", None)
+        q, k, v = (constrain(t, *ax) for t in (q, k, v))
+        q_pos, k_pos = constrain(q_pos, "dp", None), \
+            constrain(k_pos, "dp", None)
+        grads = (q.placements, k.placements, v.placements)
+        fn = functools.partial(_local_attend, window=window, causal=causal)
+        out_pl = tuple(q.placements)
+    elif s > 1:
+        q = constrain(q, "dp", "model", None, None)
+        k, v = (constrain(t, "dp", None, None, None) for t in (k, v))
+        q_pos, k_pos = constrain(q_pos, "dp", "model"), \
+            constrain(k_pos, "dp", None)
+        model = mesh.mesh_dims.index(("model",))
+        partial = [Partial() if i == model else p
+                   for i, p in enumerate(k.placements)]
+        grads = (q.placements, partial, partial)
+        fn = functools.partial(_local_attend, window=window, causal=causal)
+        out_pl = tuple(q.placements)
+    else:
+        k, v = (constrain(t, "dp", "model", None, None) for t in (k, v))
+        q = constrain(q, "dp", None, None, None)
+        q_pos, k_pos = constrain(q_pos, "dp", None), \
+            constrain(k_pos, "dp", "model")
+        grads = (q.placements, k.placements, v.placements)
+        model = mesh.mesh_dims.index(("model",))
+        if isinstance(k.placements[model], Replicate) \
+                or mesh.shape["model"] == 1:          # T whole on a rank
+            fn = functools.partial(_local_attend, window=window,
+                                   causal=causal)
+        else:
+            fn = functools.partial(
+                _local_decode, window=window, causal=causal,
+                group=mesh.device_mesh.get_group(model))
+        out_pl = tuple(q.placements)
+    ins = tuple(tuple(t.placements) for t in (q, k, v, q_pos, k_pos))
+    grads = tuple(tuple(g) for g in grads) + ins[3:]   # positions: none
+    return local_map(fn, out_placements=list(out_pl), in_placements=ins,
+                     in_grad_placements=grads,
+                     device_mesh=mesh.device_mesh)(q, k, v, q_pos, k_pos)
+
+
+def _repeat_whole(k: torch.Tensor, h: int) -> torch.Tensor:
+    """KV heads that do not divide ``model`` repeated to the query heads
+    while whole, so that a rank's KV heads are the ones its query heads
+    read; the gradient is made whole before the repeat's backward, which
+    cannot cut a head dim split over ``model`` into KV heads that do not
+    divide it."""
+    return constrain(repeat_kv(constrain(k, "dp", None, None, None), h),
+                     "dp", None, None, None)
+
+
+def _local_attend(q, k, v, q_pos, k_pos, *, window, causal):
+    return _attend(q, k, v, q_pos, k_pos, window, causal)
+
+
+def _local_decode(q, k, v, q_pos, k_pos, *, window, causal, group):
+    """One rank's stretch of the KV length at decode, combined over
+    ``group`` (the ``model`` axis): the global max of the logits, then
+    the sums of the exponentials and of their products with V."""
+    from torch.distributed import _functional_collectives as funcol
+    h, dh = q.shape[2], q.shape[3]
+    k, v = repeat_kv(k, h), repeat_kv(v, h)
+    logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) \
+        * (1.0 / (dh ** 0.5))
+    if causal:
+        diff = q_pos[:, None, :, None] - k_pos[:, None, None, :]
+        logits = torch.where((diff >= 0) & (diff < window), logits, NEG_INF)
+    m = funcol.all_reduce(logits.amax(-1, keepdim=True), "max", group)
+    p = torch.exp(logits - m)
+    den = funcol.all_reduce(p.sum(-1, keepdim=True), "sum", group)
+    num = funcol.all_reduce(torch.einsum("bhst,bthd->bhsd",
+                                         p.to(v.dtype), v).float(),
+                            "sum", group)
+    return (num / den).to(v.dtype).transpose(1, 2)
 
 
 def _write_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor) -> Dict:
@@ -101,6 +240,8 @@ def _write_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor) -> Dict:
     ck, cv, idx = cache["k"], cache["v"], cache["index"]
     b, s = k.shape[:2]
     t = ck.shape[1]
+    if hasattr(ck, "device_mesh"):
+        return _write_sharded_cache(cache, k, v)
     if idx.dim() == 0:
         start = min(max(int(idx), 0), t - s)
         ck[:, start:start + s] = k.to(ck.dtype)
@@ -117,6 +258,37 @@ def _write_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor) -> Dict:
             vals = torch.where(own, new.gather(1, src).to(c.dtype),
                                c[rows, cols])
             c[rows, cols] = vals
+    return {"k": ck, "v": cv, "index": idx + s}
+
+
+def _write_sharded_cache(cache: Dict, k: torch.Tensor,
+                         v: torch.Tensor) -> Dict:
+    """The scalar-index write into a cache of DTensors (placed by
+    ``shard_cache``): the new entries are placed as the cache is but
+    whole along its length, and each rank writes the part of the slice
+    that falls in its own stretch of the length, in place."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.distributed.sharding import local_range
+    ck, cv, idx = cache["k"], cache["v"], cache["index"]
+    if idx.dim():
+        raise NotImplementedError("a per-slot cache index on a distributed "
+                                  "mesh")
+    s, t = k.shape[1], ck.shape[1]
+    start = min(max(int(idx), 0), t - s)
+    dm, pl = ck.device_mesh, list(ck.placements)
+    whole = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+             for p in pl]
+    first, length = local_range(ck, 1)
+    lo, hi = max(start, first), min(start + s, first + length)
+    for c, new in ((ck, k), (cv, v)):
+        if not isinstance(new, DTensor):
+            new = DTensor.from_local(new, dm, [Replicate()] * dm.ndim,
+                                     run_check=False)
+        new = new.redistribute(dm, whole).to_local()
+        if lo < hi:
+            c.to_local()[:, lo - first:hi - first] = \
+                new[:, lo - start:hi - start].to(c.dtype)
     return {"k": ck, "v": cv, "index": idx + s}
 
 
@@ -143,10 +315,14 @@ def attention_apply(attn: Attention, x: torch.Tensor, *, num_heads: int,
     kernel, which masks by sequence order alone: like the reference's
     flash route, it ignores ``window`` and ``positions``."""
     b, s, _ = x.shape
-    q = matmul(x, attn.q).view(b, s, num_heads, head_dim)
+    hp = heads_parallel(num_heads)
+    kv_model = "model" if hp and num_kv_heads % _model_size() == 0 \
+        else None
+    q = _split_heads(matmul(x, attn.q), num_heads, head_dim,
+                     "model" if hp else None)
     if kv_override is None:
-        k = matmul(x, attn.k).view(b, s, num_kv_heads, head_dim)
-        v = matmul(x, attn.v).view(b, s, num_kv_heads, head_dim)
+        k = _split_heads(matmul(x, attn.k), num_kv_heads, head_dim, kv_model)
+        v = _split_heads(matmul(x, attn.v), num_kv_heads, head_dim, kv_model)
         k_pos = positions
     else:
         k, v, k_pos = kv_override
@@ -168,15 +344,61 @@ def attention_apply(attn: Attention, x: torch.Tensor, *, num_heads: int,
                              device=x.device).expand(b, t)
 
     if use_flash and cache is None and kv_override is None:
-        # [b, h, s, d] views: the kernel reads them and the KV heads in
-        # place and writes a [b, s, h, d] tensor, so neither side copies
-        from repro_torch.kernels.flash_attention import ops as fa
-        out = fa.mha(q.transpose(1, 2), k.transpose(1, 2),
-                     v.transpose(1, 2), causal=causal)
-        out = out.transpose(1, 2).reshape(b, s, -1)
+        out = _flash(q, k, v, causal, hp).reshape(b, s, -1)
     else:
         out = sdpa(q, k, v, positions, k_pos, window, causal)
     return matmul(out, attn.o), new_cache
+
+
+def _model_size() -> int:
+    return _context_mesh().shape["model"]
+
+
+def _split_heads(y: torch.Tensor, n: int, head_dim: int,
+                 model) -> torch.Tensor:
+    """A projection [B, S, n * dh] as [B, S, n, dh].  On a distributed
+    mesh it is first constrained to ``("dp", None, model)``: ``model``
+    where the heads divide the axis (the split then falls on head
+    boundaries), replicated otherwise."""
+    b, s, _ = y.shape
+    mesh = _context_mesh()
+    if mesh is not None and is_distributed(mesh):
+        y = constrain(y, "dp", None, model)
+    return y.view(b, s, n, head_dim)
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool, hp: bool) -> torch.Tensor:
+    """Kernel 15 on [b, h, s, d] views of q, k, v [b, s, h, d] (the
+    kernel reads them and the KV heads in place and writes a [b, s, h, d]
+    tensor, so neither side copies); returns [b, s, h, d].  On a
+    distributed mesh it runs on each rank's local heads through
+    ``local_map`` where heads-parallel, and raises otherwise: the
+    kernel does not split a head's sequence, and gathering every head on
+    every rank is not what the mesh asked for."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    def run(q, k, v):
+        return fa.mha(q.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2), causal=causal).transpose(1, 2)
+
+    mesh = _context_mesh()
+    if mesh is None or not is_distributed(mesh):
+        return run(q, k, v)
+    if not hp:
+        raise NotImplementedError(
+            f"the flash route splits heads over 'model' and "
+            f"{q.shape[2]} heads do not divide the mesh's model axis of "
+            f"{mesh.shape['model']} ({dict(mesh.shape)}): use "
+            f"use_flash=False on this mesh")
+    from torch.distributed.tensor.experimental import local_map
+    if k.shape[2] % mesh.shape["model"]:
+        k, v = _repeat_whole(k, q.shape[2]), _repeat_whole(v, q.shape[2])
+    q, k, v = (constrain(t, "dp", None, "model", None) for t in (q, k, v))
+    spec = placements(constraint_spec(q.shape, ("dp", None, "model", None),
+                                      mesh), mesh)
+    return local_map(run, out_placements=spec, in_placements=(spec,) * 3,
+                     device_mesh=mesh.device_mesh)(q, k, v)
 
 
 def init_kv_cache(batch: int, max_len: int, num_kv_heads: int,

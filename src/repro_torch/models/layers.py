@@ -153,13 +153,81 @@ class MLP(nn.Module):
         return mlp(x, self.up, self.down, self.gate, self.act)
 
 
+def _split_classes(logits) -> bool:
+    """A DTensor whose last (class) dim is split over a mesh axis."""
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(logits, DTensor) and any(
+        isinstance(p, Shard) and p.dim == logits.dim() - 1
+        for p in logits.placements)
+
+
+def _rows(x, logits):
+    """``x`` (one value a row of ``logits``) placed as ``logits``' rows
+    are, whole over the axes that split the classes."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed.sharding import _Constrain
+    last = logits.dim() - 1
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == last else p
+               for p in logits.placements)
+    return _Constrain.apply(x, logits.device_mesh, pl)
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """``logsumexp`` over the last dim.  Over split classes it is written
+    out (a max, then a sum of exponentials: partial reductions that
+    all-reduce a value a row); DTensor's own gathers every class."""
+    if not _split_classes(logits):
+        return torch.logsumexp(logits, dim=-1)
+    m = _rows(logits.detach().amax(dim=-1, keepdim=True), logits)
+    se = _rows(torch.exp(logits - m).sum(dim=-1, keepdim=True), logits)
+    return (m + torch.log(se))[..., 0]
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``.  On a DTensor whose class dim is split
+    (vocab-parallel logits) each rank picks the labels that fall in its
+    own stretch of the classes, 0 elsewhere, and the parts are a partial
+    sum over the axes that split it (``local_map``: DTensor's own gather
+    rule does not hold for a split class dim)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    last = logits.dim() - 1
+
+    def split(p) -> bool:
+        return isinstance(p, Shard) and p.dim == last
+
+    if not _split_classes(logits):
+        return logits.gather(-1, labels[..., None])[..., 0]
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import local_range
+    dm, pl = logits.device_mesh, list(logits.placements)
+    lo, n = local_range(logits, last)
+    lab_pl = [Replicate() if split(p) else p for p in pl]
+    out_pl = [Partial() if split(p) else p for p in pl]
+
+    def pick(lg, lab):
+        rel = lab - lo
+        ok = (rel >= 0) & (rel < n)
+        got = lg.gather(-1, rel.clamp(0, n - 1)[..., None])[..., 0]
+        return torch.where(ok, got, torch.zeros_like(got))
+
+    return local_map(pick, out_placements=out_pl,
+                     in_placements=(pl, lab_pl), device_mesh=dm)(
+        logits, labels.redistribute(dm, lab_pl))
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-mean cross-entropy in float32.  Returns (loss, n_tokens)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    logz = _logsumexp(logits)
+    gold = _gold(logits, labels.long())
+    if _split_classes(logits):
+        # a row's values whole where its classes were split, their
+        # gradients alike (else DTensor meets the two in differing layouts)
+        logz, gold = _rows(logz, logits), _rows(gold, logits)
     nll = logz - gold
     mask = torch.ones_like(nll) if mask is None else mask.float()
     total = mask.sum().clamp(min=1.0)

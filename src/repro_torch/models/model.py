@@ -28,6 +28,7 @@ unbatched matrix products (``aten.mm``, the counterpart of
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Dict, List, Optional, Tuple
@@ -39,6 +40,9 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import FULL_WINDOW, LayerSpec, ModelConfig
 
+from repro_torch.distributed.sharding import (_context_mesh, constrain,
+                                              is_distributed, spmd)
+
 from .blocks import Block, layer_apply, layer_cache_init
 from .layers import Norm, embed_init, param, softmax_cross_entropy
 
@@ -49,14 +53,34 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda:0``, raising when there is no card; anything
-    else as given (a CUDA device still needs a card)."""
+    """``None`` -> the current CUDA device (``cuda:0``, or a rank's own
+    after ``launch.mesh.init_world``), raising when there is no card;
+    anything else as given (a CUDA device still needs a card)."""
+    if device is None and torch.cuda.is_available():
+        device = torch.device("cuda", torch.cuda.current_device())
     dev = torch.device("cuda", 0) if device is None else torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the model runs on a CUDA device by default and "
                            "none is available (pass device='cpu' for the "
                            "plain versions)")
     return dev
+
+
+def _distributed() -> bool:
+    mesh = _context_mesh()
+    return mesh is not None and is_distributed(mesh)
+
+
+def _spmd(fn):
+    """Run ``fn`` under :func:`~repro_torch.distributed.sharding.spmd`: on
+    a distributed mesh the plain tensors it makes (positions, masks,
+    rotary angles) are the same on every rank and mix with DTensors as
+    replicated ones."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with spmd():
+            return fn(*args, **kwargs)
+    return run
 
 
 class LM(nn.Module):
@@ -88,7 +112,10 @@ class LM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        """The device of the model's parameters (this rank's, where they
+        are DTensors)."""
+        w = self.embed
+        return w.to_local().device if hasattr(w, "to_local") else w.device
 
     def blocks(self) -> List[Block]:
         return list(self.prefix) + list(self.layers)
@@ -117,8 +144,14 @@ class LM(nn.Module):
 
     # -------------------------------------------------------------- decoder
     def _tokens(self, tokens) -> torch.Tensor:
-        """An index array (numpy or torch) on the model's device."""
-        return torch.as_tensor(tokens, device=self.device)
+        """An index array (numpy or torch) on the model's device; on a
+        distributed mesh a DTensor, batch over the data axes (a plain
+        array is the global one, the same on every rank)."""
+        if hasattr(tokens, "device_mesh"):
+            return constrain(tokens, "dp", *([None] * (tokens.dim() - 1)))
+        t = torch.as_tensor(tokens, device=self.device)
+        return constrain(t, "dp", *([None] * (t.dim() - 1))) \
+            if _distributed() else t
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -126,7 +159,7 @@ class LM(nn.Module):
         if cfg.scale_embeddings:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                                  device=x.device)
-        return x
+        return constrain(x, "dp", None, None)
 
     def _decoder(self, x: torch.Tensor, positions: torch.Tensor,
                  cross_ctx: Optional[torch.Tensor],
@@ -163,11 +196,18 @@ class LM(nn.Module):
                                   window=windows[i], cross_ctx=cross_ctx)
             aux = aux + a
 
+        # the backward recomputes a unit on autograd's thread (a card's
+        # device thread): it re-enters the mesh the forward ran under
+        mesh = _context_mesh()
+
         def unit(lo, x, aux, positions, cross_ctx):
-            for i in range(lo, lo + size):
-                x, _, a = layer_apply(cfg, blocks[i], x, positions=positions,
-                                      window=windows[i], cross_ctx=cross_ctx)
-                aux = aux + a
+            with contextlib.nullcontext() if mesh is None else mesh, spmd():
+                for i in range(lo, lo + size):
+                    x, _, a = layer_apply(cfg, blocks[i], x,
+                                          positions=positions,
+                                          window=windows[i],
+                                          cross_ctx=cross_ctx)
+                    aux = aux + a
             return x, aux
 
         extra = {} if cfg.remat == "full" else {
@@ -202,13 +242,14 @@ class LM(nn.Module):
         return None
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.lm_head.to(x.dtype)
+        return constrain(x @ self.lm_head.to(x.dtype), "dp", None, "model")
 
     def _positions(self, b: int, s: int) -> torch.Tensor:
-        return torch.arange(s, dtype=torch.int32,
-                            device=self.device).expand(b, s)
+        return self._tokens(torch.arange(s, dtype=torch.int32,
+                                         device=self.device).expand(b, s))
 
     # --------------------------------------------------------------- forward
+    @_spmd
     def forward(self, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full forward (the reference's ``LM.apply``): ``batch["tokens"]``
         [B, S] (optional ``positions``; ``frames`` or ``vision`` for the
@@ -223,6 +264,7 @@ class LM(nn.Module):
         x = self.final_norm(x)
         return self._head(x), aux
 
+    @_spmd
     def loss(self, batch: Dict) -> Tuple[torch.Tensor, Dict]:
         logits, aux = self.forward(batch)
         labels = self._tokens(batch["labels"])
@@ -239,12 +281,13 @@ class LM(nn.Module):
         on a cross layer, ``cross`` (``{"k", "v"}``, ``ctx_len`` long).
         ``vector_index=True`` gives per-slot positions (an int32 [B] on the
         device; continuous batching); the default scalar index (a 0-dim
-        CPU tensor) keeps all slots aligned.  The default type is bfloat16
-        whatever the model's, as in the reference (the SSM state is
-        float32)."""
+        CPU tensor) keeps all slots aligned.  On a distributed mesh the
+        layers' caches are DTensors placed by ``shard_cache``.  The
+        default type is bfloat16 whatever the model's, as in the
+        reference (the SSM state is float32)."""
         cfg = self.cfg
         specs = list(cfg.prefix) + list(cfg.unit) * cfg.n_units
-        return {
+        cache = {
             "index": (torch.zeros((batch_size,), dtype=torch.int32,
                                   device=self.device)
                       if vector_index else torch.zeros((), dtype=torch.int32)),
@@ -252,8 +295,15 @@ class LM(nn.Module):
                                         vector_index, self.device, ctx_len)
                        for spec in specs],
         }
+        if _distributed():
+            from repro_torch.distributed.sharding import place, shard_cache
+            layers = {"layers": cache["layers"]}
+            cache["layers"] = place(layers, shard_cache(
+                layers, _context_mesh(), batch_size, cfg))["layers"]
+        return cache
 
     @torch.no_grad()
+    @_spmd
     def prefill(self, batch: Dict, cache: Cache
                 ) -> Tuple[torch.Tensor, Cache]:
         """Run the prompt [B, S] (and the cross context of ``batch``)
@@ -272,6 +322,7 @@ class LM(nn.Module):
                                        "layers": layers}
 
     @torch.no_grad()
+    @_spmd
     def decode_step(self, tokens, cache: Cache) -> Tuple[torch.Tensor, Cache]:
         """One decode step: tokens [B, 1] at the cache's index (per slot
         for a vector index).  Returns (logits [B, 1, V], cache)."""
@@ -285,6 +336,25 @@ class LM(nn.Module):
                                      cache["layers"])
         x = self.final_norm(x)
         return self._head(x), {"index": idx + 1, "layers": layers}
+
+
+def shard_model(model: "LM", mesh) -> "LM":
+    """Turn ``model``'s parameters into DTensors placed by
+    ``shard_params`` on the distributed ``mesh`` (each rank keeps its
+    part; every rank must hold the same values, as ``init(seed)`` or
+    ``load_state_dict`` of one state dict gives them).  On a virtual mesh
+    the model stays as it is.  Returns the model."""
+    from repro_torch.distributed.sharding import place, shard_params
+    named = dict(model.named_parameters())
+    placed = place(named, shard_params(named, mesh, model.cfg))
+    for name, t in placed.items():
+        if t is named[name]:
+            continue
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        setattr(mod, leaf, nn.Parameter(t, requires_grad=
+                                        named[name].requires_grad))
+    return model
 
 
 def _save_dots(ctx, op, *args, **kwargs):

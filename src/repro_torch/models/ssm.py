@@ -200,10 +200,13 @@ def ssm_apply(ssm: SSM, xin: torch.Tensor, *, num_heads: int, head_dim: int,
         decay = torch.exp(dt1 * A[None, :])
         B1 = _heads(B[:, 0], h // g, 1).to(f32)
         C1 = _heads(C[:, 0], h // g, 1).to(f32)
-        Bx = torch.einsum("bhn,bhp->bhpn", B1,
-                          (x[:, 0] * dt1[..., None]).to(f32))
+        # products and a sum, not einsums: DTensor places these per
+        # element on a mesh, where its einsum would merge a split head dim
+        # into the batch, which it refuses
+        xdt = (x[:, 0] * dt1[..., None]).to(f32)
+        Bx = B1[:, :, None, :] * xdt[..., None]
         state = cache["state"] * decay[..., None, None] + Bx
-        y = torch.einsum("bhn,bhpn->bhp", C1, state)
+        y = (C1[:, :, None, :] * state).sum(-1)
         y = y + x[:, 0].to(f32) * ssm.D[None, :, None]
         y = y[:, None].to(xin.dtype)                         # [b,1,h,p]
     else:

@@ -70,9 +70,34 @@ def _layout(names, layout: Optional[Layout]) -> Layout:
 # int8 blockwise quantization for optimizer moments
 # ---------------------------------------------------------------------------
 
+def _whole(x, dims):
+    """``x`` with ``dims`` whole on every rank where it is a DTensor split
+    along them (the blocks of the int8 moments cut across a rank's part
+    of a split last dim, and its padding belongs to the whole dim);
+    anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    dims = {d % x.dim() for d in dims}
+    pl = [Replicate() if isinstance(p, Shard) and p.dim in dims else p
+          for p in x.placements]
+    return x if pl == list(x.placements) else \
+        x.redistribute(x.device_mesh, pl)
+
+
+def _like(x, old):
+    """``x`` placed as ``old`` is, where ``old`` is a DTensor (a new
+    moment keeps its state's placement)."""
+    if hasattr(old, "device_mesh") and hasattr(x, "device_mesh") and \
+            tuple(x.placements) != tuple(old.placements):
+        return x.redistribute(old.device_mesh, old.placements)
+    return x
+
+
 def _quantize_int8(x: torch.Tensor) -> Dict:
     """Blockwise int8 along the LAST axis only (odd last dims zero-padded),
     as the reference quantises."""
+    x = _whole(x, [-1]) if x.dim() else x
     if x.dim() == 0:
         x = x[None]
     pad = (-x.shape[-1]) % QBLOCK
@@ -86,7 +111,7 @@ def _quantize_int8(x: torch.Tensor) -> Dict:
 
 
 def _dequantize_int8(s: Dict, like: torch.Tensor) -> torch.Tensor:
-    full = s["q"].float() * s["scale"]
+    full = _whole(s["q"], [-2]).float() * _whole(s["scale"], [-2])
     full = full.reshape(full.shape[:-2] + (-1,))
     shape = like.shape if like.dim() else (1,)
     return full[..., :shape[-1]].reshape(like.shape)
@@ -115,10 +140,13 @@ def _moment_read(m, like: torch.Tensor, dtype: str) -> torch.Tensor:
     return m.float()
 
 
-def _moment_write(x: torch.Tensor, dtype: str):
+def _moment_write(x: torch.Tensor, dtype: str, old=None):
+    """``x`` as a moment of ``dtype``, placed as the ``old`` moment is."""
     if dtype == "int8":
-        return _quantize_int8(x)
-    return x.to(_DTYPES[dtype])
+        q = _quantize_int8(x)
+        return q if old is None else {k: _like(v, old[k])
+                                      for k, v in q.items()}
+    return _like(x.to(_DTYPES[dtype]), old)
 
 
 # ---------------------------------------------------------------------------
@@ -231,9 +259,12 @@ def adamw(lr: Callable[[torch.Tensor], torch.Tensor] | float,
                 [p32[i] for i in decay], weight_decay))
         torch._foreach_mul_(delta, lr_t)
         new = torch._foreach_sub(p32, delta)
-        new_p = {n: x.to(params[n].dtype) for n, x in zip(names, new)}
-        new_m = {n: _moment_write(x, moment_dtype) for n, x in zip(names, mf)}
-        new_v = {n: _moment_write(x, moment_dtype) for n, x in zip(names, vf)}
+        new_p = {n: _like(x.to(params[n].dtype), params[n])
+                 for n, x in zip(names, new)}
+        new_m = {n: _moment_write(x, moment_dtype, state["m"][n])
+                 for n, x in zip(names, mf)}
+        new_v = {n: _moment_write(x, moment_dtype, state["v"][n])
+                 for n, x in zip(names, vf)}
         return new_p, {"m": new_m, "v": new_v, "step": step}, \
             {"grad_norm": gnorm, "lr": lr_t}
 
@@ -306,8 +337,8 @@ def adafactor(lr: Callable | float = 1e-3, eps: float = 1e-30,
             for u, n in enumerate(members):
                 delta[n] = d[u]
                 new_v[n] = {"row": row[u], "col": col}
-        new_p = {n: (params[n].float() - lr_t * delta[n]).to(params[n].dtype)
-                 for n in names}
+        new_p = {n: _like((params[n].float() - lr_t * delta[n])
+                          .to(params[n].dtype), params[n]) for n in names}
         return new_p, {"v": {n: new_v[n] for n in names}, "step": step}, \
             {"grad_norm": gnorm, "lr": lr_t}
 

@@ -9,6 +9,14 @@ restoring the latest committed checkpoint and replaying the data cursor
 model's device (``cuda:0`` unless it was built elsewhere) is where the
 parameters, the optimizer state and every batch of ``batch_fn`` live (the
 train step moves each batch there).
+
+Given a distributed ``mesh`` (``launch/mesh.py``), the trainer runs one
+rank's part: the parameters and optimizer state are DTensors placed by
+the sharding rules, ``batch_fn`` gives the rank's local batch (its data
+shard's, ``data/pipeline.py``) and the step sees the global batch
+(``global_batch``), the history holds the global loss, checkpoints are
+the global arrays (``checkpoint/checkpointer.py``) and a crash restores
+onto the same mesh, each rank its own part.
 """
 from __future__ import annotations
 
@@ -22,6 +30,9 @@ from repro_torch.checkpoint.checkpointer import (latest_checkpoint,
                                                  prune_checkpoints,
                                                  restore_checkpoint,
                                                  save_checkpoint)
+from repro_torch.data.pipeline import global_batch
+from repro_torch.distributed.sharding import (is_distributed, place,
+                                              shard_params)
 from repro_torch.ft.coordinator import Action, Coordinator
 from repro_torch.models.model import LM
 
@@ -43,7 +54,10 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, model: LM, opt: Optimizer, cfg: TrainerConfig,
                  batch_fn: Callable[[int], Dict],
-                 coordinator: Optional[Coordinator] = None):
+                 coordinator: Optional[Coordinator] = None, mesh=None):
+        if mesh is not None and not is_distributed(mesh):
+            mesh = None              # one card: nothing to place
+        self.mesh = mesh
         self.model = model
         self.opt = opt
         self.cfg = cfg
@@ -55,8 +69,25 @@ class Trainer:
 
     def _init_state(self):
         params = model_params(self.model.init(0))
+        if self.mesh is not None:
+            params = self._place(params)
         opt_state = self.opt.init(params, self.layout)
+        if self.mesh is not None:
+            opt_state = self._place(opt_state)
         return params, opt_state, 0
+
+    def _place(self, tree):
+        return place(tree, shard_params(tree, self.mesh, self.model.cfg))
+
+    def _batch(self, step: int) -> Dict:
+        batch = self.batch_fn(step)
+        return batch if self.mesh is None else global_batch(batch, self.mesh)
+
+    def _step(self, params, opt_state, batch):
+        if self.mesh is None:
+            return self.step_fn(params, opt_state, batch)
+        with self.mesh:
+            return self.step_fn(params, opt_state, batch)
 
     def _try_restore(self, params, opt_state):
         step = latest_checkpoint(self.cfg.checkpoint_dir)
@@ -84,8 +115,8 @@ class Trainer:
                 params, opt_state, step = self._try_restore(params,
                                                             opt_state)
                 continue
-            params, opt_state, metrics = self.step_fn(params, opt_state,
-                                                      self.batch_fn(step))
+            params, opt_state, metrics = self._step(params, opt_state,
+                                                   self._batch(step))
             loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
             dt = time.perf_counter() - t0
             if self.coordinator is not None:

@@ -1523,3 +1523,125 @@ def test_dryrun_allocates_nothing_on_the_card(dev):
     assert row["status"] == "ok" and row["t_compute_s"] > 0
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated(dev) == before
+
+
+NCCL_PROBE = """
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import place, shard_params
+from repro_torch.kernels.flash_attention import kernel as AK
+from repro_torch.launch.mesh import distributed_mesh, init_world
+from repro_torch.models import build_model
+from repro_torch.models.model import shard_model
+from repro_torch.train.optimizer import adamw
+from repro_torch.train.train_step import (make_train_step, model_params,
+                                          unit_layout)
+rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]),
+                          int(sys.argv[3]), sys.argv[4])
+dev = init_world(rank, world, f"tcp://localhost:{port}", backend="nccl",
+                 timeout_s=120)
+shape = (1, 1) if world == 1 else (world // 2, 2)
+mesh = distributed_mesh(shape, ("data", "model"))
+res = {"device": str(dev), "coordinate": mesh.coordinate()}
+rng = np.random.default_rng(4)
+# heads-parallel stablelm: the flash route on this rank's local heads
+cfg = get_config("stablelm-1.6b").reduced().with_(use_flash=True)
+model = build_model(cfg, dev).init(0)
+plain = build_model(cfg.with_(use_flash=False), dev)
+plain.load_state_dict(model.state_dict())
+shard_model(model, mesh)
+tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64),
+                                       dtype=np.int32)).to(dev)
+before = AK.flash_attention.launches
+with mesh, torch.no_grad():
+    got = model({"tokens": tokens})[0].full_tensor()
+res["launches"] = AK.flash_attention.launches - before
+with torch.no_grad():
+    want = plain({"tokens": tokens})[0]
+res["flash_err"] = (got - want).abs().max().item()
+# a sequence-parallel smollm train step against the one-card step
+cfg = get_config("smollm-360m").reduced()
+one = build_model(cfg, dev).init(0)
+model = shard_model(build_model(cfg, dev), mesh)
+batch = {k: rng.integers(0, cfg.vocab_size, (8, 32)).astype(np.int32)
+         for k in ("tokens", "labels")}
+opt = adamw(1e-4, eps=1e-6)
+p1 = model_params(one)
+p1, _, m1 = make_train_step(one, opt, 2)(p1, opt.init(p1, unit_layout(one)),
+                                         batch)
+params = model_params(one)
+params = place(params, shard_params(params, mesh, cfg))
+state = opt.init(params, unit_layout(model))
+state = place(state, shard_params(state, mesh, cfg))
+with mesh:
+    params, _, m = make_train_step(model, opt, 2)(params, state, batch)
+res["loss"], res["loss_one"] = float(m["loss"]), float(m1["loss"])
+res["param_err"] = max((params[n].full_tensor() - p1[n]).abs().max().item()
+                       for n in p1)
+res["loss_device"] = m["loss"].device.type
+json.dump(res, open(out, "w"))
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def _nccl_world(tmp_path, world):
+    """``world`` NCCL ranks of ``NCCL_PROBE``, one a card; each must exit
+    0 within 300 s.  Returns their results."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(
+        Path(__file__).resolve().parents[1] / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", NCCL_PROBE, str(r), str(world), str(port),
+         str(tmp_path / f"rank{r}.json")], env=dict(env, LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    return [json.loads((tmp_path / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def _check_nccl(res):
+    for r, out in enumerate(res):
+        assert out["device"] == f"cuda:{r}"
+        assert out["launches"] == 2          # one a layer, local heads
+        assert out["flash_err"] <= 1e-4
+        assert out["loss"] == pytest.approx(out["loss_one"], rel=1e-5)
+        assert out["param_err"] <= 1e-5
+        assert out["loss_device"] == "cuda"
+
+
+def test_one_rank_nccl_world_on_the_card(dev, tmp_path):
+    """A (1, 1) mesh over a one-rank NCCL world: reduced stablelm's flash
+    route (kernel 15 through ``local_map``) against the plain route, and a
+    reduced smollm train step of 2 microbatches against the one-card
+    step."""
+    _check_nccl(_nccl_world(tmp_path, 1))
+
+
+def test_one_rank_per_card(dev, tmp_path):
+    """Every card a rank of a (cards / 2, 2) mesh: kernel 15 on each
+    rank's local heads, a sharded train step against the one-card one."""
+    n = torch.cuda.device_count()
+    if n < 2 or n % 2:
+        pytest.skip("needs an even number of two or more cards")
+    _check_nccl(_nccl_world(tmp_path, n))

@@ -359,6 +359,57 @@ print("LOADED", bad)
 """
 
 
+SHARDED_PROBE = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import repro_torch.configs as RC
+from repro_torch.launch.mesh import distributed_mesh, init_world
+from repro_torch.models import build_model
+from repro_torch.models.model import shard_model
+torch.set_num_threads(1)
+rank, port = int(sys.argv[1]), int(sys.argv[2])
+init_world(rank, 2, f"tcp://localhost:{port}", backend="gloo", timeout_s=60)
+mesh = distributed_mesh((1, 2), ("data", "model"))
+cfg = RC.get_config("stablelm-1.6b").reduced().with_(use_flash=True)
+model = shard_model(build_model(cfg, "cpu").init(0), mesh)
+tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16))
+with mesh, torch.no_grad():
+    logits, _ = model({"tokens": tokens.astype(np.int32)})
+assert logits.shape == (2, 16, cfg.vocab_size)
+dist.destroy_process_group()
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("LOADED", bad)
+"""
+
+
+def test_sharded_forward_loads_neither_jax_nor_the_jax_package():
+    """A gloo world of 2 ranks: a sharded forward (stablelm's flash route
+    on each rank's local heads); neither rank has JAX in ``sys.modules``
+    after it."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = [subprocess.Popen([sys.executable, "-c", SHARDED_PROBE, str(r),
+                               str(port)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert "LOADED []" in out, out
+
+
 def test_launch_loads_neither_jax_nor_the_jax_package():
     """A dry-run row, a placement, an elastic restore, a constraint and
     the serve CLI."""

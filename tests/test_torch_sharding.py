@@ -243,6 +243,14 @@ def test_constrain_resolves_as_the_reference(monkeypatch):
 
 
 def test_constrain_on_one_device_and_across_devices():
+    """No mesh: a no-op.  A virtual mesh naming the tensor's one device:
+    the tensor itself.  A virtual mesh naming more than one device still
+    raises (it has no ranks to run on).  A distributed mesh (a fake world
+    of 4 ranks, ``meta`` parts) redistributes to the resolved spec, the
+    gradients' tree to the parameters' specs."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import distributed_mesh, fake_world
     x = torch.arange(64.0).reshape(8, 8)
     grads = {"embed": torch.zeros((16, 8)), "layers.0.attn.q":
              torch.zeros((8, 8))}
@@ -258,12 +266,31 @@ def test_constrain_on_one_device_and_across_devices():
     assert S._context_mesh() is None
     devs = np.array([[CPU, torch.device("meta")]] * 2, dtype=object)
     with Mesh(devs, ("data", "model")):
-        with pytest.raises(NotImplementedError, match="torch.distributed"):
+        with pytest.raises(NotImplementedError, match="virtual mesh"):
             S.constrain(x, "dp", "model")
         with pytest.raises(NotImplementedError):
             S.constrain_like_params(grads, cfg)
     with pytest.raises(ValueError, match="config"):
         S.shard_params(grads, make_test_mesh(device="cpu"))
+    with fake_world(4):
+        mesh = distributed_mesh((2, 2), ("data", "model"))
+        assert mesh.distributed and mesh.device == torch.device("meta")
+        with mesh:
+            y = S.constrain(x.to("meta"), "dp", "model")
+            assert isinstance(y, DTensor)
+            assert tuple(y.placements) == (Shard(0), Shard(1))
+            assert tuple(y.to_local().shape) == (4, 4)
+            z = S.constrain(y, None, "dp")
+            assert tuple(z.placements) == (Shard(1), Replicate())
+            assert S.constrain(z, None, "dp") is z       # placed so already
+            out = S.constrain_like_params(
+                {k: v.to("meta") for k, v in grads.items()}, cfg)
+            for k, v in out.items():
+                want = S.placements(S.leaf_spec((k,), v.shape, mesh, cfg),
+                                    mesh)
+                assert list(v.placements) == want, k
+            with pytest.raises(ValueError, match="rank's device"):
+                S.constrain(x, "dp", None)          # not on the rank's device
 
 
 def test_meshes_keep_the_reference_shapes():
