@@ -84,7 +84,8 @@ any profiler in the process; the LM and training profiles run last):
      the 8 tag classes), under
      the resident route and then the per-dispatch one, each run held
      against the numpy engine (result and IOMeter) and the acero baseline
-     (result), timed (host ms, median of 3) beside acero; each route's
+     (result), timed (host ms, median of 3) beside acero (one run: three
+     before phase 21's families needed the room); each route's
      kernels must have launched; profiled (host cProfile, device busy by
      kernel, ``count_hop``'s device ms for BI-2); then, outside the counted
      run, row 7b: ``count_hop`` at BI-2's shape (the ``message-hasTag-tag``
@@ -148,7 +149,15 @@ any profiler in the process; the LM and training profiles run last):
      heads as strided views of [b, s, h, d] tensors, bf16 causal, against
      the plain version (0.1, and elementwise 2^-8 (|want| + max|v|)),
      timed beside it, the bound and ``scaled_dot_product_attention`` with
-     ``enable_gqa=True`` (row ``flash_attention@gqa``);
+     ``enable_gqa=True`` (row ``flash_attention@gqa``); then row 15o, the
+     sequence-parallel call: the same tensors' query rows 0..1024 and
+     1024..2048 (``q_start`` 0 and 1024, ranks 0 and 1 of ``model`` 2)
+     over the whole K/V, each against its plain version (the same bounds)
+     and bit for bit the whole call's rows, timed beside it, its bound
+     over the (row, key) pairs it computes and
+     ``scaled_dot_product_attention`` under ``causal_lower_right`` over
+     the keys cut to ``q_start + 1024`` (``flash_attention@q_start0``,
+     ``@q_start1024``);
  14. serve: smollm-360m at full width (phase 12's configuration, bf16,
      ``init(seed=0)``) in a ``ServeEngine`` of 8 slots of 1024 positions
      behind a ``GraphRetriever(engine="cuda", max_neighbors=2,
@@ -372,7 +381,11 @@ any profiler in the process; the LM and training profiles run last):
      ``coll_count``, collective bytes by op and ``t_collective`` beside
      the virtual row (each ``ok``, no collective; the train cells must
      issue collectives);
-     and the same cut as (b) (smollm-360m, 8 x 2048) on (b)'s mesh;
+     and the same cuts as (b) (smollm-360m, 8 x 2048, and, where the
+     mesh has more than one rank, each family's) on (b)'s mesh, on a
+     fake world whose meshes take the cards' device type (DTensor plans
+     as on the cards: NCCL's all-to-all, the host's cards), its steps
+     accumulating gradients in float32 as (b)'s do;
      (b) a world of ``torch.cuda.device_count()`` NCCL ranks spawned
      from the script (``--sharded-rank``), one a card: a (1, 1) mesh on
      one card, (data 2, model 2) on four.  Each rank: smollm-360m at full
@@ -382,23 +395,39 @@ any profiler in the process; the LM and training profiles run last):
      when phase 14 did not run), each data rank's shard through
      ``GraphCorpusPipeline(engine="cuda")`` (kernel 3), the global batch
      a DTensor of the data ranks' local ones; rank 0 then runs the
-     one-card steps on the same weights and gathered batches: losses
-     within 1e-2, and the sharded forward's top-1 equal to the one-card
+     first two one-card steps on the same weights and gathered batches
+     (all 3 before the families needed the room): losses within 1e-2,
+     and the sharded forward's top-1 equal to the one-card
      forward's on every decisive position (phase 12's rule); the first,
      cold, step traced for its NCCL collectives (count and bytes), the
      warm step the median of the other two; stablelm-1.6b at full width
      on the flash route, 4 x 2048, kernel 15 on each rank's local heads
      (``local_map``), top-1 equal to the same card's one-rank forward on
-     every decisive position; phase 20's bf16 checkpoint of
-     smollm-360m (written again under ``build/``) restored by
-     ``elastic_restore`` onto the mesh, each rank holding exactly its
-     ``indices()`` slices.  Printed per rank: step ms, peak memory, the
-     NCCL collectives a step beside the dry-run's for the same cut.  A
-     rank that fails (NCCL, the kernels' build, a check) or does not end
-     within 400 s fails the phase (a collective waits 120 s at most).
-     Each rank counts its own launches of
-     kernels 3 and 15 over its sharded steps and forward; the phase's
-     counts are their sums.
+     every decisive position; smollm-360m's flash forward, 4 x 2048 (15
+     heads: on ``model`` 2 the sequence-parallel route, each rank's query
+     rows through kernel 15 from its ``q_start``), top-1 equal to the
+     one-card forward on at least 0.99 of the decisive positions; phase
+     20's bf16 checkpoint of smollm-360m (written again under ``build/``)
+     restored by ``elastic_restore`` onto the mesh, each rank holding
+     exactly its ``indices()`` slices.  Then the other families at full
+     width, cut in depth (``SHARDED_FAMILIES``: deepseek-moe-16b's dense
+     layer and 2 MoE units, mamba2-2.7b's first 4 layers,
+     llama-3.2-vision-11b 1 unit of 5 layers with its cross layer and
+     1,600 vision tokens, whisper-small whole over 1,500 frames), bf16,
+     ``init(seed=0)``, gates at 0.5: one train step of 8 sequences (2048
+     tokens; whisper 448) in the config's microbatches, traced for NCCL,
+     its loss within 1e-2 of the same step on one card without a mesh
+     (rank 0, after the world's work); a ``no_grad`` forward of 2 of them
+     with top-1 equal to the one-card forward's on at least 0.99 of the
+     decisive positions, and for deepseek and llama-vision the same on
+     the flash route (kernel 15 on local heads) against the one-card
+     flash route.  Printed per rank: step ms, peak memory, the NCCL
+     collectives a step beside the dry-run's for the same cut ((a)
+     traces each family's cut too).  A rank that fails (NCCL, the
+     kernels' build, a check) or does not end within 600 s fails the
+     phase (a collective waits 120 s at most).  Each rank counts its own
+     launches of kernels 3 and 15 over its sharded steps and forwards;
+     the phase's counts are their sums.
 Every launch count is set to 0 just before each of phases 4, 5, 7, 8, 10,
 12, 15, 17, 18, 19 and 21 (in each of its ranks), phase 14's P1 drain and
 phase 16's pipelined drain, and read just after; a kernel's ``launches``
@@ -458,6 +487,10 @@ ENTRY_KERNELS = ("bitmap", "fused_decode_bitmap", "rle_to_bitmap",
 #: room was measured on a slow host (a query ~10-13 s, most of it acero's
 #: three runs)
 LDBC_SCALE = 40
+#: acero's timed runs a query: its time is the yardstick beside the
+#: card's, held equal each run (3 before phase 21's families needed the
+#: room, ~16 s of the phase)
+ACERO_REPS = 1
 LDBC_BI2_CLASSES, LDBC_IC8_PERSONS = ("TagClass3",), 0
 LDBC_IC8_LABELS = (None,)
 #: where the kernel phase runs and which engine the slice drives
@@ -530,10 +563,185 @@ SHARDED_MESHES = {1: ((1, 1), ("data", "model")),
 #: smollm-360m's train steps (8 x 2048 from phase 14's lake, the config's
 #: 4 microbatches) and stablelm-1.6b's flash forward
 SHARDED_STEPS, SHARDED_FLASH_ARCH = 3, "stablelm-1.6b"
+#: the one-card steps the sharded ones are held against: the first two
+#: (the second's loss reads the first's update; all 3 before the families
+#: needed the room)
+SHARDED_ONE_CARD_STEPS = 2
 SHARDED_FLASH_BATCH = 4
+#: the other families on the rank world, at full width and cut in depth
+#: (units of their repeating unit: deepseek-moe-16b its dense layer and 2
+#: MoE units, mamba2-2.7b 4 of its 64 layers, llama-3.2-vision-11b 1 unit
+#: of 5 layers with its cross layer, whisper-small whole), one train step
+#: of 8 sequences in the config's own microbatches (2048 tokens; whisper
+#: its 448 over 1,500 frames) and a forward of the first 2; the flash
+#: route too where the config's forward takes kernel 15
+SHARDED_FAMILIES = {"deepseek-moe-16b": 2, "mamba2-2.7b": 4,
+                    "llama-3.2-vision-11b": 1, "whisper-small": 12}
+SHARDED_FAMILY_FLASH = ("deepseek-moe-16b", "llama-3.2-vision-11b")
+SHARDED_FAMILY_BATCH, SHARDED_FAMILY_FORWARD = 8, 2
 #: every rank done within this many seconds, or the phase fails
-SHARDED_JOIN_S = 400
+SHARDED_JOIN_S = 600
 SHARDED_KERNELS = ("cond_bitmap", "flash_attention")
+
+
+def family_seq(cfg) -> int:
+    return WHISPER_TEXT if cfg.encoder_layers else TRAIN_SEQ
+
+
+def family_cut(arch):
+    """(the config cut to phase 21's depth, its text length)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).with_(n_units=SHARDED_FAMILIES[arch])
+    return cfg, family_seq(cfg)
+
+
+def family_inputs(torch, cfg, seq, dev):
+    """The global batch of a family's step (the same on every rank: numpy
+    tokens and labels, the context from a seeded generator on the card)
+    [SHARDED_FAMILY_BATCH, seq], with whisper's 1,500 frames or
+    llama-vision's 1,600 vision embeddings."""
+    import numpy as np
+    rng = np.random.default_rng(seq + cfg.d_model)
+    b = SHARDED_FAMILY_BATCH
+    out = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, seq))
+                               .astype(np.int32)).to(dev)
+           for k in ("tokens", "labels")}
+    gen = torch.Generator(device=dev).manual_seed(cfg.d_model)
+    n = WHISPER_FRAMES if cfg.encoder_layers else cfg.num_vision_tokens
+    if n:
+        out["frames" if cfg.encoder_layers else "vision"] = torch.randn(
+            (b, n, cfg.d_model), generator=gen, device=dev).bfloat16()
+    return out
+
+
+def forward_part(batch):
+    """The forward's inputs: the first SHARDED_FAMILY_FORWARD rows, no
+    labels."""
+    return {k: v[:SHARDED_FAMILY_FORWARD] for k, v in batch.items()
+            if k != "labels"}
+
+
+def sharded_families(torch, mesh, dev, rank, out):
+    """Phase 21 (b)'s other families on the mesh: each model placed by the
+    rules, one train step (the first traced for NCCL), a ``no_grad``
+    forward (its top-1 kept) and, for deepseek and llama-vision, the same
+    forward on the flash route (kernel 15 on local heads)."""
+    from repro_torch.launch.dryrun import TraceCounter
+    from repro_torch.launch.roofline import parse_collectives
+    from repro_torch.models import build_model
+    from repro_torch.models.model import shard_model
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.train_step import make_train_step, unit_layout
+    from repro_torch.distributed.sharding import place, shard_params
+    res = {}
+    for arch in SHARDED_FAMILIES:
+        t0 = time.perf_counter()
+        cfg, seq = family_cut(arch)
+        batch = family_inputs(torch, cfg, seq, dev)
+        model = shard_model(open_gates(build_model(cfg, dev).init(0)), mesh)
+        opt = adamw(TRAIN_PEAK)
+        step = make_train_step(model, opt, cfg.train_microbatches)
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        state = opt.init(params, unit_layout(model))
+        state = place(state, shard_params(state, mesh, cfg))
+        r = {}
+        with mesh:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with TraceCounter(meta_only=False) as tc:
+                params, state, met = step(params, state, batch)
+            torch.cuda.synchronize()
+            r["step_ms"] = (time.perf_counter() - t1) * 1e3
+            r["loss"] = float(met["loss"])
+            coll = parse_collectives(tc.records)
+            r["nccl_bytes"], r["nccl_count"] = coll.total_bytes, coll.count
+            r["nccl_by_op"] = coll.by_op
+            if cfg.moe:
+                r["bank_gathers"] = bank_gathers_over_model(
+                    tc.records, model, mesh)
+                require(not r["bank_gathers"],
+                        f"21. rank {rank}: {arch} all-gathered an expert "
+                        f"bank across model: {r['bank_gathers']}")
+            del params, state, step
+            fwd = forward_part(batch)
+            t1 = time.perf_counter()
+            r["top"] = model(fwd)[0].full_tensor().argmax(-1).cpu()
+            torch.cuda.synchronize()
+            r["forward_ms"] = (time.perf_counter() - t1) * 1e3
+            if arch in SHARDED_FAMILY_FLASH:
+                model.cfg = cfg.with_(use_flash=True)
+                t1 = time.perf_counter()
+                r["flash_top"] = model(fwd)[0].full_tensor().argmax(-1).cpu()
+                torch.cuda.synchronize()
+                r["flash_ms"] = (time.perf_counter() - t1) * 1e3
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        del model, batch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r["s"] = time.perf_counter() - t0
+        res[arch] = r
+    return res
+
+
+def bank_gathers_over_model(records, model, mesh):
+    """The all-gathers among a ``model`` group (ranks of one data
+    coordinate; ``model`` is the mesh's last axis) whose result is an
+    expert bank's local part gathered over ``model``, in bf16 or float32:
+    the expert dim must stay split."""
+    m = mesh.shape["model"]
+    n_dp = mesh.size // m
+    banks = {w.numel() // n_dp * k for blk in model.blocks()
+             if hasattr(blk, "moe")
+             for w in (blk.moe.w_gate, blk.moe.w_up, blk.moe.w_down)
+             for k in (2, 4)}
+    return [(op, n) for op, n, ranks in records
+            if op == "all-gather" and ranks and len(ranks) == m > 1
+            and len({r // m for r in ranks}) == 1 and n in banks]
+
+
+def one_card_families(torch, dev, sharded):
+    """Rank 0 after the world's work: each family's step and forwards on
+    one card without a mesh, the same weights and batches; the sharded
+    loss within 1e-2, the sharded forwards' top-1 equal to the one-card
+    forward's on at least 0.99 of its decisive positions (phase 12's
+    rule; the flash route against the one-card flash route)."""
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.train_step import make_train_step, unit_layout
+    for arch, r in sharded.items():
+        t0 = time.perf_counter()
+        cfg, seq = family_cut(arch)
+        batch = family_inputs(torch, cfg, seq, dev)
+        model = open_gates(build_model(cfg, dev).init(0))
+        opt = adamw(TRAIN_PEAK)
+        step = make_train_step(model, opt, cfg.train_microbatches)
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        _, _, met = step(params, opt.init(params, unit_layout(model)), batch)
+        r["one_card_loss"] = float(met["loss"])
+        del params, step
+        require(abs(r["loss"] - r["one_card_loss"]) <= 1e-2,
+                f"21. {arch}: the sharded step's loss {r['loss']} is not "
+                f"within 1e-2 of the one-card step's {r['one_card_loss']}")
+        fwd = forward_part(batch)
+        for route, key in ((False, "top"), (True, "flash_top")):
+            if key not in r:
+                continue
+            model.cfg = cfg.with_(use_flash=route)
+            ref = model(fwd)[0].float()
+            mask, _ = decisive(torch, ref)
+            share = agreement(torch, r[key].to(dev), ref.argmax(-1), mask)
+            r[f"{key}_share"] = share
+            r[f"{key}_decisive"] = int(mask.sum())
+            require(share[1] >= 0.99,
+                    f"21. {arch}: the sharded {'flash ' if route else ''}"
+                    f"forward's top-1 agrees with one card's on "
+                    f"{share[1]:.4f} < 0.99 of the decisive positions")
+            del ref
+        del model, batch
+        torch.cuda.empty_cache()
+        r["one_card_s"] = time.perf_counter() - t0
+        r.pop("top")
+        r.pop("flash_top", None)
 
 
 def sharded_dir(name: str = "") -> Path:
@@ -546,11 +754,13 @@ def sharded_dir(name: str = "") -> Path:
 
 
 def trace_cell_main(argv) -> int:
-    """``--trace-cell ARCH SHAPE MULTI OUT VIRTUAL [BATCH SEQ MESH]``: one
-    dry-run cell of the test meshes in its own process (phase 21 (a) runs
-    them side by side): the fake world's row, and with VIRTUAL ``1`` the
-    virtual mesh's too, as JSON to OUT.  With BATCH, SEQ and MESH
-    (``1x1`` or ``2x2``) a train cell of that cut on that mesh."""
+    """``--trace-cell ARCH SHAPE MULTI OUT VIRTUAL [BATCH SEQ MESH
+    [UNITS]]``: one dry-run cell of the test meshes in its own process
+    (phase 21 (a) runs them side by side): the fake world's row, and with
+    VIRTUAL ``1`` the virtual mesh's too, as JSON to OUT.  With BATCH, SEQ
+    and MESH (``1x1`` or ``2x2``) a train cell of that cut on that mesh;
+    with UNITS too, of ``family_cut``'s depth and context (whisper's 1,500
+    frames beside its text)."""
     import repro_torch.launch.dryrun as DR
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import (distributed_mesh, fake_world,
@@ -568,11 +778,33 @@ def trace_cell_main(argv) -> int:
         b, s, mesh_id = int(argv[5]), int(argv[6]), argv[7]
         dims = tuple(int(x) for x in mesh_id.split("x"))
         cfg, cut = get_config(arch), ShapeDef(shape, "train", s, b)
+        # (b)'s steps accumulate their gradients in float32 (the train
+        # step's default; the dry-run's cells in the parameters' type), so
+        # their gradient reductions move float32
+        step = DR.make_train_step
+        DR.make_train_step = lambda model, opt, n_micro=1, **_: step(
+            model, opt, n_micro)
+        if len(argv) > 8:
+            cfg = family_cut(arch)[0]
+            if cfg.encoder_layers:        # (b)'s frames, not SEQ of them
+                import repro_torch.launch.shapes as SH
+                specs = SH.batch_specs
+
+                def with_frames(cfg, shape, with_labels):
+                    out = specs(cfg, shape, with_labels)
+                    if "frames" in out:
+                        out["frames"] = SH._sds(
+                            (shape.batch, WHISPER_FRAMES, cfg.d_model),
+                            out["frames"].dtype)
+                    return out
+                DR.batch_specs = with_frames
         axes = ("data", "model")
         if virtual:
             rows["virtual"] = DR.roofline_row(arch, cfg, cut, virtual_mesh(
                 dims, axes, "cpu"), mesh_id)
-        with fake_world(dims[0] * dims[1]):
+        # (b)'s cut, planned as the cards of this host plan it
+        kind = "cuda" if torch.cuda.is_available() else "cpu"
+        with fake_world(dims[0] * dims[1], kind):
             rows["fake"] = DR.roofline_row(arch, cfg, cut, distributed_mesh(
                 dims, axes), mesh_id)
     else:
@@ -704,6 +936,15 @@ def sharded_rank_main(argv) -> int:
         slog = smodel({"tokens": toks})[0].full_tensor()
         torch.cuda.synchronize()
         out["flash_ms"] = (time.perf_counter() - t1) * 1e3
+        # smollm-360m's flash forward: its 15 heads on model 2 take the
+        # sequence-parallel route, each rank's query rows from q_start
+        model.cfg = cfg.with_(use_flash=True)
+        t1 = time.perf_counter()
+        seq_top = model({"tokens": batches[0]["tokens"][:SHARDED_FLASH_BATCH]}
+                        )[0].full_tensor().argmax(-1)
+        torch.cuda.synchronize()
+        out["seq_flash_ms"] = (time.perf_counter() - t1) * 1e3
+        model.cfg = cfg
     out["launches"] = {n: w.launches for n, w in wrappers.items()}
 
     # (checks, uncounted) the one-card forward of the same weights
@@ -745,6 +986,15 @@ def sharded_rank_main(argv) -> int:
                                 for leaf in placed.values())
     del placed
 
+    # the MoE, SSM, VLM and encoder-decoder families on the mesh, smollm's
+    # trained state freed first (its checks read the initial weights)
+    del params, state, model
+    torch.cuda.empty_cache()
+    before = {n: w.launches for n, w in wrappers.items()}
+    out["families"] = sharded_families(torch, mesh, dev, rank, out)
+    for n, w in wrappers.items():    # the checks between are not counted
+        out["launches"][n] += w.launches - before[n]
+
     # the one-card steps on the same weights and batches (rank 0)
     t0 = time.perf_counter()
     if rank == 0:
@@ -756,24 +1006,38 @@ def sharded_rank_main(argv) -> int:
         s1 = opt.init(p1, unit_layout(ref_model))
         ref_losses = []
         first = ref_model({"tokens": batches[0]["tokens"]})[0].float()
-        for b in batches:
+        for b in batches[:SHARDED_ONE_CARD_STEPS]:
             p1, s1, met = ref_step(p1, s1, b)
             ref_losses.append(float(met["loss"]))
         mask, _ = decisive(torch, first)
         same = got.argmax(-1) == first.argmax(-1)
+        seq_mask = mask[:SHARDED_FLASH_BATCH]
         out["one_card"] = {"losses": ref_losses,
                            "n_decisive": int(mask.sum()),
                            "all_decisive": bool(same[mask].all()),
-                           "err": (got.float() - first).abs().max().item()}
+                           "err": (got.float() - first).abs().max().item(),
+                           "seq_flash": agreement(
+                               torch, seq_top,
+                               first[:SHARDED_FLASH_BATCH].argmax(-1),
+                               seq_mask)}
         require(all(abs(a - b) <= 1e-2 for a, b in zip(losses, ref_losses)),
                 f"21. the sharded losses {losses} are not within 1e-2 of "
                 f"the one-card steps' {ref_losses}")
         require(out["one_card"]["all_decisive"],
                 f"21. the sharded forward picks another top-1 than the "
                 f"one-card forward on a decisive position: {out['one_card']}")
+        require(out["one_card"]["seq_flash"][1] >= 0.99,
+                f"21. smollm's sharded flash forward agrees with the "
+                f"one-card forward on {out['one_card']['seq_flash']} of the "
+                f"decisive positions")
         del ref_model, p1, s1, first
-    del params, state, batches, got
+    del batches, got
     torch.cuda.empty_cache()
+    if rank == 0:
+        one_card_families(torch, dev, out["families"])
+    for r in out["families"].values():         # tensors: not for the log
+        r.pop("top", None)
+        r.pop("flash_top", None)
     out["one_card_s"] = time.perf_counter() - t0
     (d / f"rank{rank}.json").write_text(json.dumps(out))
     dist.barrier()
@@ -788,7 +1052,15 @@ def sharded_traces(d, shape, env):
     traces = []
     cut = (LM_ARCH, f"train_{TRAIN_SEQ}", False, "0",
            str(TRAIN_BATCH), str(TRAIN_SEQ), "x".join(map(str, shape)))
-    cells = [(a, sh, m, "1") for a, sh, m in LAUNCH_CELLS] + [cut]
+    mesh_id = "x".join(map(str, shape))
+    # the families' cuts where their steps issue collectives (a mesh of
+    # one rank issues none, as smollm's cut shows)
+    families = [(arch, f"train_{family_cut(arch)[1]}", False, "0",
+                 str(SHARDED_FAMILY_BATCH), str(family_cut(arch)[1]),
+                 mesh_id, str(units))
+                for arch, units in SHARDED_FAMILIES.items()
+                if math.prod(shape) > 1]
+    cells = [(a, sh, m, "1") for a, sh, m in LAUNCH_CELLS] + [cut] + families
     for i, (arch, sh, multi, *extra) in enumerate(cells):
         f = d / f"cell{i}.json"
         traces.append((arch, sh, multi, f, subprocess.Popen(
@@ -906,11 +1178,14 @@ def sharded_phase(torch, card, lake=None):
             f"{r['peak_bytes'] / 2**30:.2f} GiB; NCCL collectives a step "
             f"(traced) {r['nccl_count']} moving {r['nccl_bytes']:,} B "
             f"{r['nccl_by_op']}; {SHARDED_FLASH_ARCH} flash forward "
-            f"{SHARDED_FLASH_BATCH} x {TRAIN_SEQ} {r['flash_ms']:.1f} ms, "
-            f"kernel 15 {r['launches']['flash_attention']} launches on the "
-            f"local heads, top-1 equal on all {fl['n_decisive']:,} decisive "
-            f"positions of the one-card forward (max |d| {fl['err']:.4f} of "
-            f"{fl['max']:.2f}); elastic_restore of phase 20's bf16 "
+            f"{SHARDED_FLASH_BATCH} x {TRAIN_SEQ} {r['flash_ms']:.1f} ms "
+            f"on the local heads, top-1 equal on all {fl['n_decisive']:,} "
+            f"decisive positions of the one-card forward (max |d| "
+            f"{fl['err']:.4f} of {fl['max']:.2f}); {LM_ARCH} flash forward "
+            f"{SHARDED_FLASH_BATCH} x {TRAIN_SEQ} {r['seq_flash_ms']:.1f} ms "
+            f"({LM_HEADS} heads: sequence-parallel where model > 1); kernel "
+            f"15 {r['launches']['flash_attention']} launches in all; "
+            f"elastic_restore of phase 20's bf16 "
             f"checkpoint: {r['restored_leaves']} leaves, "
             f"{r['restored_bytes'] / 2**20:.1f} MiB of this rank's slices "
             f"in {r['restore_ms']:.1f} ms; seconds: set-up "
@@ -918,6 +1193,38 @@ def sharded_phase(torch, card, lake=None):
             f"{r['steps_s']:.1f}, flash forward and its check "
             f"{r['flash_s']:.1f}, one-card steps "
             f"{r['one_card_s']:.1f}; on {card}")
+    sq = one["seq_flash"]
+    log(f"21. (b) {LM_ARCH}'s flash forward on the mesh: top-1 equal to the "
+        f"one-card forward on {sq[1]:.4f} of the decisive positions "
+        f"({sq[0]:.4f} of all)")
+    for arch, f0 in res[0]["families"].items():
+        cfg, seq = family_cut(arch)
+        log(f"21. (b) {arch} ({cfg.num_layers} + {cfg.encoder_layers} "
+            f"encoder layers at full width) on {describe_mesh(shape, axes)}:"
+            f" one train step of {SHARDED_FAMILY_BATCH} x {seq} in "
+            f"{cfg.train_microbatches} microbatches, loss {f0['loss']:.4f} "
+            f"beside one card's {f0['one_card_loss']:.4f} (within 1e-2); "
+            f"forward of {SHARDED_FAMILY_FORWARD} x {seq}: top-1 equal to one "
+            f"card's on {f0['top_share'][1]:.4f} of {f0['top_decisive']:,} "
+            f"decisive positions"
+            + (f", flash route (kernel 15) {f0['flash_top_share'][1]:.4f} of "
+               f"{f0['flash_top_decisive']:,}" if "flash_top_share" in f0
+               else "")
+            + "; per rank: step ms " + " ".join(
+                f"{r['families'][arch]['step_ms']:.1f}" for r in res)
+            + ", forward ms " + " ".join(
+                f"{r['families'][arch]['forward_ms']:.1f}" for r in res)
+            + ", NCCL a step " + " ".join(
+                f"{r['families'][arch]['nccl_count']}/"
+                f"{r['families'][arch]['nccl_bytes']:,} B" for r in res)
+            + f" {f0['nccl_by_op']}"
+            + (f", expert banks all-gathered across model: "
+               f"{len(f0['bank_gathers'])}" if "bank_gathers" in f0 else "")
+            + ", peak "
+            + " ".join(f"{r['families'][arch]['peak_bytes'] / 2**30:.2f}"
+                       for r in res)
+            + f" GiB; {f0['s']:.1f} s on the mesh, {f0['one_card_s']:.1f} s "
+            f"one card")
     # (a) the fake world's rows beside the virtual ones; every cell is
     # reported before a failed one fails the phase
     failed = []
@@ -956,12 +1263,17 @@ def sharded_phase(torch, card, lake=None):
                f"t_collective {side['t_collective_s'] * 1e3:.3f} ms"
                if side else "")
             + f" (traced in {rows['seconds']:.1f} s)")
-        if sh == cut_shape:
-            log(f"21. (a) the same cut as (b): the dry-run's collectives a "
-                f"step {fake['coll_count']} moving "
-                f"{fake['coll_ici_bytes'] + fake['coll_dcn_bytes']:,} B "
-                f"beside NCCL's traced {res[0]['nccl_count']} moving "
-                f"{res[0]['nccl_bytes']:,} B on rank 0")
+        # (b)'s own cuts: smollm's and each family's (no virtual row)
+        nccl = None if "virtual" in rows else res[0] \
+            if (arch, sh) == (LM_ARCH, cut_shape) \
+            else res[0]["families"].get(arch)
+        if nccl is not None:
+            dry = fake['coll_ici_bytes'] + fake['coll_dcn_bytes']
+            log(f"21. (a) the same cut as (b), {arch}: the dry-run's "
+                f"collectives a step {fake['coll_count']} moving {dry:,} B "
+                f"beside NCCL's traced {nccl['nccl_count']} moving "
+                f"{nccl['nccl_bytes']:,} B on rank 0"
+                + (f" ({nccl['nccl_bytes'] / dry:.4f}x)" if dry else ""))
     require(not failed, "21. (a) " + " | ".join(failed))
     import shutil
     shutil.rmtree(d, ignore_errors=True)
@@ -1802,7 +2114,7 @@ def ldbc_phase(torch, card, wrappers):
     ``ldbc_like(scale=LDBC_SCALE)``, each under the resident route and then
     the per-dispatch route on the card, held against the numpy engine
     (result and IOMeter) and the acero baseline (result); graphar on the
-    card and acero timed (host ms, median of 3)."""
+    card timed (host ms, median of 3) beside acero (one run)."""
     import numpy as np
     import repro_torch.core as TC
     from repro_torch.core import query as Q
@@ -1884,7 +2196,7 @@ def ldbc_phase(torch, card, wrappers):
         m_n = TC.IOMeter()
         want = graphar(q, "numpy", m_n)
         refs, times = [], []
-        for _ in range(REPS):       # timed runs; each result checked
+        for _ in range(ACERO_REPS):     # timed runs; each result checked
             times.append(host_timed(torch, lambda: refs.append(acero(q)))[1])
         require(all(same(q[0], want, ref) for ref in refs),
                 f"{q}: the numpy engine differs from acero")
@@ -3294,7 +3606,75 @@ def flash_kernel_phase(torch):
         f"scaled_dot_product_attention {row['library_ms']:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     return [row, flash_mha_call(torch, gen, "flash_attention@gqa", LM_HEADS,
-                                5, 64)]
+                                5, 64)] + flash_offset_rows(torch, gen)
+
+
+def flash_offset_rows(torch, gen):
+    """Row 15o: kernel 15 as the two ranks of a sequence-parallel
+    ``model`` 2 call it at smollm-360m's forward shape: 1024 query rows of
+    [4, 15, 2048, 64] starting at ``q_start`` 0 (rank 0) and 1024 (rank
+    1) over the whole [4, 5, 2048, 64] K/V, strided views, bf16 causal.
+    Each held against its plain version (0.1, and elementwise 2^-8 (|want|
+    + max|v|)) and bit for bit against those rows of the whole sequence's
+    call (``q_start`` a multiple of both kernels' query blocks: the same
+    tiles in the same order); timed beside its plain version, its bound
+    (4 b h d over the (row, key) pairs it computes, at 989 TFLOP/s) and
+    ``scaled_dot_product_attention`` under ``causal_lower_right`` over
+    the keys cut to ``q_start + s_q``."""
+    from torch.nn.attention.bias import causal_lower_right
+    from repro_torch.kernels.flash_attention import ops as FO
+    dev = torch.device(DEVICE)
+    h, h_kv, d, s_q = LM_HEADS, 5, 64, LM_SEQ // 2
+    q, k, v = (torch.randn((LM_BATCH, LM_SEQ, n, d), generator=gen,
+                           device=dev).bfloat16().transpose(1, 2)
+               for n in (h, h_kv, h_kv))
+    whole = FO.mha(q, k, v, True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for q_start in (0, s_q):
+        qr = q[:, :, q_start:q_start + s_q]
+        got = FO.mha(qr, k, v, True, q_start=q_start)
+        want = FO.mha(qr, k, v, True, use_kernel=False, q_start=q_start)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        within = bool((diff <= 2.0 ** -8 * (want.float().abs()
+                                            + v.float().abs().max())).all())
+        name = f"flash_attention@q_start{q_start}"
+        require(err <= 0.1 and within,
+                f"{name}: max|d| {err}, elementwise bound {within}")
+        require(torch.equal(got, whole[:, :, q_start:q_start + s_q]),
+                f"{name} is not bit for bit the whole call's rows")
+        kc, vc = (x[:, :, :q_start + s_q] for x in (k, v))
+        mask = causal_lower_right(s_q, q_start + s_q)
+        how, lib_fn = "enable_gqa=True", lambda: sdpa(
+            qr, kc, vc, attn_mask=mask, enable_gqa=True)
+        try:                    # the yardstick only
+            lib_fn()
+        except (TypeError, RuntimeError):
+            how = "KV heads repeated"
+            kr, vr = (x.repeat_interleave(h // h_kv, 1) for x in (kc, vc))
+            lib_fn = lambda: sdpa(qr, kr, vr, attn_mask=mask)
+        pairs = s_q * q_start + s_q * (s_q + 1) // 2
+        row = kernel_row(
+            name, FLASH_SOURCE, FLASH_REPLACES, err,
+            cuda_ms(torch, lambda: FO.mha(qr, k, v, True, q_start=q_start),
+                    10),
+            cuda_ms(torch, lambda: FO.mha(qr, k, v, True, use_kernel=False,
+                                          q_start=q_start), 3),
+            2 * (2 * qr.numel() + kc.numel() + vc.numel()),
+            4 * LM_BATCH * h * d * pairs, BF16_FLOPS_PER_S)
+        row["library_ms"] = cuda_ms(torch, lib_fn, 10)
+        log(f"{name}: mha of rows {q_start}..{q_start + s_q} of [{LM_BATCH}, "
+            f"{h}, {LM_SEQ}, {d}] over {h_kv} KV heads, bf16 causal: max|d| "
+            f"{err:.3e} (elementwise bound held), bit for bit the whole "
+            f"call's rows; kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, scaled_dot_product_attention "
+            f"(causal_lower_right, {how}) {row['library_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms over {pairs:,} (row, key) "
+            f"pairs a head")
+        rows.append(row)
+    return rows
 
 
 def flash_mha_call(torch, gen, name, h, h_kv, d):

@@ -555,6 +555,16 @@ def place(tree, shardings):
     return tree_map_with_path(one, tree)
 
 
+def placed_like(x, old):
+    """``x`` redistributed to ``old``'s placements where both are
+    DTensors (a new optimizer moment keeps its state's placement, a cache
+    entry the cache's); anything else as it is."""
+    if hasattr(old, "device_mesh") and hasattr(x, "device_mesh") and \
+            tuple(x.placements) != tuple(old.placements):
+        return x.redistribute(old.device_mesh, old.placements)
+    return x
+
+
 def rank_slices(sharding: NamedSharding, shape) -> Tuple[slice, ...]:
     """The slices of a global array of ``shape`` that this rank holds on
     ``sharding``'s distributed mesh: ``indices()`` at its coordinate."""

@@ -63,7 +63,7 @@ SIGNATURES = {
                                _P, _I, _P),
     "rt_rle_to_bitmap": (_P, _I, _P, _P, _I, _P),
     "rt_bitmap_select": (_P, _P, _I, _I, _P, _P, _P),
-    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            *(_L,) * 12, _I, _I, _P),
 }
 

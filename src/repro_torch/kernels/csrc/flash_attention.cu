@@ -1,16 +1,20 @@
-// flash_attention: blockwise online-softmax attention over q [b, h, seq, d]
-// and k/v [b, h_kv, seq, d] (the same seq for queries and keys), bfloat16
-// or float32, every tensor read and the output written through its own
-// batch, head and sequence strides.  Query head i reads KV head
-// i / (h / h_kv) by index (GQA), so no repeated copy of K and V exists.
+// flash_attention: blockwise online-softmax attention over q [b, h, seq_q,
+// d] and k/v [b, h_kv, seq_k, d], bfloat16 or float32, every tensor read
+// and the output written through its own batch, head and sequence strides.
+// Query head i reads KV head i / (h / h_kv) by index (GQA), so no repeated
+// copy of K and V exists.  Query row `row` is global row q_start + row of
+// a sequence whose keys are k/v (q_start + seq_q <= seq_k): under `causal`
+// it sees key `col` iff col <= q_start + row.  q_start = 0 with seq_q =
+// seq_k is the whole causal attention; a rank of a sequence-parallel mesh
+// passes its stretch of the queries against the whole keys.
 //
 // Replaces the TPU kernel flash_attention
 // (src/repro/kernels/flash_attention/kernel.py:75, pallas_call at :89, body
 // _flash_kernel at :26).  It computes what that kernel computes, not its
 // grid: scores q.k * (1/sqrt(d)), under `causal` the mask row >= col as
-// -1e30, a running max m, denominator l and accumulator in float32, and the
-// finish acc / max(l, 1e-30) rounded to the input type (round to nearest
-// even for bfloat16).
+// -1e30 (row counted from q_start), a running max m, denominator l and
+// accumulator in float32, and the finish acc / max(l, 1e-30) rounded to the
+// input type (round to nearest even for bfloat16).
 //
 // Bound on the H100: causal attention at [60, 2048, 64] does 4*bh*s^2*d/2 =
 // 32.2 GFLOP over 63 MB of q/k/v/o, so the tensor-core rate (989 TFLOP/s
@@ -50,7 +54,10 @@
 // sums the same rounded p, so the output is a convex combination of V's
 // rows.  Under `causal` a warpgroup stops at its last row's tile (tiles
 // wholly above the diagonal are never loaded) and masks only tiles that
-// cross the diagonal; keys past seq weigh exactly 0.
+// cross the diagonal; keys past seq_k weigh exactly 0.  Both early exits
+// and the diagonal count global rows (q_start + row), so a q_start that is
+// a multiple of the query block runs the full call's tiles in the full
+// call's order and gives its rows bit for bit.
 //
 // float32 (flash_fma_kernel): every product on the float32 FMA units, so
 // float32 inputs are computed in float32 as the reference does (no TF32).
@@ -63,7 +70,8 @@
 // reduce over the 8 lanes of its group with shuffles, and the PV product
 // reads each probability from its owner by shuffle.
 //
-// Both kernels start with the heaviest causal query tiles of every head.
+// Both kernels start with the heaviest causal query tiles of every head
+// (the last by global row).
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from
                    // cudaGetDriverEntryPoint, so nothing links libcuda
 #include <cuda_bf16.h>
@@ -115,7 +123,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  Strides qs_, Strides ks_, Strides vs_, Strides os_, int h,
-                 int group, int seq, int n_qtiles, int causal, float scale) {
+                 int group, int seq_q, int seq_k, int q_start, int n_qtiles,
+                 int causal, float scale) {
   using C = Tile<D>;
   constexpr int RT = C::RT, KT = C::KT, DT = C::DT, LD = C::LD;
   extern __shared__ float smem[];
@@ -138,7 +147,7 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int src_base = lane & ~7;
   const int row0 = (threadIdx.x >> 5) * 4 * RT + (lane >> 3) * RT;
 
-  stage<D>(qs, qh, qs_.s, q0, C::BQ, seq);
+  stage<D>(qs, qh, qs_.s, q0, C::BQ, seq_q);
 
   float m[RT], l[RT], acc[RT][DT];
 #pragma unroll
@@ -150,13 +159,13 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // under `causal` no row of this tile sees a key past its last row
-  const int k_end = causal ? min(seq, q0 + C::BQ) : seq;
+  const int k_end = causal ? min(seq_k, q_start + q0 + C::BQ) : seq_k;
   const int n_kt = (k_end + C::BK - 1) / C::BK;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * C::BK;
     __syncthreads();                // the previous tile is consumed
-    stage<D>(ks, kh, ks_.s, k0, C::BK, seq);
-    stage<D>(vs, vh, vs_.s, k0, C::BK, seq);
+    stage<D>(ks, kh, ks_.s, k0, C::BK, seq_k);
+    stage<D>(vs, vh, vs_.s, k0, C::BK, seq_k);
     __syncthreads();
 
     float s[RT][KT];
@@ -179,14 +188,14 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
     for (int r = 0; r < RT; ++r) {
-      const int row = q0 + row0 + r;
+      const int row = q_start + q0 + row0 + r;   // global
       float mx = kMasked;
 #pragma unroll
       for (int j = 0; j < KT; ++j) {
         const int col = k0 + c + 8 * j;
         float x = s[r][j] * scale;
         if (causal && row < col) x = kMasked;
-        if (col >= seq) x = -INFINITY;     // a padding key weighs 0
+        if (col >= seq_k) x = -INFINITY;   // a padding key weighs 0
         s[r][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -229,7 +238,7 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
     const int row = q0 + row0 + r;
-    if (row >= seq) continue;
+    if (row >= seq_q) continue;
     const float den = fmaxf(l[r], 1e-30f);
     float* out = o + batch * os_.b + head * os_.h + row * os_.s;
 #pragma unroll
@@ -239,19 +248,20 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch_fma(const void* q, const void* k, const void* v, void* o,
-               const Strides* st, int b, int h, int group, int seq,
-               int causal, cudaStream_t stream) {
+               const Strides* st, int b, int h, int group, int seq_q,
+               int seq_k, int q_start, int causal, cudaStream_t stream) {
   using C = Tile<D>;
   auto kern = flash_fma_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_qtiles = (seq + C::BQ - 1) / C::BQ;
+  const int n_qtiles = (seq_q + C::BQ - 1) / C::BQ;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
   kern<<<n_qtiles * b * h, kThreads, C::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1],
-      st[2], st[3], h, group, seq, n_qtiles, causal, scale);
+      st[2], st[3], h, group, seq_q, seq_k, q_start, n_qtiles, causal,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -378,8 +388,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
                    __nv_bfloat16* __restrict__ o, Strides os_, int h,
-                   int group, int seq, int n_qblocks, int causal,
-                   float scale_log2) {
+                   int group, int seq_q, int seq_k, int q_start,
+                   int n_qblocks, int causal, float scale_log2) {
   using C = Cfg<D>;
   constexpr int BK = C::BK, SW = C::SW, CH = C::CH, NCH = C::NCH;
   extern __shared__ uint8_t smem_raw[];
@@ -400,7 +410,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int q0 = qb * C::BQ;
   // under `causal` no row of the block sees a key past its last row
   const int n_kt =
-      ((causal ? min(seq, q0 + C::BQ) : seq) + BK - 1) / BK;
+      ((causal ? min(seq_k, q_start + q0 + C::BQ) : seq_k) + BK - 1) / BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -446,13 +456,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                  q0 + 64 * w, head, batch, q_bar);
   }
 
-  // warpgroup wg: rows wq0 + r and wq0 + r + 8 of the thread
+  // warpgroup wg: rows wq0 + r and wq0 + r + 8 of the thread (local;
+  // gq0 is wq0's global row)
   const int wg = warp / 4;
   const int wq0 = q0 + 64 * wg;
+  const int gq0 = q_start + wq0;
   const int r = (warp % 4) * 16 + lane / 4;
   const int cq = (lane % 4) * 2;
   const int my_kt =
-      causal ? min(n_kt, (min(seq, wq0 + 64) - 1) / BK + 1) : n_kt;
+      causal ? min(n_kt, (q_start + min(seq_q, wq0 + 64) - 1) / BK + 1)
+             : n_kt;
   const uint32_t my_q = q_s + wg * C::Q_BYTES;
 
   float acc[D / 2];
@@ -491,16 +504,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // mask only a tile that crosses the diagonal or the end of the
     // sequence; the row max of the raw scores, then the running max in
     // the log2 domain (scale_log2 = log2(e) / sqrt(d) > 0)
-    const bool edge = (causal && k0 + BK - 1 > wq0) || k0 + BK > seq;
+    const bool edge = (causal && k0 + BK - 1 > gq0) || k0 + BK > seq_k;
     if (edge) {
 #pragma unroll
       for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int row = wq0 + r + 8 * (e >> 1);
+          const int row = gq0 + r + 8 * (e >> 1);
           const int col = k0 + 8 * n + cq + (e & 1);
           if (causal && row < col) sc[4 * n + e] = kMasked;
-          if (col >= seq) sc[4 * n + e] = -INFINITY;  // weighs exactly 0
+          if (col >= seq_k) sc[4 * n + e] = -INFINITY;  // weighs exactly 0
         }
     }
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -575,7 +588,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = wq0 + r + 8 * i;
-    if (row >= seq) continue;
+    if (row >= seq_q) continue;
     __nv_bfloat16* out = o + batch * os_.b + head * os_.h + row * os_.s;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
@@ -636,64 +649,70 @@ bool encode(CUtensorMap* map, const void* ptr, int b, int heads, int seq,
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 const Strides* st, int b, int h, int h_kv, int seq,
-                 int causal, cudaStream_t stream) {
+                 const Strides* st, int b, int h, int h_kv, int seq_q,
+                 int seq_k, int q_start, int causal, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap qmap, kmap, vmap;
-  if (!encode(&qmap, q, b, h, seq, D, st[0], C::CH, 64, C::SW) ||
-      !encode(&kmap, k, b, h_kv, seq, D, st[1], C::CH, C::BK, C::SW) ||
-      !encode(&vmap, v, b, h_kv, seq, D, st[2], C::CH, C::BK, C::SW))
+  if (!encode(&qmap, q, b, h, seq_q, D, st[0], C::CH, 64, C::SW) ||
+      !encode(&kmap, k, b, h_kv, seq_k, D, st[1], C::CH, C::BK, C::SW) ||
+      !encode(&vmap, v, b, h_kv, seq_k, D, st[2], C::CH, C::BK, C::SW))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kern = flash_wgmma_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_qblocks = (seq + C::BQ - 1) / C::BQ;
+  const int n_qblocks = (seq_q + C::BQ - 1) / C::BQ;
   const float scale_log2 =
       static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D)));
   kern<<<n_qblocks * b * h, C::THREADS, C::SMEM, stream>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), st[3], h, h / h_kv,
-      seq, n_qblocks, causal, scale_log2);
+      seq_q, seq_k, q_start, n_qblocks, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int dispatch_dtype(const void* q, const void* k, const void* v, void* o,
-                   const Strides* st, int b, int h, int h_kv, int seq,
-                   int dtype, int causal, cudaStream_t stream) {
+                   const Strides* st, int b, int h, int h_kv, int seq_q,
+                   int seq_k, int q_start, int dtype, int causal,
+                   cudaStream_t stream) {
   if (dtype == 0)
-    return launch_fma<D>(q, k, v, o, st, b, h, h / h_kv, seq, causal, stream);
+    return launch_fma<D>(q, k, v, o, st, b, h, h / h_kv, seq_q, seq_k,
+                         q_start, causal, stream);
   if (dtype == 1)
-    return launch_wgmma<D>(q, k, v, o, st, b, h, h_kv, seq, causal, stream);
+    return launch_wgmma<D>(q, k, v, o, st, b, h, h_kv, seq_q, seq_k, q_start,
+                           causal, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q, o: [b, h, seq, d]; k, v: [b, h_kv, seq, d], h_kv dividing h; each
+// q, o: [b, h, seq_q, d]; k, v: [b, h_kv, seq_k, d], h_kv dividing h; each
 // with its batch, head and sequence strides in elements (the last stride
-// is 1).  dtype: 0 float32, 1 bfloat16.  The wrapper checks shapes,
+// is 1); query row `row` is global row q_start + row, q_start + seq_q <=
+// seq_k.  dtype: 0 float32, 1 bfloat16.  The wrapper checks shapes,
 // strides (multiples of 8 elements) and 16-byte alignment.
 extern "C" int rt_flash_attention(
     const void* q, const void* k, const void* v, void* o, int b, int h,
-    int h_kv, int seq, int d, int64_t q_sb, int64_t q_sh, int64_t q_ss,
-    int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
-    int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss, int dtype,
-    int causal, void* stream) {
-  if (b <= 0 || h <= 0 || seq <= 0) return 0;
-  if (h_kv <= 0 || h % h_kv) return static_cast<int>(cudaErrorInvalidValue);
+    int h_kv, int seq_q, int seq_k, int q_start, int d, int64_t q_sb,
+    int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
+    int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh,
+    int64_t o_ss, int dtype, int causal, void* stream) {
+  if (b <= 0 || h <= 0 || seq_q <= 0) return 0;
+  if (h_kv <= 0 || h % h_kv || q_start < 0 || q_start + seq_q > seq_k)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Strides st[4] = {{q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss},
                          {v_sb, v_sh, v_ss}, {o_sb, o_sh, o_ss}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RT_FLASH_D(DIM)                                                     \
+  case DIM:                                                                 \
+    return dispatch_dtype<DIM>(q, k, v, o, st, b, h, h_kv, seq_q, seq_k,    \
+                               q_start, dtype, causal, s);
   switch (d) {
-    case 32: return dispatch_dtype<32>(q, k, v, o, st, b, h, h_kv, seq, dtype,
-                                       causal, s);
-    case 64: return dispatch_dtype<64>(q, k, v, o, st, b, h, h_kv, seq, dtype,
-                                       causal, s);
-    case 128: return dispatch_dtype<128>(q, k, v, o, st, b, h, h_kv, seq,
-                                         dtype, causal, s);
-    case 256: return dispatch_dtype<256>(q, k, v, o, st, b, h, h_kv, seq,
-                                         dtype, causal, s);
+    RT_FLASH_D(32)
+    RT_FLASH_D(64)
+    RT_FLASH_D(128)
+    RT_FLASH_D(256)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef RT_FLASH_D
 }

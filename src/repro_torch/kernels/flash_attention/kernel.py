@@ -5,7 +5,9 @@ CUDA tensors launch the kernel (bfloat16 the tensor-core kernel, float32
 the FMA kernel), CPU tensors run the plain version in :mod:`.ref`; there
 is no fallback from one to the other.  The kernel reads q, k and v and
 writes the output through their strides, and reads a query head's KV head
-by index (GQA), so the wrapper copies nothing.  Launches are counted in
+by index (GQA), so the wrapper copies nothing.  The grouped entry takes
+queries that are a stretch of the keys' sequence (``q_start``: a rank's
+rows on a sequence-parallel mesh).  Launches are counted in
 ``flash_attention.launches``, whichever entry launched.
 """
 from __future__ import annotations
@@ -44,21 +46,26 @@ def _check_seq(seq: int) -> None:
 
 
 def check_grouped(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  out: torch.Tensor) -> None:
-    """Raise ``ValueError`` unless q and out are ``[b, h, seq, d]`` and k
-    and v ``[b, h_kv, seq, d]`` with ``h_kv`` dividing ``h``, seq as
-    :func:`check_shapes` takes it, and each tensor laid out as the kernel
-    reads it (see :func:`check_layout`)."""
+                  out: torch.Tensor, q_start: int = 0) -> None:
+    """Raise ``ValueError`` unless q and out are ``[b, h, s_q, d]`` and k
+    and v ``[b, h_kv, s_k, d]`` with ``h_kv`` dividing ``h`` and the
+    queries rows ``q_start .. q_start + s_q`` of the keys' sequence, both
+    lengths as :func:`check_shapes` takes a length, and each tensor laid
+    out as the kernel reads it (see :func:`check_layout`)."""
     if q.dim() != 4 or out.shape != q.shape or k.shape != v.shape or \
             k.dim() != 4 or k.shape[0] != q.shape[0] or \
-            k.shape[2:] != q.shape[2:]:
+            k.shape[3] != q.shape[3]:
         raise ValueError(f"q {tuple(q.shape)}, out {tuple(out.shape)} "
-                         f"[b, h, seq, d] and k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)} [b, h_kv, seq, d] do not fit")
+                         f"[b, h, s_q, d] and k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} [b, h_kv, s_k, d] do not fit")
+    if q_start < 0 or q_start + q.shape[2] > k.shape[2]:
+        raise ValueError(f"queries at rows {q_start}..{q_start + q.shape[2]}"
+                         f" of a sequence of {k.shape[2]} keys")
     h, h_kv = q.shape[1], k.shape[1]
     if h_kv == 0 or h % h_kv:
         raise ValueError(f"{h_kv} KV heads do not divide {h} heads")
     _check_seq(q.shape[2])
+    _check_seq(k.shape[2])
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         check_layout(t, name)
 
@@ -94,29 +101,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not B.on_cuda(q):
         return R.attention_ref(q, k, v, causal=causal)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q[None], k[None], v[None], out[None], causal)
+    _launch(q[None], k[None], v[None], out[None], causal, 0)
     return out
 
 
 def flash_attention_into(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         out: torch.Tensor,
-                         causal: bool = True) -> torch.Tensor:
-    """q: [b, h, seq, d]; k/v: [b, h_kv, seq, d] with ``h_kv`` dividing h
-    (head i reads KV head ``i // (h // h_kv)``); writes the attention of
-    each query head into ``out`` [b, h, seq, d] and returns it.  Any views
-    that :func:`check_grouped` takes: nothing is copied."""
-    check_grouped(q, k, v, out)
+                         out: torch.Tensor, causal: bool = True,
+                         q_start: int = 0) -> torch.Tensor:
+    """q: [b, h, s_q, d]; k/v: [b, h_kv, s_k, d] with ``h_kv`` dividing h
+    (head i reads KV head ``i // (h // h_kv)``); query row ``row`` is the
+    sequence's row ``q_start + row`` (under ``causal`` it sees keys up to
+    that row).  Writes the attention of each query head into ``out`` [b,
+    h, s_q, d] and returns it.  Any views that :func:`check_grouped`
+    takes: nothing is copied."""
+    check_grouped(q, k, v, out, q_start)
     note_shape("flash_attention", tuple(q.shape), tuple(k.shape),
-               str(q.dtype), causal)
+               str(q.dtype), causal, q_start)
     if not B.on_cuda(q):
         return out.copy_(R.attention_ref(q, k, v, causal=causal,
-                                         kv_group=q.shape[1] // k.shape[1]))
-    _launch(q, k, v, out, causal)
+                                         kv_group=q.shape[1] // k.shape[1],
+                                         q_start=q_start))
+    _launch(q, k, v, out, causal, q_start)
     return out
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            out: torch.Tensor, causal: bool) -> None:
+            out: torch.Tensor, causal: bool, q_start: int) -> None:
     """Launch the kernel on 4-d tensors that :func:`check_grouped`
     takes."""
     dev = q.device
@@ -132,13 +142,15 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, seq, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported ({HEAD_DIMS})")
-    if b * h * seq >= 1 << 31:
-        raise ValueError(f"b * h * seq = {b * h * seq} overflows int32")
+    if b * h * max(seq, k.shape[2]) >= 1 << 31:
+        raise ValueError(f"b * h * seq = {b * h * k.shape[2]} overflows "
+                         f"int32")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     B.launch("rt_flash_attention", B.ptr(q), B.ptr(k), B.ptr(v), B.ptr(out),
-             b, h, k.shape[1], seq, d, *_strides(q), *_strides(k),
+             b, h, k.shape[1], seq, k.shape[2], int(q_start), d,
+             *_strides(q), *_strides(k),
              *_strides(v), *_strides(out), _DTYPES[q.dtype], int(causal),
              B.stream(dev))
     flash_attention.launches += 1

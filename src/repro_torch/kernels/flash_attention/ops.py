@@ -8,10 +8,13 @@ from . import ref as R
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        causal: bool = True, use_kernel: bool = True) -> torch.Tensor:
+        causal: bool = True, use_kernel: bool = True,
+        q_start: int = 0) -> torch.Tensor:
     """q: [b, h, sq, d]; k/v: [b, h_kv, sk, d] with h_kv dividing h (GQA:
     head i reads KV head ``i // (h // h_kv)`` by index; nothing is
-    repeated or made contiguous).  The result is a [b, h, sq, d] view of
+    repeated or made contiguous).  Query row ``row`` is the sequence's row
+    ``q_start + row`` (a sequence-parallel rank's stretch of the queries
+    against the whole keys; 0 for the whole sequence).  The result is a [b, h, sq, d] view of
     a [b, sq, h, d] tensor, so ``transpose(1, 2).reshape(b, sq, -1)``
     copies nothing.  ``use_kernel=False`` runs the plain version on any
     device (the reference's ``use_pallas=False``), which takes any shapes;
@@ -33,6 +36,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{h_kv} KV heads do not divide {h} heads")
     out = q.new_empty((b, sq, h, v.shape[-1])).transpose(1, 2)
     if use_kernel:
-        return K.flash_attention_into(q, k, v, out, causal=causal)
+        return K.flash_attention_into(q, k, v, out, causal=causal,
+                                      q_start=q_start)
     return out.copy_(R.attention_ref(q, k, v, causal=causal,
-                                     kv_group=h // h_kv))
+                                     kv_group=h // h_kv, q_start=q_start))

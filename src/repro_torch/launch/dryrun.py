@@ -47,10 +47,10 @@ propagation on fake tensors is not counted), and its collectives are the
 records :func:`~repro_torch.launch.roofline.parse_collectives` prices on
 NVLink inside a node and the network across nodes.  The fake group moves
 nothing, so no bytes are allocated and every collective completes at
-once.  A cell whose model the port does not run on a distributed mesh
-yet (MoE layers, a vision context: :func:`fake_traceable`) keeps the
-virtual mesh's row: the global trace divided by the mesh's entries, with
-no collective, and the row says so.
+once.  Every family runs on it: MoE layers (their dispatch moving the
+tokens among the ranks), the SSM, cross-attention and the encoder.
+(``run_cell`` without ``fake`` gives the virtual mesh's row, the global
+trace divided by the mesh's entries, with no collective, and says so.)
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun               # all cells
@@ -137,6 +137,9 @@ _COLLECTIVE_OPS = {
     "_c10d_functional.all_gather_into_tensor_out": ("all-gather", None),
     "_c10d_functional.reduce_scatter_tensor": ("reduce-scatter", None),
     "_c10d_functional.all_to_all_single": ("all-to-all", None),
+    # DTensor's Shard(i) -> Shard(j) on a card (one op around NCCL's
+    # all-to-all)
+    "_dtensor.shard_dim_alltoall": ("all-to-all", None),
     "c10d.allreduce_": ("all-reduce", 0),
     "c10d.allreduce_coalesced_": ("all-reduce", 0),
     "c10d.allgather_": ("all-gather", 0),
@@ -456,14 +459,6 @@ def roofline_row(arch: str, cfg, shape: ShapeDef, mesh, mesh_id: str,
     return row
 
 
-def fake_traceable(cfg) -> bool:
-    """Whether the port runs ``cfg`` on a distributed mesh: MoE routing
-    (``searchsorted``) has no DTensor rule, and a vision context, placed
-    as a batch input, splits the cross-attention's K/V heads unevenly."""
-    return not (any(l.moe for l in cfg.prefix + cfg.unit)
-                or cfg.num_vision_tokens)
-
-
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              mesh_factory=make_production_mesh, fake: bool = False) -> Dict:
     """One cell's row: on a fake world of the mesh's size (``fake``), or
@@ -516,8 +511,7 @@ def main(argv=None) -> None:
                 tag = f"{arch} | {shape_name} | {mesh_id}"
                 print(f"[trace on meta] {tag} ...", flush=True)
                 try:
-                    row = run_cell(arch, shape_name, multi,
-                                   fake=fake_traceable(cfg))
+                    row = run_cell(arch, shape_name, multi, fake=True)
                     print(f"  ok in {row['compile_s']:.1f}s  "
                           f"bottleneck={row['bottleneck']}  "
                           f"t=(c {row['t_compute_s']:.3e}, "

@@ -139,6 +139,8 @@ def distributed_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
     backend = str(dist.get_backend()).lower()
     dev = _rank_device(backend)
     kind = "cuda" if dev.type == "cuda" else "cpu"
+    if backend == "fake":
+        kind = _FAKE_DEVICE_TYPE[0]
     axes = tuple(axes)
     dims = tuple((a,) for a in axes)
     dm_shape = tuple(shape)
@@ -150,7 +152,7 @@ def distributed_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
     devs = np.empty(tuple(shape), dtype=object)
     for r, idx in enumerate(np.ndindex(devs.shape)):
         devs[idx] = torch.device("cuda", r % torch.cuda.device_count()) \
-            if kind == "cuda" else dev
+            if dev.type == "cuda" else dev
     return Mesh(devs, axes, device_mesh=dm, device=dev, mesh_dims=dims)
 
 
@@ -190,19 +192,32 @@ def _fake_backend() -> None:
                                       devices=["cpu", "cuda"])
 
 
+#: the device type a fake world's meshes take (``fake_world``)
+_FAKE_DEVICE_TYPE = ["cpu"]
+
+
 @contextlib.contextmanager
-def fake_world(size: int):
+def fake_world(size: int, device_type: str = "cpu"):
     """A world of ``size`` ranks held by this process as rank 0, over the
     fake process group: its collectives move nothing and complete at once.
-    Destroyed on exit.  No other world may be live."""
+    Destroyed on exit.  No other world may be live.
+
+    ``device_type`` is its meshes' (the tensors stay on ``meta``):
+    DTensor plans each op from a cost model of the mesh's device type and
+    its devices a host, and moves a shard to another dim by all-to-all
+    except on a ``"cpu"`` mesh (gloo's all-gather and chunk).  ``"cuda"``
+    (on a host with the cards the mesh stands for) plans as the cards'
+    NCCL world does."""
     if dist.is_initialized():
         raise RuntimeError("a world is already initialised in this process")
     _fake_backend()
     dist.init_process_group("fake", store=dist.HashStore(), rank=0,
                             world_size=int(size))
+    _FAKE_DEVICE_TYPE[0] = device_type
     try:
         yield
     finally:
+        _FAKE_DEVICE_TYPE[0] = "cpu"
         dist.destroy_process_group()
 
 

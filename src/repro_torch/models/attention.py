@@ -4,8 +4,10 @@ The JAX package's ``models/attention.py`` on PyTorch.  The full-sequence
 self-attention with ``use_flash`` goes through the flash attention kernel
 (``kernels/flash_attention``); every other call -- a cached one, or cross
 attention over given keys and values (``kv_override``) -- runs the plain
-tensor code of :func:`sdpa`, as the reference leaves its einsums to XLA.  The reference's GSPMD sharding hints have no effect on one device
-and are dropped.
+tensor code of :func:`sdpa`, as the reference leaves its einsums to XLA.
+Self and cross attention take the reference's three sharded branches on
+a distributed mesh (heads, the queries' sequence, or at decode the KV
+length over ``model``); on one device there is nothing to place.
 
 The KV cache is written in place (the reference returns new arrays); the
 returned cache holds the same ``k``/``v`` tensors and a new ``index``.  A
@@ -22,8 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.distributed.sharding import (_context_mesh, constrain,
-                                              constraint_spec, is_distributed,
-                                              placements)
+                                              is_distributed, local_range)
 
 from .layers import Norm, apply_rope, linear_init, matmul, param
 
@@ -198,7 +199,23 @@ def _repeat_whole(k: torch.Tensor, h: int) -> torch.Tensor:
                      "dp", None, None, None)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient leaves contiguous: with one local
+    head the einsums' gradients come back transposed, and the DTensor
+    reshape of the projection's backward cannot view a rank's part of
+    them."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def _local_attend(q, k, v, q_pos, k_pos, *, window, causal):
+    q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
     return _attend(q, k, v, q_pos, k_pos, window, causal)
 
 
@@ -316,13 +333,10 @@ def attention_apply(attn: Attention, x: torch.Tensor, *, num_heads: int,
     flash route, it ignores ``window`` and ``positions``."""
     b, s, _ = x.shape
     hp = heads_parallel(num_heads)
-    kv_model = "model" if hp and num_kv_heads % _model_size() == 0 \
-        else None
     q = _split_heads(matmul(x, attn.q), num_heads, head_dim,
                      "model" if hp else None)
     if kv_override is None:
-        k = _split_heads(matmul(x, attn.k), num_kv_heads, head_dim, kv_model)
-        v = _split_heads(matmul(x, attn.v), num_kv_heads, head_dim, kv_model)
+        k, v = project_kv(attn, x, num_heads, num_kv_heads, head_dim)
         k_pos = positions
     else:
         k, v, k_pos = kv_override
@@ -350,8 +364,20 @@ def attention_apply(attn: Attention, x: torch.Tensor, *, num_heads: int,
     return matmul(out, attn.o), new_cache
 
 
-def _model_size() -> int:
-    return _context_mesh().shape["model"]
+def project_kv(attn: Attention, x: torch.Tensor, num_heads: int,
+               num_kv_heads: int, head_dim: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x``'s keys and values through ``attn``'s ``k``/``v``, split into
+    heads [B, T, KV, dh] (self attention's, and a cross layer's over its
+    context).  On a distributed mesh the KV heads are split over
+    ``model`` where the query heads are heads-parallel and the KV heads
+    divide the axis too, and kept whole otherwise (the split then never
+    falls inside a head; :func:`_sdpa_sharded` repeats whole KV heads to
+    the query heads)."""
+    kv_model = "model" if heads_parallel(num_heads) and \
+        num_kv_heads % _context_mesh().shape["model"] == 0 else None
+    return tuple(_split_heads(matmul(x, w), num_kv_heads, head_dim,
+                              kv_model) for w in (attn.k, attn.v))
 
 
 def _split_heads(y: torch.Tensor, n: int, head_dim: int,
@@ -372,33 +398,43 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Kernel 15 on [b, h, s, d] views of q, k, v [b, s, h, d] (the
     kernel reads them and the KV heads in place and writes a [b, s, h, d]
     tensor, so neither side copies); returns [b, s, h, d].  On a
-    distributed mesh it runs on each rank's local heads through
-    ``local_map`` where heads-parallel, and raises otherwise: the
-    kernel does not split a head's sequence, and gathering every head on
-    every rank is not what the mesh asked for."""
+    distributed mesh it runs in ``local_map`` on the reference's two
+    branches: heads-parallel, each rank's local heads; otherwise
+    sequence-parallel, each rank's contiguous stretch of the query rows
+    (the queries' S over ``model``) against the whole K/V, the kernel told
+    where its rows start (``q_start``).  Under ``causal`` rank r of m then
+    does 2r + 1 of m^2 units of the work: a contiguous split, not a
+    balanced one."""
     from repro_torch.kernels.flash_attention import ops as fa
 
-    def run(q, k, v):
+    def run(q, k, v, q_start=0):
         return fa.mha(q.transpose(1, 2), k.transpose(1, 2),
-                      v.transpose(1, 2), causal=causal).transpose(1, 2)
+                      v.transpose(1, 2), causal=causal,
+                      q_start=q_start).transpose(1, 2)
 
     mesh = _context_mesh()
     if mesh is None or not is_distributed(mesh):
         return run(q, k, v)
-    if not hp:
-        raise NotImplementedError(
-            f"the flash route splits heads over 'model' and "
-            f"{q.shape[2]} heads do not divide the mesh's model axis of "
-            f"{mesh.shape['model']} ({dict(mesh.shape)}): use "
-            f"use_flash=False on this mesh")
     from torch.distributed.tensor.experimental import local_map
-    if k.shape[2] % mesh.shape["model"]:
-        k, v = _repeat_whole(k, q.shape[2]), _repeat_whole(v, q.shape[2])
-    q, k, v = (constrain(t, "dp", None, "model", None) for t in (q, k, v))
-    spec = placements(constraint_spec(q.shape, ("dp", None, "model", None),
-                                      mesh), mesh)
-    return local_map(run, out_placements=spec, in_placements=(spec,) * 3,
-                     device_mesh=mesh.device_mesh)(q, k, v)
+    if hp:
+        if k.shape[2] % mesh.shape["model"]:
+            k, v = _repeat_whole(k, q.shape[2]), \
+                _repeat_whole(v, q.shape[2])
+        q, k, v = (constrain(t, "dp", None, "model", None)
+                   for t in (q, k, v))
+        fn = run
+    else:
+        q = constrain(q, "dp", "model", None, None)
+        k, v = (constrain(t, "dp", None, None, None) for t in (k, v))
+        fn = functools.partial(run, q_start=local_range(q, 1)[0])
+    q_pl, kv_pl = list(q.placements), list(k.placements)
+    out = local_map(fn, out_placements=q_pl,
+                    in_placements=(q_pl, kv_pl, kv_pl),
+                    device_mesh=mesh.device_mesh)(q, k, v)
+    # the query rows gathered whole, as :func:`sdpa` gathers them (the
+    # output projection's product cannot fold a split sequence into its
+    # rows)
+    return out if hp else constrain(out, "dp", None, None, None)
 
 
 def init_kv_cache(batch: int, max_len: int, num_kv_heads: int,

@@ -13,9 +13,11 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import FULL_WINDOW, LayerSpec, ModelConfig
+from repro_torch.distributed.sharding import placed_like
 
-from .attention import Attention, attention_apply, init_kv_cache
-from .layers import MLP, Norm, matmul, param
+from .attention import (Attention, attention_apply, init_kv_cache,
+                        project_kv)
+from .layers import MLP, Norm, param
 from .moe import MoE, moe_apply
 from .ssm import SSM, init_ssm_cache, ssm_apply
 
@@ -97,10 +99,10 @@ def layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 def _cross_kv(block: Block, ctx: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    b, t, _ = ctx.shape
-    k = matmul(ctx, block.xattn.k).view(b, t, cfg.num_kv_heads, cfg.head_dim)
-    v = matmul(ctx, block.xattn.v).view(b, t, cfg.num_kv_heads, cfg.head_dim)
-    return k, v
+    """The context's keys and values, split into heads as self
+    attention's are (:func:`~.attention.project_kv`)."""
+    return project_kv(block.xattn, ctx, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.head_dim)
 
 
 def layer_apply(cfg: ModelConfig, block: Block, x: torch.Tensor, *,
@@ -148,7 +150,10 @@ def layer_apply(cfg: ModelConfig, block: Block, x: torch.Tensor, *,
         else:
             kx, vx = _cross_kv(block, cross_ctx, cfg)
         if cache is not None:
-            new_cache["cross"] = {"k": kx, "v": vx}
+            # stored under the cache's own placement (the reference's
+            # ``/cross/`` rule), where decode reads it
+            new_cache["cross"] = {n: placed_like(t, cache["cross"][n])
+                                  for n, t in (("k", kx), ("v", vx))}
         t = kx.shape[1]
         k_pos = torch.arange(t, dtype=torch.int32,
                              device=x.device).expand(x.shape[0], t)

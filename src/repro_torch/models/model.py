@@ -231,15 +231,23 @@ class LM(nn.Module):
 
     def _cross_context(self, batch: Dict) -> Optional[torch.Tensor]:
         """``batch["frames"]`` through the encoder, or ``batch["vision"]``,
-        in the compute type; None for a decoder-only config."""
+        in the compute type; None for a decoder-only config.  On a
+        distributed mesh either is a batch input, ``("dp", None, None)``
+        (a plain array is the global one, the same on every rank)."""
         cfg = self.cfg
-        dt = DTYPES[cfg.compute_dtype]
         if cfg.encoder_layers:
-            return self._encoder(torch.as_tensor(
-                batch["frames"], device=self.device).to(dt))
+            return self._encoder(self._context(batch["frames"]))
         if cfg.num_vision_tokens:
-            return torch.as_tensor(batch["vision"], device=self.device).to(dt)
+            return self._context(batch["vision"])
         return None
+
+    def _context(self, x) -> torch.Tensor:
+        dt = DTYPES[self.cfg.compute_dtype]
+        if not hasattr(x, "device_mesh"):
+            x = torch.as_tensor(x, device=self.device)
+            if not _distributed():
+                return x.to(dt)
+        return constrain(x, "dp", None, None).to(dt)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         return constrain(x @ self.lm_head.to(x.dtype), "dp", None, "model")

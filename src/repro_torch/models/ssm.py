@@ -21,11 +21,16 @@ behaviour, kept).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed.sharding import (_context_mesh, constrain,
+                                              constraint_spec,
+                                              is_distributed, local_range,
+                                              placed_like, placements)
 
 from .layers import linear_init, matmul, param
 
@@ -169,32 +174,20 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(x.dtype), state
 
 
-def ssm_apply(ssm: SSM, xin: torch.Tensor, *, num_heads: int, head_dim: int,
-              state_dim: int, n_groups: int = 1, chunk_len: int = 256,
-              cache: Optional[Dict] = None
-              ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """The full mamba2 mixer.  xin: [B, L, d_model].
-
-    ``cache={'conv', 'state'}`` is written in place and returned; with
-    ``L == 1`` it takes the single-step decode, else the chunked scan
-    (padded to a multiple of ``chunk_len``) from a zero state."""
-    b, l, _ = xin.shape
-    h, p, n, g = num_heads, head_dim, state_dim, n_groups
-    d_inner = h * p
-    zxbcdt = matmul(xin, ssm.in_proj)
-    z, xbc, dt_raw = torch.tensor_split(
-        zxbcdt, [d_inner, d_inner + d_inner + 2 * g * n], dim=-1)
-    xbc, new_conv = _causal_conv(xbc, ssm.conv_w, ssm.conv_b,
-                                 None if cache is None else cache["conv"])
-    x, B, C = torch.tensor_split(xbc, [d_inner, d_inner + g * n], dim=-1)
-    x = x.reshape(b, l, h, p)
-    B = B.reshape(b, l, g, n)
-    C = C.reshape(b, l, g, n)
-    dt = F.softplus(dt_raw.float() + ssm.dt_bias.float())
-    A = -torch.exp(ssm.A_log.float())
+def _mix(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+         B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+         state: Optional[torch.Tensor], chunk_len: int, out_dtype
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD of whole (or one rank's local) heads: x [b, l, h, p]; dt
+    [b, l, h] float32; A, D [h]; B, C [b, l, g, n] (g dividing h).  With
+    ``state`` [b, h, p, n] float32 one decode step (``l == 1``, y in
+    ``out_dtype``), else the chunked scan from zero (padded to a multiple
+    of ``chunk_len``, y in x's type).  Returns (y [b, l, h, p], the final
+    state)."""
+    b, l, h, p = x.shape
+    g = B.shape[2]
     f32 = torch.float32
-
-    if cache is not None and l == 1:
+    if state is not None:
         # one step: h' = exp(dt*A) h + dt * B x^T ; y = C h' + D x
         dt1 = dt[:, 0]                                       # [b,h]
         decay = torch.exp(dt1 * A[None, :])
@@ -205,22 +198,142 @@ def ssm_apply(ssm: SSM, xin: torch.Tensor, *, num_heads: int, head_dim: int,
         # into the batch, which it refuses
         xdt = (x[:, 0] * dt1[..., None]).to(f32)
         Bx = B1[:, :, None, :] * xdt[..., None]
-        state = cache["state"] * decay[..., None, None] + Bx
+        state = state * decay[..., None, None] + Bx
         y = (C1[:, :, None, :] * state).sum(-1)
-        y = y + x[:, 0].to(f32) * ssm.D[None, :, None]
-        y = y[:, None].to(xin.dtype)                         # [b,1,h,p]
+        y = y + x[:, 0].to(f32) * D[None, :, None]
+        return y[:, None].to(out_dtype), state               # [b,1,h,p]
+    pad = (-l) % chunk_len
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    y, state = ssd_chunked(x, dt, A, B, C, D, chunk_len)
+    return y[:, :l], state
+
+
+def _local_groups(h0: int, hl: int, heads_per_group: int) -> List[int]:
+    """The groups of B and C that heads ``h0 .. h0 + hl`` read, one entry
+    per group of the local heads (each local group serving the same
+    number of them): the groups themselves where the stretch holds whole
+    groups or lies in one, else one entry per head."""
+    of = [(h0 + i) // heads_per_group for i in range(hl)]
+    groups = sorted(set(of))
+    per = hl // len(groups)
+    if hl % len(groups) == 0 and of == [x for x in groups
+                                        for _ in range(per)]:
+        return groups
+    return of
+
+
+def _mix_sharded(x, dt, A, B, C, D, state, mesh, *, p: int, n: int,
+                 g: int, chunk_len: int, out_dtype):
+    """:func:`_mix` on a distributed mesh: the SSD heads over ``model``
+    (where they divide it), the batch over the data axes, in
+    ``local_map``; B and C whole on every rank (each rank reads the
+    groups of its own heads).  x [b, l, h * p], dt [b, l, h], A, D [h],
+    B, C [b, l, g * n], state (decode) [b, h, p, n].  Returns (y [b, l,
+    h * p] with its heads over ``model``, the state placed as
+    ``cache_spec`` places it: heads over ``model``)."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    h = dt.shape[-1]
+    heads = "model" if h % mesh.shape["model"] == 0 else None
+    x, dt = (constrain(t, "dp", None, heads) for t in (x, dt))
+    A, D = (constrain(t, heads) for t in (A, D))
+    B, C = (constrain(t, "dp", None, None) for t in (B, C))
+    pl = [tuple(t.placements) for t in (x, dt, A, B, C, D)]
+    st_pl = tuple(placements(constraint_spec(
+        (x.shape[0], h, p, n), ("dp", heads, None, None), mesh), mesh))
+    model = mesh.mesh_dims.index(("model",))
+    # a rank's gradient of what it holds whole is a partial sum over the
+    # dims that split what it reads: B and C over the heads' split, A and
+    # D over the batch's
+    split = [isinstance(q, Shard) for q in x.placements]
+    bc_grad = tuple(Partial() if i == model and split[i] else q
+                    for i, q in enumerate(pl[3]))
+    ad_grad = tuple(Partial() if i != model and split[i] else q
+                    for i, q in enumerate(pl[2]))
+    h0, hl = local_range(dt, 2)
+    groups = _local_groups(h0, hl, h // g)
+
+    def run(x, dt, A, B, C, D, *state):
+        b, l = x.shape[:2]
+        Bl, Cl = (t.reshape(b, l, g, n)[:, :, groups] for t in (B, C))
+        y, st = _mix(x.reshape(b, l, hl, p), dt, A, Bl, Cl, D,
+                     state[0] if state else None, chunk_len, out_dtype)
+        return y.reshape(b, l, hl * p), st
+
+    ins = (x, dt, A, B, C, D)
+    if state is not None:
+        ins += (constrain(state, "dp", heads, None, None),)
+    in_pl = tuple(pl) + ((st_pl,) if state is not None else ())
+    grads = (pl[0], pl[1], ad_grad, bc_grad, bc_grad, ad_grad) + \
+        ((st_pl,) if state is not None else ())
+    return local_map(run, out_placements=(pl[0], st_pl), in_placements=in_pl,
+                     in_grad_placements=grads,
+                     device_mesh=mesh.device_mesh)(*ins)
+
+
+def ssm_apply(ssm: SSM, xin: torch.Tensor, *, num_heads: int, head_dim: int,
+              state_dim: int, n_groups: int = 1, chunk_len: int = 256,
+              cache: Optional[Dict] = None
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The full mamba2 mixer.  xin: [B, L, d_model].
+
+    ``cache={'conv', 'state'}`` is written in place and returned; with
+    ``L == 1`` it takes the single-step decode, else the chunked scan
+    (padded to a multiple of ``chunk_len``) from a zero state.
+
+    On a distributed mesh (the reference's ``ssm.py`` has no constraint:
+    GSPMD propagates from ``in_proj`` ``P(dp, "model")`` and ``conv_w``
+    ``P(None, "model")``) the placement is stated once at each of the two
+    splits, whose pieces do not line up with the shards over ``model``:
+    the fused projection is gathered over ``model``, its conv channels
+    put back over ``model`` through the depthwise (channel-local) conv,
+    as ``conv_w`` and the conv cache are placed; the conv's output
+    gathered again, the SSD heads over ``model`` through the scan or the
+    decode step (:func:`_mix_sharded`; the state cache's heads are over
+    ``model`` too), the gated RMSNorm's mean over ``d_inner`` one small
+    reduction, ``out_proj`` row-parallel."""
+    b, l, _ = xin.shape
+    h, p, n, g = num_heads, head_dim, state_dim, n_groups
+    d_inner = h * p
+    mesh = _context_mesh()
+    sharded = mesh is not None and is_distributed(mesh)
+    zxbcdt = matmul(xin, ssm.in_proj)
+    if sharded:
+        zxbcdt = constrain(zxbcdt, "dp", None, None)
+    z, xbc, dt_raw = torch.tensor_split(
+        zxbcdt, [d_inner, d_inner + d_inner + 2 * g * n], dim=-1)
+    conv = None if cache is None else cache["conv"]
+    if sharded:
+        heads = "model" if h % mesh.shape["model"] == 0 else None
+        z, dt_raw = (constrain(t, "dp", None, heads) for t in (z, dt_raw))
+        xbc = constrain(xbc, "dp", None, "model")
+        if conv is None:
+            conv = constrain(torch.zeros(
+                (b, ssm.conv_w.shape[0] - 1, xbc.shape[-1]),
+                dtype=xbc.dtype, device=ssm.conv_b.device), "dp", None,
+                "model")
+    xbc, new_conv = _causal_conv(xbc, ssm.conv_w, ssm.conv_b, conv)
+    if sharded:
+        xbc = constrain(xbc, "dp", None, None)
+    x, B, C = torch.tensor_split(xbc, [d_inner, d_inner + g * n], dim=-1)
+    dt = F.softplus(dt_raw.float() + ssm.dt_bias.float())
+    A = -torch.exp(ssm.A_log.float())
+    state = cache["state"] if cache is not None and l == 1 else None
+    if sharded:
+        y, state = _mix_sharded(x, dt, A, B, C, ssm.D, state, mesh, p=p,
+                                n=n, g=g, chunk_len=chunk_len,
+                                out_dtype=xin.dtype)
     else:
-        pad = (-l) % chunk_len
-        if pad:
-            x = F.pad(x, (0, 0, 0, 0, 0, pad))
-            dt = F.pad(dt, (0, 0, 0, pad))
-            B = F.pad(B, (0, 0, 0, 0, 0, pad))
-            C = F.pad(C, (0, 0, 0, 0, 0, pad))
-        y, state = ssd_chunked(x, dt, A, B, C, ssm.D, chunk_len)
-        y = y[:, :l]
+        y, state = _mix(x.reshape(b, l, h, p), dt, A, B.reshape(b, l, g, n),
+                        C.reshape(b, l, g, n), ssm.D, state, chunk_len,
+                        xin.dtype)
     if cache is not None:
-        cache["conv"].copy_(new_conv)
-        cache["state"].copy_(state)
+        cache["conv"].copy_(placed_like(new_conv, cache["conv"]))
+        cache["state"].copy_(placed_like(state, cache["state"]))
 
     # gated RMSNorm (mamba2): y * silu(z), normalised
     yf = y.reshape(b, l, d_inner).float() * F.silu(z.float())

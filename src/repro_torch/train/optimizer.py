@@ -41,6 +41,7 @@ from typing import (Any, Callable, Dict, List, Mapping, NamedTuple, Optional,
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import placed_like
 from repro_torch.models.convert import UNIT_HEADS
 
 QBLOCK = 128
@@ -83,15 +84,6 @@ def _whole(x, dims):
           for p in x.placements]
     return x if pl == list(x.placements) else \
         x.redistribute(x.device_mesh, pl)
-
-
-def _like(x, old):
-    """``x`` placed as ``old`` is, where ``old`` is a DTensor (a new
-    moment keeps its state's placement)."""
-    if hasattr(old, "device_mesh") and hasattr(x, "device_mesh") and \
-            tuple(x.placements) != tuple(old.placements):
-        return x.redistribute(old.device_mesh, old.placements)
-    return x
 
 
 def _quantize_int8(x: torch.Tensor) -> Dict:
@@ -144,9 +136,9 @@ def _moment_write(x: torch.Tensor, dtype: str, old=None):
     """``x`` as a moment of ``dtype``, placed as the ``old`` moment is."""
     if dtype == "int8":
         q = _quantize_int8(x)
-        return q if old is None else {k: _like(v, old[k])
+        return q if old is None else {k: placed_like(v, old[k])
                                       for k, v in q.items()}
-    return _like(x.to(_DTYPES[dtype]), old)
+    return placed_like(x.to(_DTYPES[dtype]), old)
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +199,24 @@ def _step_init(params) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=dev)
 
 
+#: elements of the leaves one chunk of an update holds (float32 GiB / 4)
+CHUNK_ELEMENTS = 1 << 28
+
+
+def _chunks(names: List[str], params: Mapping) -> List[List[str]]:
+    """``names`` in order, cut into runs of at most ``CHUNK_ELEMENTS``
+    elements (a larger leaf alone)."""
+    out, size = [[]], 0
+    for n in names:
+        k = params[n].numel()
+        if out[-1] and size + k > CHUNK_ELEMENTS:
+            out.append([])
+            size = 0
+        out[-1].append(n)
+        size += k
+    return [c for c in out if c]
+
+
 def adamw(lr: Callable[[torch.Tensor], torch.Tensor] | float,
           b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1, max_grad_norm: float = 1.0,
@@ -231,40 +241,48 @@ def adamw(lr: Callable[[torch.Tensor], torch.Tensor] | float,
         sf = step.float()
         bc1 = 1.0 - torch.pow(b1, sf)
         bc2 = 1.0 - torch.pow(b2, sf)
-        g = [x.float() for x in g]
-        p32 = [params[n].float() for n in names]
-        m = [_moment_read(state["m"][n], params[n], moment_dtype)
-             for n in names]
-        v = [_moment_read(state["v"][n], params[n], moment_dtype)
-             for n in names]
-        # mf = b1 m + (1 - b1) g ; vf = b2 v + (1 - b2) g g
-        mf = torch._foreach_mul(m, b1)
-        torch._foreach_add_(mf, torch._foreach_mul(g, 1 - b1))
-        gg = torch._foreach_mul(g, 1 - b2)
-        torch._foreach_mul_(gg, g)
-        vf = torch._foreach_mul(v, b2)
-        torch._foreach_add_(vf, gg)
-        del gg
-        # delta = (mf / bc1) / (sqrt(vf / bc2) + eps)
-        delta = torch._foreach_div(mf, bc1)
-        den = torch._foreach_div(vf, bc2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, eps)
-        torch._foreach_div_(delta, den)
-        del den
-        decay = [i for i, n in enumerate(names)
-                 if params[n].dim() + (n in layout) >= 2]
-        if decay:      # decoupled weight decay on the reference's matrices
-            torch._foreach_add_([delta[i] for i in decay], torch._foreach_mul(
-                [p32[i] for i in decay], weight_decay))
-        torch._foreach_mul_(delta, lr_t)
-        new = torch._foreach_sub(p32, delta)
-        new_p = {n: _like(x.to(params[n].dtype), params[n])
-                 for n, x in zip(names, new)}
-        new_m = {n: _moment_write(x, moment_dtype, state["m"][n])
-                 for n, x in zip(names, mf)}
-        new_v = {n: _moment_write(x, moment_dtype, state["v"][n])
-                 for n, x in zip(names, vf)}
+        g = dict(zip(names, g))
+        new_p, new_m, new_v = {}, {}, {}
+        # in chunks of leaves, so that the update's float32 temporaries
+        # stay near a chunk's size (an MoE layer's expert banks are a
+        # card's gigabytes each)
+        for chunk in _chunks(names, params):
+            gc = [g.pop(n).float() for n in chunk]
+            p32 = [params[n].float() for n in chunk]
+            m = [_moment_read(state["m"][n], params[n], moment_dtype)
+                 for n in chunk]
+            v = [_moment_read(state["v"][n], params[n], moment_dtype)
+                 for n in chunk]
+            # mf = b1 m + (1 - b1) g ; vf = b2 v + (1 - b2) g g
+            mf = torch._foreach_mul(m, b1)
+            torch._foreach_add_(mf, torch._foreach_mul(gc, 1 - b1))
+            gg = torch._foreach_mul(gc, 1 - b2)
+            torch._foreach_mul_(gg, gc)
+            vf = torch._foreach_mul(v, b2)
+            torch._foreach_add_(vf, gg)
+            del gg, gc, m, v
+            # delta = (mf / bc1) / (sqrt(vf / bc2) + eps)
+            delta = torch._foreach_div(mf, bc1)
+            den = torch._foreach_div(vf, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, eps)
+            torch._foreach_div_(delta, den)
+            del den
+            decay = [i for i, n in enumerate(chunk)
+                     if params[n].dim() + (n in layout) >= 2]
+            if decay:  # decoupled weight decay on the reference's matrices
+                torch._foreach_add_([delta[i] for i in decay],
+                                    torch._foreach_mul(
+                                        [p32[i] for i in decay],
+                                        weight_decay))
+            torch._foreach_mul_(delta, lr_t)
+            new = torch._foreach_sub(p32, delta)
+            del delta, p32
+            for n, x, mx, vx in zip(chunk, new, mf, vf):
+                new_p[n] = placed_like(x.to(params[n].dtype), params[n])
+                new_m[n] = _moment_write(mx, moment_dtype, state["m"][n])
+                new_v[n] = _moment_write(vx, moment_dtype, state["v"][n])
+            del new, mf, vf
         return new_p, {"m": new_m, "v": new_v, "step": step}, \
             {"grad_norm": gnorm, "lr": lr_t}
 
@@ -337,7 +355,7 @@ def adafactor(lr: Callable | float = 1e-3, eps: float = 1e-30,
             for u, n in enumerate(members):
                 delta[n] = d[u]
                 new_v[n] = {"row": row[u], "col": col}
-        new_p = {n: _like((params[n].float() - lr_t * delta[n])
+        new_p = {n: placed_like((params[n].float() - lr_t * delta[n])
                           .to(params[n].dtype), params[n]) for n in names}
         return new_p, {"v": {n: new_v[n] for n in names}, "step": step}, \
             {"grad_norm": gnorm, "lr": lr_t}

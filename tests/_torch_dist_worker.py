@@ -4,10 +4,10 @@ Run as ``python _torch_dist_worker.py RANK WORLD PORT DIR SHAPE AXES``:
 the rank joins a gloo world of WORLD ranks at ``tcp://localhost:PORT``
 (collectives time out after 120 s), lays the mesh SHAPE (comma separated)
 over AXES (comma separated), reads ``DIR/inputs.pt`` (written by
-``test_torch_distributed.py``) and writes ``DIR/rank{RANK}.pt``: every
-case's global results (gathered, the same on every rank) and the rank's
-own parts.  Only ``repro_torch`` is imported: ``jax_loaded`` records
-whether anything pulled JAX in.
+``test_torch_distributed.py`` or ``test_torch_distributed_families.py``)
+and writes ``DIR/rank{RANK}.pt``: every case's global results (gathered,
+the same on every rank) and the rank's own parts.  Only ``repro_torch``
+is imported: ``jax_loaded`` records whether anything pulled JAX in.
 """
 import os
 import sys
@@ -53,19 +53,23 @@ def run_model(case, mesh):
     model.load_state_dict(case["state"])
     shard_model(model, mesh)
     b = case["batch"]
+    # the cross context (encoder frames, vision embeddings), if any
+    ctx = {k: v for k, v in b.items() if k in ("frames", "vision")}
     res = {}
     with mesh:
         with torch.no_grad():
-            logits, _ = model.forward({"tokens": b["tokens"]})
+            logits, _ = model.forward({"tokens": b["tokens"], **ctx})
         res["logits"] = full(logits)
         res["jax_loaded"] = "jax" in sys.modules
-        if case.get("flash"):        # kernel 15 on each rank's local heads
+        if case.get("flash"):  # kernel 15 on local heads or query rows
             fm = build_model(cfg.with_(use_flash=True), "cpu")
             fm.load_state_dict(case["state"])
             shard_model(fm, mesh)
             with torch.no_grad():
                 res["flash_logits"] = full(fm.forward(
-                    {"tokens": b["tokens"]})[0])
+                    {"tokens": b["tokens"], **ctx})[0])
+            if case.get("flash_only"):
+                return res
         params = dict(model.named_parameters())
         loss, _ = model.loss(b)
         grads = torch.autograd.grad(loss, list(params.values()))
@@ -76,10 +80,14 @@ def run_model(case, mesh):
         prompt = b["tokens"][:, :case["prompt"]]
         cache = model.init_cache(prompt.shape[0],
                                  case["prompt"] + case["decode"],
+                                 ctx_len=case.get("ctx_len", 0),
                                  dtype=torch.float32)
-        res["cache_placements"] = str(tuple(
-            cache["layers"][0]["kv"]["k"].placements))
-        lg, cache = model.prefill({"tokens": prompt}, cache)
+        res["cache_placements"] = {
+            f"{i}/{kind}/{leaf}": str(tuple(t.placements))
+            for i, layer in enumerate(cache["layers"])
+            for kind, c in layer.items() for leaf, t in c.items()
+            if hasattr(t, "placements")}
+        lg, cache = model.prefill({"tokens": prompt, **ctx}, cache)
         lg = full(lg)
         steps, toks = [lg], []
         for _ in range(case["decode"]):
@@ -90,6 +98,8 @@ def run_model(case, mesh):
             steps.append(lg)
         res["decode_logits"] = steps
         res["greedy"] = torch.cat(toks, 1)
+        if "routing" in case:
+            res["routing"] = run_routing(model, cfg, case["routing"], mesh)
         res["train"] = {}
         for name, (kind, lr, n_micro, n_steps) in case["train"].items():
             opt = optimizer(kind, lr, case["eps"])
@@ -111,13 +121,33 @@ def run_model(case, mesh):
     return res
 
 
+def run_routing(model, cfg, x, mesh):
+    """The first MoE layer on the mesh over ``x`` [B, S, d] (the global
+    batch, placed over the data axes): its global routing (expert ids,
+    ``keep``) and its output, gathered."""
+    from repro_torch.distributed.sharding import spmd
+    from repro_torch.models.moe import moe_apply, route_global
+    block = next(b for b in model.blocks() if hasattr(b, "moe"))
+    m = cfg.moe
+    kw = dict(num_experts=m.num_experts, top_k=m.top_k,
+              capacity_factor=m.capacity_factor)
+    with spmd(), torch.no_grad():
+        *_, r = route_global(block.moe, x, mesh, **kw)
+        y, aux = moe_apply(block.moe, x, **kw)
+    return {"experts": r["experts"], "keep": r["keep"],
+            "capacity": r["capacity"], "y": full(y), "aux": float(full(aux))}
+
+
 def run_elastic(case, mesh):
     """This rank's parts of ``elastic_restore`` and of
-    ``device_put_resharded`` onto the mesh, with its slices."""
+    ``device_put_resharded`` onto the mesh, with its slices (the port's
+    parameter names where ``case`` names the ``arch``)."""
+    cfg = get_config(case["arch"]).reduced() if "arch" in case else None
     tree, extra = elastic_restore(case["dir"], case["step"], case["like"],
-                                  mesh)
-    put = device_put_resharded(case["like"], mesh)
-    shardings = dict(tree_leaves_with_path(shard_params(case["like"], mesh)))
+                                  mesh, cfg)
+    put = device_put_resharded(case["like"], mesh, cfg)
+    shardings = dict(tree_leaves_with_path(shard_params(case["like"], mesh,
+                                                        cfg)))
     out = {"extra": extra, "parts": {}, "put": {}, "slices": {}}
     for path, leaf in tree_leaves_with_path(tree):
         key = "/".join(str(k) for k in path)

@@ -830,6 +830,37 @@ def test_flash_attention_kernel_equals_plain(dev, seq, d, dtype, causal,
         assert bool((diff <= bound).all()), diff.max().item()
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("q_start", [0, 128, 256])
+def test_flash_attention_offset_equals_plain_and_the_full_calls_rows(
+        dev, q_start, d, dtype, causal):
+    """128 query rows starting at ``q_start`` against 384 keys (a
+    sequence-parallel rank's call), 6 heads over 2 KV heads in the
+    forward's strided layout: equal to the plain version with the same
+    ``q_start``, and bit for bit those rows of the whole sequence's call
+    (``q_start`` a multiple of both kernels' query blocks, so the same
+    tiles run in the same order)."""
+    gen = torch.Generator(device=dev).manual_seed(q_start + d)
+    q, k, v = (torch.randn((2, 384, n, d), generator=gen, device=dev)
+               .to(dtype).transpose(1, 2) for n in (6, 2, 2))
+    rows = q[:, :, q_start:q_start + 128]
+    before = AK.flash_attention.launches
+    got = AO.mha(rows, k, v, causal, q_start=q_start)
+    want = AR.attention_ref(rows, k, v, causal, kv_group=3, q_start=q_start)
+    whole = AO.mha(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert AK.flash_attention.launches == before + 2
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 1e-4
+    else:
+        bound = 2.0 ** -8 * (want.float().abs() + v.float().abs().max())
+        assert bool((diff <= bound).all()), diff.max().item()
+    assert torch.equal(got, whole[:, :, q_start:q_start + 128])
+
+
 def test_flash_attention_kernel_refuses_what_it_cannot_run(dev):
     q = torch.zeros((2, 64, 48), device=dev)
     with pytest.raises(ValueError, match="head dim"):

@@ -420,7 +420,7 @@ def test_parameters_and_cache_are_placed_by_the_rules(world):
     assert pl["layers.0.attn.o"] == "(Shard(dim=1), Shard(dim=0))"
     assert pl["embed"] == "(Replicate(), Shard(dim=1))"
     assert pl["layers.0.ln1.scale"] == "(Replicate(), Replicate())"
-    assert ranks[0]["smollm"]["cache_placements"] == \
+    assert ranks[0]["smollm"]["cache_placements"]["0/kv/k"] == \
         "(Shard(dim=0), Shard(dim=1))"
 
 

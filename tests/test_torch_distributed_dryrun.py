@@ -24,9 +24,9 @@ parts.  On the fake world:
   copies, 5%).
 
 Also: the fake world's fallback when PyTorch's testing module is absent,
-the flash route's raise where the heads do not divide ``model``, and the
-CLI's choice by config: a model the port does not run on a distributed
-mesh (MoE layers, a vision context) keeps the virtual mesh's ``ok`` row.
+the flash route's sequence-parallel branch where the heads do not divide
+``model``, every assigned architecture traced on a fake world, and the
+CLI's MoE and vision cells as fake worlds' rows with collectives.
 """
 import sys
 
@@ -170,41 +170,65 @@ def test_fake_world_without_the_testing_module(monkeypatch):
     assert tuple(y.to_local().shape) == (4, 4)
 
 
-def test_flash_route_raises_where_heads_do_not_divide_the_mesh():
-    """Reduced smollm has 3 heads: on ``model`` 2 it is sequence-parallel,
-    and the flash route raises and names the mesh rather than gather."""
+def test_flash_route_runs_sequence_parallel_where_heads_do_not_divide():
+    """Reduced smollm has 3 heads: on ``model`` 2 the flash route runs
+    sequence-parallel, each rank's 8 query rows of 16 through the route's
+    ``mha`` (its plain version here: the kernel's wrapper raises on
+    ``meta``) against the whole K/V, told where its rows start, and the
+    logits come back whole."""
+    from repro_torch.kernels.flash_attention import ops as FO
     cfg = get_config("smollm-360m").reduced().with_(use_flash=True)
-    with fake_world(4):
+    mha, calls = FO.mha, []
+
+    def plain(q, k, v, causal=True, use_kernel=True, q_start=0):
+        calls.append((tuple(q.shape), tuple(k.shape), causal, q_start))
+        return mha(q, k, v, causal=causal, use_kernel=False,
+                   q_start=q_start)
+
+    with fake_world(4), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(FO, "mha", plain)
         mesh = distributed_mesh((2, 2), ("data", "model"))
         model = shard_model(build_model(cfg, "meta"), mesh)
         tokens = torch.zeros((2, 16), dtype=torch.int32, device="meta")
-        with mesh, torch.no_grad(), \
-                pytest.raises(NotImplementedError, match="model axis of 2"):
-            model({"tokens": tokens})
-
-
-#: the models the port does not run on a distributed mesh yet: MoE layers
-#: (jamba, qwen3-moe, deepseek-moe) and a vision context (llama-vision)
-NOT_ON_A_MESH = ("jamba-1.5-large-398b", "llama-3.2-vision-11b",
-                 "qwen3-moe-30b-a3b", "deepseek-moe-16b")
+        with mesh, torch.no_grad():
+            logits, _ = model({"tokens": tokens})
+    assert tuple(logits.shape) == (2, 16, cfg.vocab_size)
+    # rank 0 of the fake world: its batch row's first 8 query rows of 16
+    # (3 heads) over all 16 keys (1 KV head), once a layer
+    assert calls == [((1, 3, 8, 32), (1, 1, 16, 32), True, 0)] * \
+        cfg.num_layers
 
 
 @pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
-def test_the_config_picks_the_fake_world_or_the_virtual_mesh(arch):
-    assert DR.fake_traceable(get_config(arch)) == (arch not in NOT_ON_A_MESH)
+def test_every_arch_traces_on_a_fake_world(arch):
+    """Every assigned architecture, MoE and vision context included, runs
+    on a distributed mesh: one unit of its reduced config traced as a
+    train step on a fake world of 2 x 2, a fake world's ``ok`` row with
+    collectives."""
+    cfg = get_config(arch).reduced()
+    cfg = cfg.with_(n_units=1,
+                    window_pattern=cfg.window_pattern[:cfg.unit_size])
+    with fake_world(4):
+        row = DR.roofline_row(arch, cfg, ShapeDef("train", "train", 32, 4),
+                              distributed_mesh((2, 2), ("data", "model")),
+                              "2x2")
+    assert row["status"] == "ok", row
+    assert row["per_device"] == DR.PER_DEVICE_FAKE.format(4)
+    assert row["coll_count"] > 0 and row["t_collective_s"] > 0
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "llama-3.2-vision-11b"])
-def test_the_cli_gives_the_virtual_row_where_no_fake_world_runs(
-        arch, tmp_path):
-    """The CLI's cell of a model the port does not run on a mesh is the
-    virtual mesh's ``ok`` row, and says so, not a ``FAIL`` row."""
+def test_the_cli_gives_the_fake_worlds_row_with_collectives(arch, tmp_path):
+    """The CLI's cell of a MoE or a vision model is the fake world's
+    ``ok`` row on 16x16, with the collectives its rank 0 issues (the MoE
+    dispatch's gather among them), no longer the virtual mesh's."""
     import json
     report = tmp_path / "report.json"
     DR.main(["--arch", arch, "--shape", "decode_32k", "--mesh", "single",
              "--report", str(report)])
     (row,) = json.loads(report.read_text())
     assert row["status"] == "ok", row
-    assert row["per_device"] == DR.PER_DEVICE
-    assert row["collectives"] == DR.VIRTUAL_COLLECTIVES
-    assert row["coll_count"] == 0 and row["t_memory_s"] > 0
+    assert row["per_device"] == DR.PER_DEVICE_FAKE.format(256)
+    assert row["collectives"] == DR.FAKE_COLLECTIVES.format(256)
+    assert row["coll_count"] > 0 and row["t_collective_s"] > 0
+    assert row["t_memory_s"] > 0

@@ -185,3 +185,47 @@ def test_kernel_route_refuses_layouts_it_cannot_read(case):
     # the plain route takes any layout (the reference's use_pallas=False)
     if case != "heads":
         O.mha(q, k, v, use_kernel=False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seq_k", [256, 512])
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+def test_offset_queries_equal_the_references_matching_rows(where, seq_k,
+                                                           dtype):
+    """A stretch of 128 query rows starting at ``q_start`` (0, s_k / 2,
+    s_k - s_q) against all s_k keys, 4 heads over 2 KV heads: the kernel
+    route's plain version equals those rows of the reference's
+    ``mha(use_pallas=False)`` over the whole sequence (float32 at 2e-5;
+    bfloat16 within one rounding of the output, both computing in float32
+    and rounding once)."""
+    rng = np.random.default_rng(seq_k + len(where))
+    s_q = 128
+    q_start = {"first": 0, "middle": seq_k // 2, "last": seq_k - s_q}[where]
+    q = rng.standard_normal((2, 4, seq_k, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 2, seq_k, 64)).astype(np.float32)
+            for _ in range(2))
+    if dtype == "bfloat16":
+        (jq, tq), (jk, tk), (jv, tv) = (_bf16(x) for x in (q, k, v))
+    else:
+        (jq, tq), (jk, tk), (jv, tv) = ((jnp.asarray(x), torch.from_numpy(x))
+                                        for x in (q, k, v))
+    want = np.asarray(fao.mha(jq, jk, jv, causal=True, use_pallas=False),
+                      np.float32)[:, :, q_start:q_start + s_q]
+    rows = tq[:, :, q_start:q_start + s_q]
+    got = O.mha(rows, tk, tv, causal=True, q_start=q_start)
+    assert got.dtype == tq.dtype and got.shape == rows.shape
+    tol = 2e-5 if dtype == "float32" else 2 ** -7
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(
+        R.attention_ref(rows, tk, tv, True, kv_group=2,
+                        q_start=q_start).float().numpy(), want, rtol=tol,
+        atol=tol)
+
+
+def test_offset_queries_must_lie_inside_the_keys():
+    q = torch.zeros((1, 2, 128, 32))
+    k = torch.zeros((1, 2, 256, 32))
+    with pytest.raises(ValueError, match="rows 192..320"):
+        O.mha(q, k, k, q_start=192)
+    with pytest.raises(ValueError, match="rows -1"):
+        O.mha(q, k, k, q_start=-1)
