@@ -4,7 +4,8 @@
 Run from the root of the repository:  python3 chip_smoke.py
 (``--lm`` runs phases 1-2, 12-13 and the LM profile only; ``--launch``
 phases 1-2 and 20, the launch layer; ``--sharded`` phases 1-2 and 21,
-sharded execution on a world of NCCL ranks; ``--train``
+sharded execution on a world of NCCL ranks; ``--examples`` phases 1-2
+and 22, the port's four examples on the card and on the CPU; ``--train``
 phases 1-2, 19 and 19p, training smollm-360m at full width from the
 document lake; ``--families``
 phases 1-2 and 18, the MoE, SSM, encoder-decoder and VLM families at
@@ -372,6 +373,18 @@ any profiler in the process; the LM and training profiles run last):
      tree's bytes and back to its value before once the shards are
      dropped; (d) ``repro_torch.launch.serve.main`` for 8 requests of 16
      tokens at full width on ``cuda:0``: 8 x 16 tokens served.
+ 22. examples (after 20, before 21; ``--examples`` alone): each of
+     ``examples/{quickstart,ldbc_queries,serve_batched,
+     train_graph_corpus}_torch.py`` (the training one with ``--steps 3``)
+     run in a process of its own on the card through its own
+     ``__main__`` (``--example-run``: its kernels' launch counts set to 0
+     before it and written after) and with ``--device cpu``, all eight
+     processes at once, each under a ``TMPDIR`` of its own in ``build/``;
+     the card leg names the card first, the two legs' deterministic lines
+     (``examples/_torch_example.py:deterministic_lines``: counts, bytes,
+     requests, page-cache and filter counters, tenants; times, speedups,
+     losses and where they ran masked) are equal, and each card leg
+     launched some kernel; the counts summed over the card legs.
  21. sharded (last; ``--sharded`` alone): (a) the dry-run on a fake world
      (``launch/mesh.py:fake_world``): phase 20's four cells and
      smollm-360m ``train_4k`` on 16x16 (``launch.train --lower-only``),
@@ -423,15 +436,37 @@ any profiler in the process; the LM and training profiles run last):
      the flash route (kernel 15 on local heads) against the one-card
      flash route.  Printed per rank: step ms, peak memory, the NCCL
      collectives a step beside the dry-run's for the same cut ((a)
-     traces each family's cut too).  A rank that fails (NCCL, the
+     traces each family's cut too).  Then, forward only, at full width
+     (``SHARDED_FORWARDS``): gemma3-4b's fifth and sixth layers (a
+     local layer sliding over 1,024 and a global one), qwen3-moe-30b-a3b's
+     first 2 units (all 128 experts, top-8) and mistral-large-123b's first
+     2 layers, a ``no_grad`` forward of 2 x 2048 each (traced for NCCL;
+     qwen3-moe's must all-gather no expert bank across ``model``), top-1
+     equal to the one-card forward's on at least 0.99 of the decisive
+     positions: bf16, and for qwen3-moe float32, the one held (phase 18's
+     rule for MoE; its bf16 share printed beside).
+     (e) continuous batching on the mesh: smollm-360m's weights (the
+     initial ones) in a ``ServeEngine`` of 8 slots of 1024 run under the
+     mesh on every rank (``with mesh:``; the caches placed by the rules,
+     each admitted group written into its slots by
+     ``serve/steps.py:write_slots``, the per-slot cache index written by
+     each rank into its stretch of the cache length), 4 prompts of 512
+     submitted before tick 1 and 4 of 384 before tick 2, 32 greedy tokens
+     each; then one ``decode_step`` under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), the step
+     timed (5 steps) and traced once for NCCL; rank 0, after the world's
+     work, runs the same engine on one card: the mesh's tokens equal to
+     its tokens on at least 0.99 of the decisive steps (a one-card
+     forward over prompt and tokens decides) up to each request's first
+     difference, one card's step timed beside the mesh's.  A rank that fails (NCCL, the
      kernels' build, a check) or does not end within 600 s fails the
      phase (a collective waits 120 s at most).  Each rank counts its own
      launches of kernels 3 and 15 over its sharded steps and forwards;
      the phase's counts are their sums.
 Every launch count is set to 0 just before each of phases 4, 5, 7, 8, 10,
-12, 15, 17, 18, 19 and 21 (in each of its ranks), phase 14's P1 drain and
-phase 16's pipelined drain, and read just after; a kernel's ``launches``
-is the sum over the thirteen.
+12, 15, 17, 18, 19, 21 (in each of its ranks) and 22 (in each card leg),
+phase 14's P1 drain and phase 16's pipelined drain, and read just after; a
+kernel's ``launches`` is the sum over the fourteen.
 The card's name and power limit, then the kernel table as JSON, come on
 the lines before the last; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -579,6 +614,21 @@ SHARDED_FAMILIES = {"deepseek-moe-16b": 2, "mamba2-2.7b": 4,
                     "llama-3.2-vision-11b": 1, "whisper-small": 12}
 SHARDED_FAMILY_FLASH = ("deepseek-moe-16b", "llama-3.2-vision-11b")
 SHARDED_FAMILY_BATCH, SHARDED_FAMILY_FORWARD = 8, 2
+#: the architectures that only run a forward on the rank world, at full
+#: width and cut in depth: gemma3-4b the smallest cut holding a local and a
+#: global layer (the fifth layer of its pattern, sliding over 1,024, and
+#: the sixth, global), qwen3-moe-30b-a3b 2 units of all 128 experts,
+#: mistral-large-123b 2 layers; a forward of SHARDED_FAMILY_FORWARD x
+#: TRAIN_SEQ each
+SHARDED_FORWARDS = {"gemma3-4b": 2, "qwen3-moe-30b-a3b": 2,
+                    "mistral-large-123b": 2}
+#: (e) continuous batching on the mesh: smollm-360m's engine with 8 slots
+#: of 1024, prompts of 512 and 384 tokens admitted as two groups on
+#: different ticks (4 each), 32 greedy new tokens each; the decode step
+#: then timed over this many steps
+ENGINE_SLOTS, ENGINE_LEN, ENGINE_NEW = 8, 1024, 32
+ENGINE_GROUPS = ((512, 4), (384, 4))
+ENGINE_TIMED = 5
 #: every rank done within this many seconds, or the phase fails
 SHARDED_JOIN_S = 600
 SHARDED_KERNELS = ("cond_bitmap", "flash_attention")
@@ -612,6 +662,163 @@ def family_inputs(torch, cfg, seq, dev):
         out["frames" if cfg.encoder_layers else "vision"] = torch.randn(
             (b, n, cfg.d_model), generator=gen, device=dev).bfloat16()
     return out
+
+
+def forward_cut(arch, f32=False):
+    """(``SHARDED_FORWARDS``' cut of ``arch``, its text length): a config
+    with a window pattern keeps the last local layer of its first group
+    and the global layer after it; ``f32`` widens it to float32 (``init``
+    then draws the bf16 model's numbers unrounded)."""
+    from repro_torch.configs import get_config
+    cfg, units = get_config(arch), SHARDED_FORWARDS[arch]
+    wp = cfg.window_pattern
+    if wp:
+        g = wp.index(0)
+        wp = wp[g - units + 1:g + 1]
+    cfg = cfg.with_(n_units=units, window_pattern=wp)
+    if f32:
+        cfg = cfg.with_(param_dtype="float32", compute_dtype="float32")
+    return cfg, TRAIN_SEQ
+
+
+def forward_routes(arch):
+    """(result key, float32) of each forward a forward-only architecture
+    runs on the mesh: bf16, and for MoE float32 too, the one held (phase
+    18's rule for MoE: bf16 rounding moves tokens across the top-k
+    routing and capacity boundaries, so bf16 top-1 is reported, not
+    held)."""
+    from repro_torch.configs import get_config
+    if get_config(arch).moe:
+        return (("top", False), ("top_f32", True))
+    return (("top", False),)
+
+
+def forward_tokens(torch, cfg, seq, dev):
+    """The seeded tokens of a forward-only architecture's forward
+    [SHARDED_FAMILY_FORWARD, seq], the same on every rank."""
+    import numpy as np
+    rng = np.random.default_rng(seq + cfg.d_model)
+    return torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SHARDED_FAMILY_FORWARD, seq)).astype(
+            np.int32)).to(dev)
+
+
+def engine_groups(vocab):
+    """(e)'s requests in their admission groups: seeded prompts of each
+    group's length, ``ENGINE_NEW`` greedy tokens each."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(21)
+    groups, rid = [], 0
+    for n, k in ENGINE_GROUPS:
+        group = []
+        for _ in range(k):
+            group.append(Request(rid, rng.integers(0, vocab, n).astype(
+                np.int32), max_new_tokens=ENGINE_NEW))
+            rid += 1
+        groups.append(group)
+    return groups
+
+
+def drive_engine(model, mesh=None):
+    """(e)'s engine on ``mesh`` (one card without one): each group
+    submitted before its own tick, then drained.  Returns the engine and
+    every request's tokens by id."""
+    import contextlib
+    from repro_torch.serve.engine import ServeEngine
+    groups = engine_groups(model.cfg.vocab_size)
+    with mesh if mesh is not None else contextlib.nullcontext():
+        eng = ServeEngine(model, max_slots=ENGINE_SLOTS, max_len=ENGINE_LEN,
+                          eos_id=-1, pipeline=False)
+        for group in groups:
+            for req in group:
+                eng.submit(req)
+            eng.step()
+        eng.run_until_drained()
+    return eng, {r.request_id: list(r.output) for g in groups for r in g}
+
+
+def mesh_engine(torch, model, mesh):
+    """Phase 21 (e) on a rank: smollm-360m's continuous batching on the
+    mesh (``drive_engine``), then, after a warm-up step, one
+    ``decode_step`` of its 8 slots under ``set_sync_debug_mode("error")``
+    (any host sync raises), the step timed over ``ENGINE_TIMED`` steps and
+    traced once for its NCCL collectives."""
+    import numpy as np
+    from repro_torch.launch.dryrun import TraceCounter
+    from repro_torch.launch.roofline import parse_collectives
+    t0 = time.perf_counter()
+    eng, outputs = drive_engine(model, mesh)
+    r = {"outputs": outputs, "steps": eng.steps,
+         "drain_s": time.perf_counter() - t0}
+    tokens = np.zeros((ENGINE_SLOTS, 1), np.int32)
+    with mesh:
+        model.decode_step(eng._device_tokens(tokens), eng.cache)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            model.decode_step(eng._device_tokens(tokens), eng.cache)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ms = []
+        for _ in range(ENGINE_TIMED):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model.decode_step(eng._device_tokens(tokens), eng.cache)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        with TraceCounter(meta_only=False) as tc:
+            model.decode_step(eng._device_tokens(tokens), eng.cache)
+        torch.cuda.synchronize()
+    coll = parse_collectives(tc.records)
+    r.update(step_ms=ms, nccl_bytes=coll.total_bytes, nccl_count=coll.count,
+             nccl_by_op=coll.by_op, s=time.perf_counter() - t0)
+    return r
+
+
+def one_card_engine(torch, model, mesh_outputs):
+    """Rank 0 after the world's work: (e)'s engine on one card with the
+    same weights and requests; the mesh's tokens held against it on the
+    decisive steps (by a one-card forward over the prompt and the
+    one-card tokens, phase 12's rule) up to each request's first step
+    where the two differ (past it the two engines feed different
+    tokens).  Its decode step timed as the mesh's is.  Returns the
+    counts, the share and the step's ms."""
+    import numpy as np
+    t0 = time.perf_counter()
+    eng, outputs = drive_engine(model)
+    tokens = np.zeros((ENGINE_SLOTS, 1), np.int32)
+    ms = []
+    for _ in range(ENGINE_TIMED + 1):         # the first a warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model.decode_step(eng._device_tokens(tokens), eng.cache)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    groups = engine_groups(model.cfg.vocab_size)
+    agree = n_decisive = steps = 0
+    dev = model.device
+    for group in groups:
+        n = len(group[0].prompt)
+        seqs = torch.stack([torch.from_numpy(np.concatenate(
+            [r.prompt, np.asarray(outputs[r.request_id][:-1], np.int32)]))
+            for r in group]).to(dev)
+        ref = model({"tokens": seqs})[0][:, n - 1:].float()
+        mask, _ = decisive(torch, ref)
+        for row, req in zip(mask.cpu().tolist(), group):
+            one = outputs[req.request_id]
+            got = mesh_outputs[req.request_id]
+            for k, (a, b) in enumerate(zip(got, one)):
+                if row[k]:
+                    n_decisive += 1
+                    agree += a == b
+                if a != b:
+                    break
+            steps += len(one)
+        del ref
+    return {"agree": agree, "n_decisive": n_decisive, "steps": steps,
+            "share": agree / max(n_decisive, 1), "one_card_steps": eng.steps,
+            "step_ms": ms[1:], "s": time.perf_counter() - t0}
 
 
 def forward_part(batch):
@@ -680,6 +887,37 @@ def sharded_families(torch, mesh, dev, rank, out):
         torch.cuda.reset_peak_memory_stats()
         r["s"] = time.perf_counter() - t0
         res[arch] = r
+        log(f"21. rank {rank}: {arch} done")
+    for arch in SHARDED_FORWARDS:
+        t0 = time.perf_counter()
+        r = {"forward_only": True}
+        for key, f32 in forward_routes(arch):
+            cfg, seq = forward_cut(arch, f32)
+            tokens = forward_tokens(torch, cfg, seq, dev)
+            model = shard_model(build_model(cfg, dev).init(0), mesh)
+            with mesh:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                with TraceCounter(meta_only=False) as tc:
+                    r[key] = model({"tokens": tokens})[0].full_tensor() \
+                        .argmax(-1).cpu()
+                torch.cuda.synchronize()
+                r[f"{key}_ms"] = (time.perf_counter() - t1) * 1e3
+            coll = parse_collectives(tc.records)
+            r[f"{key}_nccl"] = [coll.count, coll.total_bytes, coll.by_op]
+            if cfg.moe:
+                r["bank_gathers"] = bank_gathers_over_model(tc.records,
+                                                            model, mesh)
+                require(not r["bank_gathers"],
+                        f"21. rank {rank}: {arch}'s forward all-gathered an "
+                        f"expert bank across model: {r['bank_gathers']}")
+            del model
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r["s"] = time.perf_counter() - t0
+        res[arch] = r
+        log(f"21. rank {rank}: {arch} done")
     return res
 
 
@@ -710,6 +948,28 @@ def one_card_families(torch, dev, sharded):
     from repro_torch.train.train_step import make_train_step, unit_layout
     for arch, r in sharded.items():
         t0 = time.perf_counter()
+        if r.get("forward_only"):
+            routes = forward_routes(arch)
+            for key, f32 in routes:
+                cfg, seq = forward_cut(arch, f32)
+                model = build_model(cfg, dev).init(0)
+                ref = model({"tokens": forward_tokens(torch, cfg, seq,
+                                                      dev)})[0].float()
+                mask, _ = decisive(torch, ref)
+                share = agreement(torch, r.pop(key).to(dev),
+                                  ref.argmax(-1), mask)
+                r[f"{key}_share"] = share
+                r[f"{key}_decisive"] = int(mask.sum())
+                del model, ref
+                torch.cuda.empty_cache()
+            held = routes[-1][0]
+            require(r[f"{held}_share"][1] >= 0.99,
+                    f"21. {arch}: the sharded forward's top-1 "
+                    f"({'float32' if held == 'top_f32' else 'bf16'}) agrees "
+                    f"with one card's on {r[f'{held}_share'][1]:.4f} < 0.99 "
+                    f"of the decisive positions")
+            r["one_card_s"] = time.perf_counter() - t0
+            continue
         cfg, seq = family_cut(arch)
         batch = family_inputs(torch, cfg, seq, dev)
         model = open_gates(build_model(cfg, dev).init(0))
@@ -986,16 +1246,30 @@ def sharded_rank_main(argv) -> int:
                                 for leaf in placed.values())
     del placed
 
-    # the MoE, SSM, VLM and encoder-decoder families on the mesh, smollm's
-    # trained state freed first (its checks read the initial weights)
-    del params, state, model
+    # (e) continuous batching on the mesh: the engine over smollm-360m's
+    # initial weights (the steps trained copies), its trained state freed
+    del params, state
+    torch.cuda.empty_cache()
+    log(f"21. rank {rank}: smollm's steps, forwards and restore done")
+    out["engine"] = mesh_engine(torch, model, mesh)
+    log(f"21. rank {rank}: (e) done")
+
+    # the MoE, SSM, VLM and encoder-decoder families on the mesh (and the
+    # forward-only architectures)
+    del model
     torch.cuda.empty_cache()
     before = {n: w.launches for n, w in wrappers.items()}
     out["families"] = sharded_families(torch, mesh, dev, rank, out)
     for n, w in wrappers.items():    # the checks between are not counted
         out["launches"][n] += w.launches - before[n]
 
-    # the one-card steps on the same weights and batches (rank 0)
+    # the one-card steps on the same weights and batches (rank 0): every
+    # collective is done, so the other ranks end here and none waits in a
+    # collective while rank 0 checks (a failed check would leave it there)
+    log(f"21. rank {rank}: the mesh's work done")
+    dist.barrier()
+    if rank:
+        dist.destroy_process_group()
     t0 = time.perf_counter()
     if rank == 0:
         ref_model = build_model(cfg, dev)
@@ -1030,18 +1304,26 @@ def sharded_rank_main(argv) -> int:
                 f"21. smollm's sharded flash forward agrees with the "
                 f"one-card forward on {out['one_card']['seq_flash']} of the "
                 f"decisive positions")
-        del ref_model, p1, s1, first
+        del p1, s1, first
+        torch.cuda.empty_cache()
+        eng = one_card_engine(torch, ref_model, out["engine"]["outputs"])
+        out["engine"]["one_card"] = eng
+        require(eng["share"] >= 0.99,
+                f"21. (e) the engine on the mesh gives one card's tokens on "
+                f"{eng['share']:.4f} < 0.99 of the decisive steps: {eng}")
+        del ref_model
     del batches, got
     torch.cuda.empty_cache()
     if rank == 0:
         one_card_families(torch, dev, out["families"])
     for r in out["families"].values():         # tensors: not for the log
-        r.pop("top", None)
-        r.pop("flash_top", None)
+        for key in [k for k, v in r.items() if hasattr(v, "shape")]:
+            r.pop(key)
+    out["engine"].pop("outputs")
     out["one_card_s"] = time.perf_counter() - t0
     (d / f"rank{rank}.json").write_text(json.dumps(out))
-    dist.barrier()
-    dist.destroy_process_group()
+    if rank == 0:
+        dist.destroy_process_group()
     return 0
 
 
@@ -1130,8 +1412,14 @@ def sharded_phase(torch, card, lake=None):
             p.wait(timeout=max(deadline - time.perf_counter(), 1))
         a_s = time.perf_counter() - t0
         (d / "traced").touch()
-        for p, _ in ranks:
-            p.wait(timeout=max(deadline - time.perf_counter(), 1))
+        try:
+            for p, _ in ranks:
+                p.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            require(False, f"21. a rank did not end within {SHARDED_JOIN_S}"
+                    f" s; the ranks' logs end: " + " | ".join(
+                        f"rank {r}: " + (d / f"rank{r}.log").read_text()[-1500:]
+                        for r in range(n)))
         b_s = time.perf_counter() - t0
     finally:
         for p, f in ranks:
@@ -1197,7 +1485,64 @@ def sharded_phase(torch, card, lake=None):
     log(f"21. (b) {LM_ARCH}'s flash forward on the mesh: top-1 equal to the "
         f"one-card forward on {sq[1]:.4f} of the decisive positions "
         f"({sq[0]:.4f} of all)")
+    e0 = res[0]["engine"]
+    one_e = e0["one_card"]
+    log(f"21. (e) continuous batching on {describe_mesh(shape, axes)}: "
+        f"{LM_ARCH} at full width, ServeEngine of {ENGINE_SLOTS} slots of "
+        f"{ENGINE_LEN}, prompts of " + " and ".join(
+            f"{n} ({k} requests)" for n, k in ENGINE_GROUPS)
+        + f" admitted on ticks 1 and 2, {ENGINE_NEW} greedy tokens each, "
+        f"{e0['steps']} decode ticks ({one_e['one_card_steps']} on one "
+        f"card): tokens equal to the one-card engine's on "
+        f"{one_e['agree']}/{one_e['n_decisive']} = {one_e['share']:.4f} of "
+        f"the decisive steps ({one_e['steps']} steps in all); the drain "
+        f"{e0['drain_s']:.1f} s on the mesh, {one_e['s']:.1f} s one card "
+        f"with its forward check; decode_step on the mesh took no host "
+        f"sync (set_sync_debug_mode(\"error\")); one card's decode_step "
+        f"of {ENGINE_SLOTS} slots ms " + " ".join(
+            f"{x:.2f}" for x in one_e["step_ms"])
+        + f" (median {statistics.median(one_e['step_ms']):.2f}); on {card}")
+    for r in res:
+        e = r["engine"]
+        log(f"21. (e) rank {r['rank']}: decode_step of {ENGINE_SLOTS} slots "
+            f"ms " + " ".join(f"{x:.2f}" for x in e["step_ms"])
+            + f" (median {statistics.median(e['step_ms']):.2f}); NCCL "
+            f"collectives a step {e['nccl_count']} moving "
+            f"{e['nccl_bytes']:,} B {e['nccl_by_op']}; on {card}")
     for arch, f0 in res[0]["families"].items():
+        if f0.get("forward_only"):
+            cfg, seq = forward_cut(arch)
+            log(f"21. (b) {arch} ({cfg.num_layers} layers at full width"
+                + (f", windows {cfg.window_pattern}" if cfg.window_pattern
+                   else "")
+                + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k}"
+                   if cfg.moe else "")
+                + f") on {describe_mesh(shape, axes)}: a no_grad forward of "
+                f"{SHARDED_FAMILY_FORWARD} x {seq} "
+                + "; ".join(
+                    f"{'float32 (held)' if key == 'top_f32' else 'bf16'}: "
+                    f"top-1 equal to one card's on "
+                    f"{f0[key + '_share'][1]:.4f} of "
+                    f"{f0[key + '_decisive']:,} decisive positions "
+                    f"({f0[key + '_share'][0]:.4f} of all), per rank ms "
+                    "(traced) " + " ".join(
+                        f"{r['families'][arch][key + '_ms']:.1f}"
+                        for r in res)
+                    + ", NCCL a forward " + " ".join(
+                        f"{r['families'][arch][key + '_nccl'][0]}/"
+                        f"{r['families'][arch][key + '_nccl'][1]:,} B"
+                        for r in res)
+                    + f" {f0[key + '_nccl'][2]}"
+                    for key, _ in forward_routes(arch))
+                + (f", expert banks all-gathered across model: "
+                   f"{len(f0['bank_gathers'])}" if "bank_gathers" in f0
+                   else "")
+                + ", peak " + " ".join(
+                    f"{r['families'][arch]['peak_bytes'] / 2**30:.2f}"
+                    for r in res)
+                + f" GiB; {f0['s']:.1f} s on the mesh, "
+                f"{f0['one_card_s']:.1f} s one card")
+            continue
         cfg, seq = family_cut(arch)
         log(f"21. (b) {arch} ({cfg.num_layers} + {cfg.encoder_layers} "
             f"encoder layers at full width) on {describe_mesh(shape, axes)}:"
@@ -5772,6 +6117,143 @@ def launch_phase(torch, card, dry_run: bool = True):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 22: the port's four examples, on the card and on the CPU
+# --------------------------------------------------------------------------
+
+#: each example (``examples/<name>_torch.py``) and the arguments both of
+#: its legs take
+EXAMPLES = {"quickstart": [], "ldbc_queries": [], "serve_batched": [],
+            "train_graph_corpus": ["--steps", "3"]}
+#: every leg done within this many seconds, or the phase fails
+EXAMPLES_S = 240
+
+
+def example_run_main(argv) -> int:
+    """``--example-run OUT NAME [ARGS]``: the port's example NAME run on
+    the card as a user runs it (its own ``__main__``, ``--device`` left at
+    its default), every kernel's launch count set to 0 before it; the
+    counts written to OUT as JSON."""
+    import runpy
+    out, name, args = argv[0], argv[1], argv[2:]
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    path = ROOT / "examples" / f"{name}_torch.py"
+    sys.path.insert(0, str(path.parent))
+    sys.argv = [str(path)] + args
+    runpy.run_path(str(path), run_name="__main__")
+    Path(out).write_text(json.dumps({n: w.launches
+                                     for n, w in wrappers.items()}))
+    return 0
+
+
+def examples_phase(torch, card):
+    """Phase 22: each port example in a process of its own on the card
+    (``--example-run``) and with ``--device cpu``, all eight at once; the
+    two legs' deterministic lines equal (``examples/_torch_example.py``),
+    each card leg's kernel launches counted.  Returns the launches summed
+    over the examples."""
+    import os
+    import shutil
+    sys.path.insert(0, str(ROOT / "examples"))
+    from _torch_example import deterministic_lines
+    t0 = time.perf_counter()
+    d = ROOT / "build" / "chip_smoke_examples"
+    shutil.rmtree(d, ignore_errors=True)
+    procs = {}
+    try:
+        for name, args in EXAMPLES.items():
+            for leg in ("cuda", "cpu"):
+                tmp = d / f"{name}_{leg}"
+                tmp.mkdir(parents=True)
+                env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                           TMPDIR=str(tmp))
+                if leg == "cuda":
+                    cmd = [sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--example-run", str(tmp / "launches.json"),
+                           name] + args
+                else:       # four CPU legs share the host with the others
+                    env["OMP_NUM_THREADS"] = "2"
+                    cmd = [sys.executable,
+                           str(ROOT / "examples" / f"{name}_torch.py"),
+                           "--device", "cpu"] + args
+                procs[name, leg] = (tmp, subprocess.Popen(
+                    cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True))
+        deadline = time.perf_counter() + EXAMPLES_S
+        outs = {}
+        for key, (tmp, p) in procs.items():
+            out, err = p.communicate(
+                timeout=max(deadline - time.perf_counter(), 1))
+            require(p.returncode == 0, f"22. {key[0]} on {key[1]} exited "
+                    f"{p.returncode}: {err[-3000:]}")
+            outs[key] = (out, str(tmp), time.perf_counter() - t0)
+    finally:
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    total = {}
+    for name in EXAMPLES:
+        (gpu, gpu_tmp, gpu_s), (cpu, cpu_tmp, cpu_s) = \
+            outs[name, "cuda"], outs[name, "cpu"]
+        require(gpu.startswith(f"device: {card}\n"),
+                f"22. {name} on the card did not name it first: "
+                f"{gpu[:200]!r}")
+        a = deterministic_lines(gpu, gpu_tmp)
+        b = deterministic_lines(cpu, cpu_tmp)
+        require(a == b and len(a) > 3, f"22. {name}: the card's lines "
+                f"{a} are not the CPU's {b}")
+        launches = json.loads((d / f"{name}_cuda" / "launches.json")
+                              .read_text())
+        require(sum(launches.values()) > 0,
+                f"22. {name} launched no kernel on the card")
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c
+        log(f"22. {name}_torch: {len(a)} lines equal on the card and the "
+            f"CPU; launches on the card " + ", ".join(
+                f"{n} {c}" for n, c in launches.items() if c)
+            + f"; done {gpu_s:.1f} s (card) and {cpu_s:.1f} s (CPU) into "
+            f"the phase, on {card}")
+        for line in gpu.splitlines():
+            log(f"22.   {line}")
+    shutil.rmtree(d, ignore_errors=True)
+    log(f"22. examples: the four ports' card and CPU lines equal "
+        f"({time.perf_counter() - t0:.1f} s) on {card}")
+    return total
+
+
+def kernel_wrappers():
+    """Every kernel's wrapper by the name its row and counts take."""
+    from repro_torch.kernels.bitmap_select import kernel as BK
+    from repro_torch.kernels.flash_attention import kernel as AK
+    from repro_torch.kernels.label_filter import kernel as LK
+    from repro_torch.kernels.pac_decode import kernel as PK
+    from repro_torch.kernels.rle_filter import kernel as FK
+    from repro_torch.kernels.traversal import kernel as TK
+    return {"gather_decode": PK.gather_decode,
+            "fused_gather_decode_bitmap_batch":
+                PK.fused_gather_decode_bitmap_batch,
+            "cond_bitmap": LK.cond_bitmap,
+            "fused_gather_decode_filter_bitmap_batch":
+                LK.fused_gather_decode_filter_bitmap_batch,
+            "khop_scan": TK.khop_scan, "two_hop": TK.two_hop,
+            "count_hop": TK.count_hop,
+            "delta_decode": PK.delta_decode,
+            "fused_decode_bitmap_batch": PK.fused_decode_bitmap_batch,
+            "fused_decode_filter_bitmap_batch":
+                LK.fused_decode_filter_bitmap_batch,
+            "bitmap": PK.bitmap,
+            "fused_decode_bitmap": PK.fused_decode_bitmap,
+            "rle_to_bitmap": FK.rle_to_bitmap,
+            "bitmap_select": BK.bitmap_select,
+            "flash_attention": AK.flash_attention,
+            "seed_words": TK.seed_words,
+            "expand_words": TK.expand_words,
+            "merge_hop": TK.merge_hop}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5808,6 +6290,9 @@ def main() -> int:
                       help="run phases 1-2 and 20 only (the launch layer: "
                       "the dry-run, its roofline against the card, "
                       "elastic restore, the serve CLI)")
+    only.add_argument("--examples", action="store_true",
+                      help="run phases 1-2 and 22 only (the port's four "
+                      "examples on the card and on the CPU)")
     only.add_argument("--sharded", action="store_true",
                       help="run phases 1-2 and 21 only (sharded execution "
                       "on a world of NCCL ranks, one a card, and the "
@@ -5831,12 +6316,6 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.bitmap_select import kernel as BK
-    from repro_torch.kernels.flash_attention import kernel as AK
-    from repro_torch.kernels.label_filter import kernel as LK
-    from repro_torch.kernels.pac_decode import kernel as PK
-    from repro_torch.kernels.rle_filter import kernel as FK
-    from repro_torch.kernels.traversal import kernel as TK
     t0 = time.perf_counter()
     lib = _build.library_path()
     _build.library()
@@ -5854,26 +6333,7 @@ def main() -> int:
     spill_free(report, "_rle_filter_cu_", "the RLE-label kernel")
     spill_free(report, "_bitmap_select_cu_", "the selection kernel")
 
-    wrappers = {"gather_decode": PK.gather_decode,
-                "fused_gather_decode_bitmap_batch":
-                    PK.fused_gather_decode_bitmap_batch,
-                "cond_bitmap": LK.cond_bitmap,
-                "fused_gather_decode_filter_bitmap_batch":
-                    LK.fused_gather_decode_filter_bitmap_batch,
-                "khop_scan": TK.khop_scan, "two_hop": TK.two_hop,
-                "count_hop": TK.count_hop,
-                "delta_decode": PK.delta_decode,
-                "fused_decode_bitmap_batch": PK.fused_decode_bitmap_batch,
-                "fused_decode_filter_bitmap_batch":
-                    LK.fused_decode_filter_bitmap_batch,
-                "bitmap": PK.bitmap,
-                "fused_decode_bitmap": PK.fused_decode_bitmap,
-                "rle_to_bitmap": FK.rle_to_bitmap,
-                "bitmap_select": BK.bitmap_select,
-                "flash_attention": AK.flash_attention,
-                "seed_words": TK.seed_words,
-                "expand_words": TK.expand_words,
-                "merge_hop": TK.merge_hop}
+    wrappers = kernel_wrappers()
 
     def drive(phase, *args, **kwargs):
         """Run one slice phase with every launch count set to 0 just
@@ -5884,10 +6344,16 @@ def main() -> int:
         return out, {n: w.launches for n, w in wrappers.items()}
 
     rows, counts, serve, train = [], [], None, None
-    lm_only = args.lm or args.serve or args.families or args.train \
-        or args.launch or args.sharded
-    if not graph_only and not args.serve and not args.families \
-            and not args.train and not args.launch and not args.sharded:
+    flag = next((f for f in ("lm", "serve", "families", "train", "launch",
+                             "sharded", "examples") if getattr(args, f)),
+                graph_only)
+
+    def runs(*flags):
+        """Whether a phase runs: every phase in the full run, else those
+        of the flag given."""
+        return flag is None or flag in flags
+
+    if runs("lm"):
         # the LM slice first: its host timings come before any profiler in
         # the process (phases 5 and 8 profile); its own profile runs last
         t0 = time.perf_counter()
@@ -5905,8 +6371,7 @@ def main() -> int:
             f"({time.perf_counter() - t0:.1f} s)")
         torch.cuda.empty_cache()
 
-    if not graph_only and not args.serve and not args.lm and not args.train \
-            and not args.launch and not args.sharded:
+    if runs("families"):
         # the rest of the LM stack, before any profiler in the process
         t0 = time.perf_counter()
         _, f_launches = drive(families_phase, torch, card)
@@ -5921,8 +6386,7 @@ def main() -> int:
         rows += family_flash_rows(torch)
         torch.cuda.empty_cache()
 
-    if not graph_only and not args.lm and not args.families \
-            and not args.train and not args.launch and not args.sharded:
+    if runs("serve"):
         # the serving path, before any profiler in the process too
         t0 = time.perf_counter()
         serve = serve_phase(torch, card, drive)
@@ -5935,8 +6399,7 @@ def main() -> int:
             + f" ({time.perf_counter() - t0:.1f} s) on {card}")
         counts.append(s_launches)
 
-    if not graph_only and not args.lm and not args.families \
-            and not args.serve and not args.launch and not args.sharded:
+    if runs("train"):
         # training, before any profiler in the process; on phase 14's lake
         t0 = time.perf_counter()
         train, r_launches = drive(train_phase, torch, card,
@@ -5951,12 +6414,13 @@ def main() -> int:
         counts.append(r_launches)
         torch.cuda.empty_cache()
 
-    if not lm_only:
+    if runs("traversal", "per-dispatch", "resident", "entries", "mutable",
+            "partitions"):
         graph_rows, graph_counts = graph_phases(torch, drive, wrappers, card,
                                                 graph_only)
         rows = graph_rows + rows
         counts += graph_counts
-    if graph_only in (None, "mutable") and not lm_only:
+    if runs("mutable"):
         t0 = time.perf_counter()
         m_launches = serve_mutable_phase(torch, card, serve,
                                          drive)["launches"]
@@ -5968,8 +6432,7 @@ def main() -> int:
             + ", ".join(f"{n} {c}" for n, c in m_launches.items() if c)
             + f" ({time.perf_counter() - t0:.1f} s) on {card}")
         counts.append(m_launches)
-    if not graph_only and not args.serve and not args.families \
-            and not args.train and not args.launch and not args.sharded:
+    if runs("lm"):
         t0 = time.perf_counter()
         lm_profile_phase(torch, lm)
         if serve is not None:
@@ -5978,8 +6441,7 @@ def main() -> int:
     if train is not None:
         train_profile_phase(torch, train, card)
     lake = serve["lake"] if serve else None
-    if not graph_only and not args.lm and not args.serve \
-            and not args.families and not args.train and not args.sharded:
+    if runs("launch"):
         # the launch layer: (b) profiles, and runs the card's largest
         # batches with the earlier phases' models freed
         lm = serve = train = None
@@ -5990,8 +6452,14 @@ def main() -> int:
         launch_phase(torch, card, dry_run=args.launch)
         log(f"20. launch: (a)-(d) pass ({time.perf_counter() - t0:.1f} s) "
             f"on {card}")
-    if not graph_only and not args.lm and not args.serve \
-            and not args.families and not args.train and not args.launch:
+    if runs("examples"):
+        # the examples in processes of their own, the earlier phases'
+        # models freed; each card leg counts its own launches
+        lm = serve = train = None
+        torch.cuda.empty_cache()
+        counts.append({**{n: 0 for n in wrappers},
+                       **examples_phase(torch, card)})
+    if runs("sharded"):
         # sharded execution last: its ranks are processes of their own,
         # each counting its own launches; the counts are their sums
         lm = serve = train = None
@@ -6140,6 +6608,8 @@ def entry_phases(torch, drive, adj, truth, batches, oracle, card):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sharded-rank"]:
         sys.exit(sharded_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--example-run"]:
+        sys.exit(example_run_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--trace-cell"]:
         sys.exit(trace_cell_main(sys.argv[2:]))
     sys.exit(main())

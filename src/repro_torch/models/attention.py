@@ -246,66 +246,90 @@ def _write_cache(cache: Dict, k: torch.Tensor, v: torch.Tensor) -> Dict:
     A scalar index writes one slice for every slot, its start clamped so
     the slice fits (``dynamic_update_slice``); a vector index writes slot
     b at ``index[b] + arange(s)`` and drops the positions past the cache's
-    end (``.at[].set(mode="drop")``).
-
-    The drop takes no host sync (a boolean mask would: its ``nonzero``
-    reads the mask's count back): every position is written at its column
-    clamped to ``t - 1``, and a dropped one writes the value that column
-    receives anyway -- the row's own write at ``t - 1`` if it has one, else
-    the cache's current value there -- so repeated indices carry equal
-    values and the result is the drop's."""
+    end (``.at[].set(mode="drop")``), through :func:`_scatter_rows`.  A
+    scalar index is a 0-dim CPU tensor (``place`` leaves it as it is on a
+    mesh), so its start costs no device round trip."""
     ck, cv, idx = cache["k"], cache["v"], cache["index"]
-    b, s = k.shape[:2]
-    t = ck.shape[1]
     if hasattr(ck, "device_mesh"):
         return _write_sharded_cache(cache, k, v)
+    s, t = k.shape[1], ck.shape[1]
     if idx.dim() == 0:
         start = min(max(int(idx), 0), t - s)
         ck[:, start:start + s] = k.to(ck.dtype)
         cv[:, start:start + s] = v.to(cv.dtype)
     else:
-        rows = torch.arange(b, device=ck.device)[:, None].expand(b, s)
-        base = idx.to(ck.device).long()[:, None]
-        cols = (base + torch.arange(s, device=ck.device)[None, :]) \
-            .clamp(max=t - 1)
-        src = cols - base               # the call's position at that column
-        own = (src >= 0)[:, :, None, None]
-        src = src.clamp(min=0)[:, :, None, None].expand(k.shape)
         for c, new in ((ck, k), (cv, v)):
-            vals = torch.where(own, new.gather(1, src).to(c.dtype),
-                               c[rows, cols])
-            c[rows, cols] = vals
+            _scatter_rows(c, new, idx)
     return {"k": ck, "v": cv, "index": idx + s}
+
+
+def _scatter_rows(c: torch.Tensor, new: torch.Tensor, base: torch.Tensor,
+                  first: int = 0) -> None:
+    """Write row r of ``new`` [b, s, ...] at columns ``base[r] + arange(s)``
+    of ``c`` [b, n, ...], in place, where ``c`` holds the cache's columns
+    ``first .. first + n - 1`` (the whole length on one card, a rank's
+    stretch of it on a mesh); a column outside the stretch (past the
+    cache's end among them) is dropped.
+
+    The drop takes no host sync (a boolean mask would: its ``nonzero``
+    reads the mask's count back): every position is written at its column
+    clamped into the stretch, and a dropped one writes the value that
+    column receives anyway -- the row's own write there if it has one,
+    else the cache's current value -- so repeated indices carry equal
+    values and the result is the drop's."""
+    b, s = new.shape[:2]
+    dev = c.device
+    rows = torch.arange(b, device=dev)[:, None].expand(b, s)
+    base = base.to(dev).long()[:, None]
+    cols = (base + torch.arange(s, device=dev)[None, :]) \
+        .clamp(first, first + c.shape[1] - 1)
+    src = cols - base                   # the call's position at that column
+    tail = (1,) * (new.dim() - 2)
+    own = ((src >= 0) & (src < s)).view(b, s, *tail)
+    src = src.clamp(0, s - 1).view(b, s, *tail).expand(new.shape)
+    local = cols - first
+    c[rows, local] = torch.where(own, new.gather(1, src).to(c.dtype),
+                                 c[rows, local])
 
 
 def _write_sharded_cache(cache: Dict, k: torch.Tensor,
                          v: torch.Tensor) -> Dict:
-    """The scalar-index write into a cache of DTensors (placed by
-    ``shard_cache``): the new entries are placed as the cache is but
-    whole along its length, and each rank writes the part of the slice
-    that falls in its own stretch of the length, in place."""
+    """The write into a cache of DTensors (placed by ``shard_cache``):
+    the new entries are placed as the cache is but whole along its length
+    (the length split over ``model``, or over every axis at batch 1; where
+    it does not divide, the head dim is split instead and the entries go
+    to that placement), and each rank writes, in place, the part of every
+    one of its rows' columns ``index .. index + s - 1`` that falls in its
+    own stretch of the length.  A scalar index (on the host) writes a
+    slice; a per-slot index (replicated, as ``cache_spec`` gives it
+    ``P()``) goes through :func:`_scatter_rows` over the rank's rows and
+    stretch, dropping past the cache's end as one card does.  Neither
+    reads a device value on the host."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    from repro_torch.distributed.sharding import local_range
     ck, cv, idx = cache["k"], cache["v"], cache["index"]
-    if idx.dim():
-        raise NotImplementedError("a per-slot cache index on a distributed "
-                                  "mesh")
     s, t = k.shape[1], ck.shape[1]
-    start = min(max(int(idx), 0), t - s)
     dm, pl = ck.device_mesh, list(ck.placements)
     whole = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
              for p in pl]
     first, length = local_range(ck, 1)
-    lo, hi = max(start, first), min(start + s, first + length)
-    for c, new in ((ck, k), (cv, v)):
+    news = []
+    for new in (k, v):
         if not isinstance(new, DTensor):
             new = DTensor.from_local(new, dm, [Replicate()] * dm.ndim,
                                      run_check=False)
-        new = new.redistribute(dm, whole).to_local()
+        news.append(new.redistribute(dm, whole).to_local())
+    if idx.dim() == 0:
+        start = min(max(int(idx), 0), t - s)
+        lo, hi = max(start, first), min(start + s, first + length)
         if lo < hi:
-            c.to_local()[:, lo - first:hi - first] = \
-                new[:, lo - start:hi - start].to(c.dtype)
+            for c, new in zip((ck, cv), news):
+                c.to_local()[:, lo - first:hi - first] = \
+                    new[:, lo - start:hi - start].to(c.dtype)
+    else:
+        row0, rows = local_range(ck, 0)
+        starts = idx.to_local() if isinstance(idx, DTensor) else idx
+        for c, new in zip((ck, cv), news):
+            _scatter_rows(c.to_local(), new, starts[row0:row0 + rows], first)
     return {"k": ck, "v": cv, "index": idx + s}
 
 

@@ -54,6 +54,13 @@ counted, reversible steps; an attached
 rewind and seeded-backoff retries (delays recorded, never slept);
 :meth:`ingest` forwards an edge batch to the retriever's mutable plane.
 
+On a distributed mesh the engine runs under it (``with mesh:``) as it
+is: the model's parameters are DTensors (``shard_model``), its caches are
+placed by the rules when they are made, each rank writes its own rows of
+an admitted group (``steps.write_slots``), and the tick reads the logits
+whole, once, to sample.  Every rank drives the same engine on the same
+requests.
+
 Differences from the reference: no jit (``decode_step`` and ``prefill``
 are plain calls of the model, which holds its weights, so the engine takes
 no ``params``); the prefill template cache is zeroed before each use,
@@ -79,7 +86,7 @@ from repro_torch.ft.faults import check as fault_check
 from repro_torch.models.model import LM
 from .overload import OverloadConfig, OverloadController
 from .sampling import sample
-from .steps import write_slots
+from .steps import _local, write_slots
 from .tenancy import (RequestStatus, SubmitOutcome, SubmitStatus,
                       TenantConfig, TenantScheduler)
 
@@ -89,6 +96,12 @@ def _pipeline_default() -> bool:
     can flip it per engine): pipelined serving is on unless disabled."""
     return os.environ.get("REPRO_PIPELINE", "1") \
         .strip().lower() not in ("0", "false", "no", "off")
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's global value (gathered on every rank); anything else
+    as it is."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
 @dataclasses.dataclass
@@ -393,7 +406,7 @@ class ServeEngine:
             for part in layer.values():
                 for name, leaf in part.items():
                     if name != "index":
-                        leaf.zero_()
+                        _local(leaf).zero_()
         return tmpl
 
     def _prefill_group(self, grp: List[tuple]) -> None:
@@ -421,7 +434,7 @@ class ServeEngine:
 
             logits, tmp_cache = self._fault_retry(attempt)
         write_slots(self.cache, tmp_cache, [s for s, _ in grp])
-        toks = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        toks = torch.argmax(_whole(logits)[:, -1], dim=-1).cpu().numpy()
         for (slot, req), tok in zip(grp, toks):
             self.slot_pos[slot] = len(req.prompt)
             req.output.append(int(tok))
@@ -576,6 +589,7 @@ class ServeEngine:
         # argmax is independent per row, so batching is bit-identical);
         # temperature>0 slots draw one by one from the engine's generator
         tok_of: Dict[int, int] = {}
+        logits = _whole(logits)
         greedy = [i for i in active if self.slots[i].temperature <= 0.0] \
             if self.batched else []
         if greedy:

@@ -98,6 +98,8 @@ def run_model(case, mesh):
             steps.append(lg)
         res["decode_logits"] = steps
         res["greedy"] = torch.cat(toks, 1)
+        if "slots" in case:
+            res["slots"] = run_slots(model, b["tokens"], case["slots"])
         if "routing" in case:
             res["routing"] = run_routing(model, cfg, case["routing"], mesh)
         res["train"] = {}
@@ -119,6 +121,38 @@ def run_model(case, mesh):
                                 {"params": p, "opt": state},
                                 extra={"next_step": n_steps})
     return res
+
+
+def run_slots(model, tokens, case):
+    """Per-slot prefill and decode on the ambient mesh (see
+    ``tests/_torch_slots.py``): each group prefilled into a scalar-index
+    cache of its width and written into its slots of a vector-index
+    cache by ``write_slots``, then every slot decoded at its own
+    position."""
+    from repro_torch.serve.steps import write_slots
+    b = tokens.shape[0]
+    cache = model.init_cache(b, case["max_len"], dtype=torch.float32,
+                             vector_index=True)
+    first = torch.zeros((b, 1), dtype=torch.int32)
+    pre = []
+    for slots, n in case["groups"]:
+        tmpl = model.init_cache(len(slots), case["max_len"],
+                                dtype=torch.float32)
+        lg, tmp = model.prefill({"tokens": tokens[list(slots), :n]}, tmpl)
+        write_slots(cache, tmp, slots)
+        lg = full(lg)
+        pre.append(lg)
+        first[list(slots), 0] = lg[:, -1].argmax(-1).to(torch.int32)
+    tok, toks, steps = first, [first], []
+    for _ in range(case["decode"]):
+        lg, cache = model.decode_step(tok, cache)
+        lg = full(lg)
+        steps.append(lg)
+        tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(tok)
+    return {"prefill": pre, "decode": steps, "greedy": torch.cat(toks, 1),
+            "placements": {leaf: str(tuple(t.placements)) for leaf, t in
+                           cache["layers"][0].get("kv", {}).items()}}
 
 
 def run_routing(model, cfg, x, mesh):

@@ -1613,6 +1613,49 @@ res["loss"], res["loss_one"] = float(m["loss"]), float(m1["loss"])
 res["param_err"] = max((params[n].full_tensor() - p1[n]).abs().max().item()
                        for n in p1)
 res["loss_device"] = m["loss"].device.type
+# the per-slot cache write on the mesh (a slot at, one astride and two
+# past the cache's end) against the one-card write, then a decode step
+# of the placed model: neither takes a host sync
+from repro_torch.models.attention import _write_cache
+from repro_torch.distributed.sharding import spmd
+starts = torch.tensor([3, 31, 32, 40], dtype=torch.int32, device=dev)
+kv = [torch.from_numpy(rng.standard_normal(
+    (4, 2, cfg.num_kv_heads, cfg.head_dim)).astype(np.float32)).to(dev)
+    for _ in range(2)]
+dec = build_model(cfg, dev)
+dec.load_state_dict(one.state_dict())
+shard_model(dec, mesh)
+with mesh:
+    cache = dec.init_cache(4, 32, dtype=torch.float32, vector_index=True)
+ref = one.init_cache(4, 32, dtype=torch.float32, vector_index=True)
+for c in (cache, ref):
+    c["index"].copy_(starts)
+    for layer in c["layers"]:
+        idx = layer["kv"]["index"]
+        (idx.to_local() if hasattr(idx, "to_local") else idx).copy_(starts)
+mine = cache["layers"][0]["kv"]
+torch.cuda.synchronize()
+torch.cuda.set_sync_debug_mode("error")
+try:
+    with mesh, spmd():
+        got = _write_cache(mine, *kv)
+finally:
+    torch.cuda.set_sync_debug_mode("default")
+want = _write_cache(ref["layers"][0]["kv"], *kv)
+res["slot_write_equal"] = all(
+    torch.equal(got[n].full_tensor(), want[n]) for n in ("k", "v"))
+res["slot_index"] = got["index"].full_tensor().tolist()
+tokens = torch.arange(4, dtype=torch.int32, device=dev)[:, None] + 5
+with mesh:
+    dec.decode_step(tokens, cache)            # warm-up
+torch.cuda.synchronize()
+torch.cuda.set_sync_debug_mode("error")
+try:
+    with mesh:
+        lg, _ = dec.decode_step(tokens, cache)
+finally:
+    torch.cuda.set_sync_debug_mode("default")
+res["slot_decode_finite"] = bool(torch.isfinite(lg.full_tensor()).all())
 json.dump(res, open(out, "w"))
 dist.barrier()
 dist.destroy_process_group()
@@ -1659,13 +1702,18 @@ def _check_nccl(res):
         assert out["loss"] == pytest.approx(out["loss_one"], rel=1e-5)
         assert out["param_err"] <= 1e-5
         assert out["loss_device"] == "cuda"
+        assert out["slot_write_equal"]
+        assert out["slot_index"] == [5, 33, 34, 42]
+        assert out["slot_decode_finite"]
 
 
 def test_one_rank_nccl_world_on_the_card(dev, tmp_path):
     """A (1, 1) mesh over a one-rank NCCL world: reduced stablelm's flash
-    route (kernel 15 through ``local_map``) against the plain route, and a
+    route (kernel 15 through ``local_map``) against the plain route, a
     reduced smollm train step of 2 microbatches against the one-card
-    step."""
+    step, and the per-slot cache write on the mesh equal to the one-card
+    write bit for bit, it and a decode step of the placed model without a
+    host sync."""
     _check_nccl(_nccl_world(tmp_path, 1))
 
 

@@ -18,6 +18,10 @@ reference's single-device ``LM``:
   moves a gradient, move a parameter by far less than the bound),
   greedy tokens equal; int8 moments take one step, their codes within
   one of the reference's;
+* continuous batching on the mesh: two ``write_slots`` groups of
+  different lengths into a 4-slot vector-index cache, then decode steps
+  at each slot's own position, against the reference's engine write and
+  ``LM`` (``tests/_torch_slots.py``), greedy tokens equal;
 * on 2x2, the updated parameters against the reference's own jitted step
   on a (2, 2) mesh of 4 forced host devices (in a subprocess, its
   ``in_shardings`` from its ``shard_params``; the mesh's axes automatic,
@@ -61,6 +65,7 @@ from repro.train.train_step import make_train_step as jmake
 from repro_torch.models import build_model
 from repro_torch.models.convert import opt_state_from_jax, params_from_jax
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from _torch_slots import reference_slots, slot_case
 
 torch.set_num_threads(1)
 
@@ -70,6 +75,9 @@ WORKER = Path(__file__).with_name("_torch_dist_worker.py")
 ARCHS = {"smollm": "smollm-360m", "stablelm": "stablelm-1.6b"}
 B, S, PROMPT, DECODE = 4, 16, 12, 4
 LR, EPS = 1e-4, 1e-6
+#: the per-slot case: two prefill groups into a 4-slot cache, then DECODE
+#: steps (``tests/_torch_slots.py``)
+SLOTS = slot_case(DECODE, PROMPT + DECODE)
 #: name -> (moments or "adafactor", learning rate, microbatches, steps)
 TRAIN = {"adamw": ("float32", LR, 1, 2), "micro2": ("float32", LR, 2, 2),
          "bf16": ("bfloat16", LR, 1, 2), "int8": ("int8", LR, 1, 1),
@@ -147,6 +155,7 @@ def ref():
         out[key] = {"state": sd(jp), "batch": b, "logits": np.asarray(logits),
                     "loss": float(loss), "grads": sd(grads),
                     "decode": steps, "greedy": np.concatenate(toks, 1),
+                    "slots": reference_slots(jm, jp, b["tokens"], SLOTS),
                     "train": train, "cfg": tcfg}
     return out
 
@@ -283,6 +292,7 @@ def _inputs(ref, root: Path, mesh: str, ref_dir=None):
         models[key] = {"arch": ARCHS[key], "state": r["state"],
                        "batch": r["batch"], "prompt": PROMPT,
                        "decode": DECODE, "train": train, "eps": EPS,
+                       "slots": SLOTS,
                        "flash": key == "stablelm"}
     inp = {"models": models, "pipeline": {"lake": LAKE}}
     if mesh == "2x2":
@@ -369,6 +379,32 @@ def test_prefill_and_greedy_decode_match_the_reference(world, ref, key):
     for i, (got, want) in enumerate(zip(res["decode_logits"],
                                         ref[key]["decode"])):
         _close(got, want, f"{key} decode step {i}")
+
+
+def check_slots(got, want, what):
+    """The per-slot run against the reference's: greedy tokens equal,
+    every group's prefill logits and every decode step's within
+    ``_close``'s bound."""
+    np.testing.assert_array_equal(got["greedy"].numpy(), want["greedy"])
+    for i, (g, w) in enumerate(zip(got["prefill"], want["prefill"])):
+        _close(g, w, f"{what} prefill group {i}")
+    assert len(got["decode"]) == len(want["decode"])
+    for i, (g, w) in enumerate(zip(got["decode"], want["decode"])):
+        _close(g, w, f"{what} per-slot decode step {i}")
+
+
+@pytest.mark.parametrize("key", list(ARCHS))
+def test_per_slot_prefill_and_decode_match_the_reference(world, ref, key):
+    """Continuous batching on the mesh: two ``write_slots`` groups of
+    different lengths into a vector-index cache of DTensors (each rank
+    writing its rows and its stretch of the length), then decode steps
+    with every slot at its own position, against the reference's engine
+    write and ``LM`` on one device."""
+    _, (_, ranks, _) = world
+    for res in ranks:
+        check_slots(res[key]["slots"], ref[key]["slots"], key)
+    assert ranks[0][key]["slots"]["placements"]["k"] == \
+        "(Shard(dim=0), Shard(dim=1))"
 
 
 @pytest.mark.parametrize(

@@ -16,7 +16,10 @@ against the reference's single-device ``LM``:
   parameters within ``1e-5 x max|ref|`` (the largest over the model's
   gradients, or over its updated parameters), prefill + 4 greedy
   ``decode_step``s within the same bound of each step's logits and the
-  greedy tokens equal;
+  greedy tokens equal; for deepseek, jamba and mamba2 also two
+  ``write_slots`` groups of different lengths into a vector-index cache
+  and decode steps at each slot's own position, against the reference's
+  engine write (``tests/_torch_slots.py``);
 * the first MoE layer's routing of a skewed global batch (some
   assignments dropped): the expert ids and the ``keep`` mask equal, bit
   for bit, to the reference's routing (``jax.lax.top_k`` and its slot
@@ -59,7 +62,9 @@ from repro_torch.checkpoint.checkpointer import save_checkpoint
 from repro_torch.models import build_model
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.moe import moe_apply
-from test_torch_distributed import JOIN_S, SRC, _close, _np, _free_port
+from _torch_slots import reference_slots
+from test_torch_distributed import (JOIN_S, SLOTS, SRC, _close, _np,
+                                    _free_port, check_slots)
 
 torch.set_num_threads(1)
 
@@ -71,6 +76,8 @@ ARCHS = {"deepseek": "deepseek-moe-16b", "jamba": "jamba-1.5-large-398b",
 #: 8 over 2 KV heads) or sequence-parallel (whisper and smollm, 3 heads)
 FLASH = ("deepseek", "vision", "whisper", "smollm")
 MOE = ("deepseek", "jamba")
+#: the families that also run the per-slot case (``tests/_torch_slots.py``)
+SLOTTED = ("deepseek", "jamba", "mamba2")
 B, S, PROMPT, DECODE = 4, 16, 12, 4
 LR, EPS = 1e-4, 1e-6
 
@@ -156,6 +163,8 @@ def _inputs(root: Path):
                 "flash": key in FLASH, "flash_only": key == "smollm"}
         if key in MOE:
             case["routing"] = torch.from_numpy(_skewed(tcfg, 7))
+        if key in SLOTTED:
+            case["slots"] = SLOTS
         models[key] = case
     d = models["deepseek"]
     save_checkpoint(str(root / "ckpt"), 1, d["state"])
@@ -280,6 +289,9 @@ def world(tmp_path_factory):
     try:
         ref = {key: _reference(*jaxside[key], inp["models"][key]["batch"],
                                _cfg(ARCHS[key])) for key in ARCHS}
+        for key in SLOTTED:
+            ref[key]["slots"] = reference_slots(
+                *jaxside[key], inp["models"][key]["batch"]["tokens"], SLOTS)
         out, err = sharded.communicate(timeout=JOIN_S)
     finally:
         if sharded.poll() is None:
@@ -331,6 +343,18 @@ def test_prefill_and_greedy_decode_match_the_reference(world, key):
     for i, (got, want) in enumerate(zip(res["decode_logits"],
                                         ref[key]["decode"])):
         _close(got, want, f"{key} decode step {i}")
+
+
+@pytest.mark.parametrize("key", SLOTTED)
+def test_per_slot_prefill_and_decode_match_the_reference(world, key):
+    """Two ``write_slots`` groups of different lengths into a
+    vector-index cache on the mesh (the SSM state and conv tail by rows,
+    the KV cache by rows and stretches of its length), then decode steps
+    at each slot's own position, against the reference's engine write and
+    ``LM`` on one device."""
+    _, ranks, ref, _ = world
+    for res in ranks:
+        check_slots(res[key]["slots"], ref[key]["slots"], key)
 
 
 @pytest.mark.parametrize("key", list(ARCHS))

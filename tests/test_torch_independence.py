@@ -515,6 +515,74 @@ def test_sources_import_neither_jax_nor_the_jax_package():
     assert FORBIDDEN.search("import jax.numpy as jnp")
 
 
+EXAMPLES = SRC.parent / "examples"
+#: each port example and the arguments of its shortest run
+PORT_EXAMPLES = {"quickstart_torch": [], "ldbc_queries_torch": [],
+                 "serve_batched_torch": [],
+                 "train_graph_corpus_torch": ["--steps", "1"]}
+EXAMPLE_PROBE = """
+import os, runpy, sys
+path = sys.argv[1]
+sys.argv = [path] + sys.argv[2:]
+sys.path.insert(0, os.path.dirname(path))     # as ``python path`` does
+try:
+    runpy.run_path(path, run_name="__main__")
+except RuntimeError as e:
+    print("RAISED", e)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print("LOADED", bad)
+"""
+
+
+def _examples(device, tmp_path):
+    """Every port example run with ``--device DEVICE`` in a process of its
+    own with no card visible, all at once: their outputs by name."""
+    procs = {}
+    for name, args in PORT_EXAMPLES.items():
+        tmp = tmp_path / f"{name}_{device}"
+        tmp.mkdir()
+        env = dict(os.environ, PYTHONPATH=str(SRC), TMPDIR=str(tmp),
+                   CUDA_VISIBLE_DEVICES="")
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", EXAMPLE_PROBE,
+             str(EXAMPLES / f"{name}.py"), "--device", device] + args,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    outs = {}
+    try:
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-3000:]
+            outs[name] = out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def test_examples_load_neither_jax_nor_the_jax_package(tmp_path):
+    """Each port example, run whole on the CPU, leaves neither ``jax`` nor
+    ``repro`` in ``sys.modules``; its sources name neither."""
+    for name, out in _examples("cpu", tmp_path).items():
+        assert "RAISED" not in out, (name, out)
+        assert "LOADED []" in out, (name, out)
+    sources = sorted(EXAMPLES.glob("*_torch*.py"))
+    assert len(sources) == 5            # the four and their device helper
+    for f in sources:
+        assert not FORBIDDEN.findall(f.read_text()), f.name
+
+
+def test_examples_without_a_card_raise(tmp_path):
+    """The default ``--device cuda`` raises without a card, before any
+    work: nothing falls back to the CPU."""
+    for name, out in _examples("cuda", tmp_path).items():
+        assert "RAISED no CUDA device" in out, (name, out)
+        assert "LOADED []" in out, (name, out)
+
+
 def test_cuda_engine_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     n = 300
