@@ -43,7 +43,11 @@ any profiler in the process; the LM and training profiles run last):
      timed against the plain version and against its bound
      (``gather_decode`` at 8 rows, a launch's overhead, and as row
      ``gather_decode@16384`` at the retrieval slice's p_pad-16384 page
-     list, each beside its device time queued behind the host).  The fused
+     list, each beside its device time queued behind the host; its bound
+     counts the miniblock arrays it reads, and the log gives the unpack
+     plan's bound beside it; the kernel is also held equal to the plan's
+     decode and at page sizes 256 and 8192, and the raw mirror's bytes
+     are logged).  The fused
      kernels (1 and 4) are held with ``want_ids`` both ways and with junk
      rows past ``total``; each logs its call time beside its device time
      queued behind the host, the mean ``need / page_size`` of the real
@@ -1841,27 +1845,47 @@ def kernel_phase(torch, adj, vt, batches):
         f"back to back")
     col = adj.table["<dst>"].encoded
     plan = col.packed_cache.device_plan(dev)
+    res = col.packed_cache.device_pages(dev)
     n_pages, d = plan[1].shape
     ps = d + 1
     bit_widths = col.packed_cache.bit_widths
+    n_mini = bit_widths.shape[1]
     n_words = -(-adj.num_value_vertices // 32)
     rows = []
 
     def entry(*args, **kwargs):
         rows.append(kernel_row(*args, **kwargs))
 
+    def packed_bytes(pages):
+        """Of the packed words, only the sum of each page's bit widths (a
+        miniblock of width bw packs its 32 deltas into bw words; the zero
+        words past them are never read)."""
+        return 4 * int(bit_widths[np.asarray(pages, np.int64)].sum())
+
     def plan_bytes(pages):
         """Bytes of the resident plan a decode of ``pages`` must read:
-        ``first``, ``pos`` and ``mind`` whole, and of the packed words
-        only the sum of each page's bit widths (a miniblock of width bw
-        packs its 32 deltas into bw words; the zero words past them are
-        never read)."""
-        pages = np.asarray(pages, np.int64)
-        return 4 * (len(pages) * (1 + 2 * d)
-                    + int(bit_widths[pages].sum()))
+        ``first``, ``pos`` and ``mind`` whole, and the packed words."""
+        return 4 * len(pages) * (1 + 2 * d) + packed_bytes(pages)
+
+    def mini_bytes(pages):
+        """Bytes of the miniblock arrays a decode of ``pages`` must read:
+        ``first``, ``counts``, ``min_deltas``, ``bit_widths`` and
+        ``word_offsets`` whole, and the packed words."""
+        return 4 * len(pages) * (2 + 3 * n_mini) + packed_bytes(pages)
+
+    shared = res.arrays[0].data_ptr() == plan[0].data_ptr() \
+        and res.arrays[4].data_ptr() == plan[3].data_ptr()
+    require(shared, "the raw mirror copies first or packed a second time")
+    whole = sum(a.numel() * 4 for a in res.arrays)
+    extra = whole - sum(res.arrays[i].numel() * 4 for i in (0, 4))
+    log(f"kernels: raw mirror {whole / 2**20:.1f} MiB, of it "
+        f"{extra / 2**20:.1f} MiB beyond the plan's first and packed "
+        f"(the plan: {sum(a.numel() * 4 for a in plan) / 2**20:.1f} MiB)")
 
     # -- gather_decode: the non-fused path's page list for batch 8, plus
-    #    a 16384-vertex page list and out-of-range padding (clamped)
+    #    a 16384-vertex page list and out-of-range padding (clamped); the
+    #    kernel decodes the miniblock arrays, and gives the ids the plan
+    #    gave, bit for bit
     los, his = adj.edge_ranges_batch(batches[BATCHES[0]])
     pages8, _ = ops.page_set_for_ranges(los, his, PAGE_SIZE)
     idx8 = torch.from_numpy(ops._page_index_vector(pages8, n_pages)).to(dev)
@@ -1870,44 +1894,57 @@ def kernel_phase(torch, adj, vt, batches):
     idx_big[n_big:] = torch.tensor([-7, n_pages + 5] * p_big)[
         :p_big - n_big].to(torch.int32)
     idx_big = idx_big.to(dev)
+
+    def plain(pages, idx):
+        return PR.gather_decode(*pages.arrays, idx, pages.page_size)
+
     for idx in (idx8, idx_big):
-        k, r = PK.gather_decode(*plan, idx), PR.gather_decode(*plan, idx)
+        k, r = PK.gather_decode(res, idx), plain(res, idx)
         require(torch.equal(k, r), f"gather_decode differs at {len(idx)} "
                 f"rows ({max_err(k, r)})")
+        p = PR.decode_plan_rows(*PR.gather_rows(idx, *plan))
+        require(torch.equal(k, p), f"gather_decode differs from the plan's "
+                f"decode at {len(idx)} rows ({max_err(k, p)})")
+        del k, r, p
     # row 2 at 8 rows (a launch's overhead), row 2@16384 at the retrieval
-    # slice's p_pad-16384 call: each distinct page's plan row read once,
-    # the ids written
+    # slice's p_pad-16384 call: each distinct page's miniblock arrays read
+    # once, the idx read and the ids written
     for idx, suffix, reps in ((idx8, "", 50), (idx_big, "@16384", 20)):
-        err = max_err(PK.gather_decode(*plan, idx),
-                      PR.gather_decode(*plan, idx))
+        err = max_err(PK.gather_decode(res, idx), plain(res, idx))
         uniq = np.unique(np.clip(idx.cpu().numpy(), 0, n_pages - 1))
+        io = 4 * len(idx) + 4 * len(idx) * ps
         entry("gather_decode" + suffix,
-              "src/repro_torch/kernels/csrc/gather_decode.cu",
+              "src/repro_torch/kernels/csrc/per_dispatch.cu",
               "src/repro/kernels/pac_decode/kernel.py:453", err,
-              cuda_ms(torch, lambda: PK.gather_decode(*plan, idx), reps),
-              cuda_ms(torch, lambda: PR.gather_decode(*plan, idx),
-                      reps // 5),
-              plan_bytes(uniq) + 4 * len(idx) + 4 * len(idx) * ps)
-        device = queued_ms(torch, lambda: PK.gather_decode(*plan, idx), reps)
+              cuda_ms(torch, lambda: PK.gather_decode(res, idx), reps),
+              cuda_ms(torch, lambda: plain(res, idx), reps // 5),
+              mini_bytes(uniq) + io)
+        device = queued_ms(torch, lambda: PK.gather_decode(res, idx), reps)
+        old = (plan_bytes(uniq) + io) / HBM_BYTES_PER_S * 1e3
         log(f"kernels: {rows[-1]['name']} at {len(idx)} rows "
             f"({len(uniq)} distinct pages): {rows[-1]['ms']:.4f} ms a call, "
             f"{device:.4f} ms of device queued; bound "
-            f"{rows[-1]['bound_ms']:.4f} ms")
-    # other page sizes: one pass of the block scan (256) and several (8192)
+            f"{rows[-1]['bound_ms']:.4f} ms on the miniblock arrays "
+            f"({mini_bytes(uniq) + io} B), {old:.4f} ms on the plan "
+            f"({plan_bytes(uniq) + io} B)")
+    # other page sizes: one pass of the decode (256) and several (8192)
     rng = np.random.default_rng(2)
     for page_size in (256, 8192):
         vals = np.concatenate(
             [np.sort(rng.integers(0, 1 << 24, 5 * page_size)),
              rng.integers(-(1 << 30), 1 << 30, 77)])
         other = pack_column(delta_encode_column(vals, page_size))
-        oplan = other.device_plan(dev)
+        ores, oplan = other.device_pages(dev), other.device_plan(dev)
         oidx = torch.arange(-1, other.n_pages + 1, dtype=torch.int32,
                             device=dev)
-        k, r = PK.gather_decode(*oplan, oidx), PR.gather_decode(*oplan, oidx)
-        require(torch.equal(k, r), f"gather_decode differs at page size "
-                f"{page_size} ({max_err(k, r)})")
-    log(f"kernels: gather_decode equal at {len(idx8)} and {len(idx_big)} "
-        f"rows, and at page sizes 256 and 8192")
+        k, r = PK.gather_decode(ores, oidx), plain(ores, oidx)
+        p = PR.decode_plan_rows(*PR.gather_rows(oidx, *oplan))
+        require(torch.equal(k, r) and torch.equal(k, p),
+                f"gather_decode differs at page size {page_size} "
+                f"({max_err(k, r)}, {max_err(k, p)} from the plan's)")
+    log(f"kernels: gather_decode equal to its plain version and to the "
+        f"plan's decode at {len(idx8)} and {len(idx_big)} rows, and at "
+        f"page sizes 256 and 8192")
 
     # -- fused: batch 16384, unfiltered and filtered, want_ids both ways
     filt = LabelFilter(vt, (L("L0") & L("L1")) | ~L("L2"))

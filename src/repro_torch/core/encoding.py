@@ -280,11 +280,14 @@ class PackedPages:
     unchanged (in-place mutation of the last partial page).
 
     :meth:`device_plan` keeps a lazily-populated, device-keyed **mirror**
-    of the decode-ready unpack plan: the packed column is immutable per
-    version, so it crosses to the card once and every later dispatch
-    ships only an int32 page-index vector (the kernels gather rows on
-    the device).  The mirror dies with this object, so a version bump
-    (which rebuilds ``PackedPages``) also invalidates it.
+    of the decode-ready unpack plan (kernels 1 and 4 read it), and
+    :meth:`device_pages` one of the raw miniblock arrays (kernel 2 reads
+    them), both placed by one populate and sharing ``first`` and
+    ``packed``: the packed column is immutable per version, so it crosses
+    to the card once and every later dispatch ships only an int32
+    page-index vector (the kernels gather rows on the device).  The
+    mirrors die with this object, so a version bump (which rebuilds
+    ``PackedPages``) also invalidates them.
     """
 
     first: np.ndarray         # int32  [n_pages, 1]
@@ -307,7 +310,8 @@ class PackedPages:
     #: host-cached per-delta unpack plan (see :meth:`unpack_plan`).
     _plan: "Tuple | None" = dataclasses.field(
         default=None, repr=False, compare=False)
-    #: device -> device unpack plan (see :meth:`device_plan`).
+    #: device -> ``(plan, pages)`` (see :meth:`device_plan` and
+    #: :meth:`device_pages`).
     _device_plans: Dict[str, Tuple] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
     #: host->device transfers performed (one per device populated).
@@ -379,16 +383,35 @@ class PackedPages:
         Four contiguous int32 tensors ``(first, pos, mind, packed)``; the
         uint32 packed words travel as their int32 bit patterns and the
         kernels reinterpret them."""
+        return self._mirror(device)[0]
+
+    def device_pages(self, device):
+        """Device-keyed mirror of the raw miniblock arrays (a
+        ``ResidentPages`` of :meth:`host_arrays`), placed with
+        :meth:`device_plan` in one populate: its ``first`` and ``packed``
+        are the plan's tensors, so only the miniblock headers and the
+        counts add to the device's bytes."""
+        return self._mirror(device)[1]
+
+    def _mirror(self, device) -> Tuple:
+        """``(plan, pages)`` on ``device``, placed on first use (one
+        transfer per device)."""
         key = str(torch.device(device))
-        plan = self._device_plans.get(key)
-        if plan is None:
-            first, pos, mind, packed = self.unpack_plan()
-            plan = tuple(torch.from_numpy(np.ascontiguousarray(a))
-                         .to(key) for a in
-                         (first, pos, mind, packed.view(np.int32)))
-            self._device_plans[key] = plan
+        mirror = self._device_plans.get(key)
+        if mirror is None:
+            from repro_torch.kernels.pac_decode.kernel import ResidentPages
+            _, pos, mind, _ = self.unpack_plan()
+            first, pos, mind, packed, md, bw, wo, counts = (
+                torch.from_numpy(np.ascontiguousarray(a)).to(key) for a in
+                (self.first, pos, mind, self.packed.view(np.int32),
+                 self.min_deltas, self.bit_widths, self.word_offsets,
+                 self.counts))
+            mirror = ((first, pos, mind, packed),
+                      ResidentPages((first, md, bw, wo, packed, counts),
+                                    self.page_size or self.packed.shape[1]))
+            self._device_plans[key] = mirror
             self.device_transfers += 1
-        return plan
+        return mirror
 
     def poison(self) -> None:
         """Mark the device mirror unusable (an explicit call: a simulated

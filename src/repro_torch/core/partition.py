@@ -128,8 +128,8 @@ class PartitionedColumn:
     dispatches: int = dataclasses.field(default=0, compare=False)
     partitions_pruned: int = dataclasses.field(default=0, compare=False)
     stats_pruned: int = dataclasses.field(default=0, compare=False)
-    #: ("single", device) -> (arrays, pmax); ("mesh", devices) -> tuple of
-    #: per-entry block arrays.
+    #: ("single", device) -> ((arrays, pmax), pages); ("mesh", devices) ->
+    #: (per-entry plan blocks, per-entry page blocks).
     _device_plans: Dict[Tuple, Tuple] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
     #: host->device placements of plan bytes.
@@ -222,40 +222,108 @@ class PartitionedColumn:
         """The partition mesh's entries (see :meth:`mesh_size`)."""
         return tuple(devices[:self.mesh_size(len(devices))])
 
+    def _stack(self, per_part: Sequence[np.ndarray]) -> np.ndarray:
+        """One array per partition stacked partition-major as int32 (bit
+        patterns): row ``k * pmax + j`` is partition ``k``'s row ``j``;
+        zero rows pad shorter partitions."""
+        pmax = self.pmax
+        stack = np.zeros((self.n_parts * pmax,) + per_part[0].shape[1:],
+                         per_part[0].dtype)
+        for k, a in enumerate(per_part):
+            stack[k * pmax: k * pmax + a.shape[0]] = a
+        return stack.view(np.int32)
+
     def stacked_plan_host(self) -> Tuple[np.ndarray, ...]:
         """All partitions' unpack plans stacked partition-major, as the
         four int32 arrays ``(first, pos, mind, packed)`` (the packed words
         as their int32 bit patterns).  Row ``k * pmax + j`` is partition
         ``k``'s plan row ``j``; zero rows pad shorter partitions."""
-        pmax = self.pmax
         plans = [p.packed.unpack_plan() for p in self.parts]
-        out = []
-        for a_idx in range(4):  # (first, pos, mind, packed)
-            ref = plans[0][a_idx]
-            stack = np.zeros((self.n_parts * pmax,) + ref.shape[1:],
-                             ref.dtype)
-            for k, pl in enumerate(plans):
-                stack[k * pmax: k * pmax + pl[a_idx].shape[0]] = pl[a_idx]
-            out.append(stack.view(np.int32))
-        return tuple(out)
+        return tuple(self._stack([pl[i] for pl in plans]) for i in range(4))
+
+    def stacked_host(self) -> Tuple[Tuple[np.ndarray, ...],
+                                    Tuple[np.ndarray, ...]]:
+        """``(plan, pages)``: :meth:`stacked_plan_host` and the
+        partitions' raw miniblock arrays stacked the same way, ``(first,
+        min_deltas, bit_widths, word_offsets, packed, counts)``, sharing
+        the plan's ``first`` and ``packed``.  Pad rows have count 0, so
+        they decode to zeros as the plan's zero rows do."""
+        plan = self.stacked_plan_host()
+        md, bw, wo, counts = (
+            self._stack([getattr(p.packed, name) for p in self.parts])
+            for name in ("min_deltas", "bit_widths", "word_offsets",
+                         "counts"))
+        return plan, (plan[0], md, bw, wo, plan[3], counts)
+
+    def _place(self, host, device: torch.device, lo: int = 0,
+               hi: Optional[int] = None) -> Tuple:
+        """Rows ``[lo, hi)`` of :meth:`stacked_host` on ``device``, each
+        host array copied once: ``(plan arrays, ResidentPages)``."""
+        from repro_torch.kernels.pac_decode.kernel import ResidentPages
+        (first, pos, mind, packed), (_, md, bw, wo, _, counts) = host
+        first, pos, mind, packed, md, bw, wo, counts = (
+            torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(device)
+            for a in (first, pos, mind, packed, md, bw, wo, counts))
+        # the partitions' own page size: the column may be gone by now
+        pp = self.parts[0].packed
+        return ((first, pos, mind, packed),
+                ResidentPages((first, md, bw, wo, packed, counts),
+                              pp.page_size or pp.packed.shape[1]))
+
+    def _single(self, device) -> Tuple:
+        """``((arrays, pmax), pages)`` on one device, placed once."""
+        dev = torch.device(device)
+        key = ("single", str(dev))
+        placed = self._device_plans.get(key)
+        if placed is None:
+            arrays, pages = self._place(self.stacked_host(), dev)
+            placed = ((arrays, self.pmax), pages)
+            self.device_transfers += 1
+            if self.parts and self.parts[0].device is None:
+                for p in self.parts:
+                    p.device = dev
+            self._device_plans[key] = placed
+        return placed
 
     def device_plan_single(self, device) -> Tuple[Tuple[torch.Tensor, ...],
                                                   int]:
         """The stacked plan on one device: ``(arrays, pmax)``, placed once
         per device.  The single-shard tail runs the monolithic resident
         kernels over it with stacked page indices."""
-        dev = torch.device(device)
-        key = ("single", str(dev))
-        plan = self._device_plans.get(key)
-        if plan is None:
-            plan = (tuple(torch.from_numpy(a).to(dev)
-                          for a in self.stacked_plan_host()), self.pmax)
-            self.device_transfers += 1
-            if self.parts and self.parts[0].device is None:
-                for p in self.parts:
-                    p.device = dev
-            self._device_plans[key] = plan
-        return plan
+        return self._single(device)[0]
+
+    def device_pages_single(self, device):
+        """The stacked raw miniblock arrays on one device (a
+        ``ResidentPages``), placed with :meth:`device_plan_single`."""
+        return self._single(device)[1]
+
+    def _mesh(self, mesh: Mesh) -> Tuple:
+        """``(plan blocks, page blocks)`` of the mesh, placed once."""
+        mesh = tuple(torch.device(d) for d in mesh)
+        key = ("mesh", tuple(str(d) for d in mesh))
+        placed = self._device_plans.get(key)
+        if placed is None:
+            g = len(mesh)
+            if self.n_parts % g:
+                raise ValueError(f"a mesh of {g} entries does not divide "
+                                 f"{self.n_parts} partitions")
+            ppd = self.n_parts // g
+            rows = ppd * self.pmax
+            if len(set(key[1])) == 1:
+                (arrays, _), pages = self._single(mesh[0])
+                blocks = [(tuple(a[i * rows:(i + 1) * rows] for a in arrays),
+                           pages.rows(i * rows, (i + 1) * rows))
+                          for i in range(g)]
+            else:
+                host = self.stacked_host()
+                blocks = [self._place(host, mesh[i], i * rows,
+                                      (i + 1) * rows) for i in range(g)]
+                self.device_transfers += 1
+            for p in self.parts:
+                p.device = mesh[p.index // ppd]
+            placed = (tuple(b[0] for b in blocks), tuple(b[1] for b in blocks))
+            self._device_plans[key] = placed
+        return placed
 
     def device_plan(self, mesh: Mesh) -> Tuple[Tuple[torch.Tensor, ...],
                                                ...]:
@@ -266,31 +334,13 @@ class PartitionedColumn:
         row views of that device's single placement (the same bytes, no
         second copy); distinct devices each get their block's bytes.
         Records each partition's device."""
-        mesh = tuple(torch.device(d) for d in mesh)
-        key = ("mesh", tuple(str(d) for d in mesh))
-        blocks = self._device_plans.get(key)
-        if blocks is None:
-            g = len(mesh)
-            if self.n_parts % g:
-                raise ValueError(f"a mesh of {g} entries does not divide "
-                                 f"{self.n_parts} partitions")
-            ppd = self.n_parts // g
-            rows = ppd * self.pmax
-            if len(set(key[1])) == 1:
-                arrays, _ = self.device_plan_single(mesh[0])
-                blocks = tuple(tuple(a[i * rows:(i + 1) * rows]
-                                     for a in arrays) for i in range(g))
-            else:
-                host = self.stacked_plan_host()
-                blocks = tuple(
-                    tuple(torch.from_numpy(
-                        np.ascontiguousarray(a[i * rows:(i + 1) * rows]))
-                        .to(mesh[i]) for a in host) for i in range(g))
-                self.device_transfers += 1
-            for p in self.parts:
-                p.device = mesh[p.index // ppd]
-            self._device_plans[key] = blocks
-        return blocks
+        return self._mesh(mesh)[0]
+
+    def device_pages(self, mesh: Mesh):
+        """Mesh entry ``i``'s block of the stacked raw miniblock arrays (a
+        ``ResidentPages`` per entry), placed with :meth:`device_plan` and
+        by the same rules."""
+        return self._mesh(mesh)[1]
 
     # -- observability ------------------------------------------------------
     def reset_stats(self) -> None:

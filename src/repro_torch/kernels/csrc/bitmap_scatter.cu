@@ -7,7 +7,8 @@
 //   fused_gather_decode_filter_bitmap_batch
 //     (src/repro/kernels/label_filter/kernel.py:195, pallas_call at :231).
 // Input is one staged int32 vector [idx (p_pad) | gidx (t) | total (1)] and
-// the column's resident unpack plan (gather_decode.cu has its layout).  Row
+// the column's resident unpack plan (PackedPages.unpack_plan in
+// core/encoding.py has its layout: first, pos, mind, packed).  Row
 // r of the p_pad x page_size matrix decodes page clamp(idx[r]); for every
 // k < total, id = matrix.flat[clamp(gidx[k], 0, p_pad * page_size - 1)]
 // sets bit id of the uint32[n_words] target bitmap when

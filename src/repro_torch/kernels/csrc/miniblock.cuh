@@ -1,6 +1,7 @@
-// The raw miniblock arrays of shipped pages (PackedPages), read 8 deltas a
-// thread: the decode of kernels 8-10 (per_dispatch.cu) and kernel 12
-// (single_range.cu).
+// The raw miniblock arrays of pages (PackedPages), read 8 deltas a thread:
+// the decode of kernels 2 and 8-10 (per_dispatch.cu: the resident column's
+// pages gathered by a row-index vector, and pages shipped with a dispatch)
+// and of kernel 12 (single_range.cu).
 //
 // Delta j (j < page_size - 1) of a page lives in miniblock
 // m = min(j / 32, n_mini - 1) at bit (j % 32) * bw of the miniblock's word
@@ -33,7 +34,9 @@ namespace rt {
 
 constexpr int kItems = 8;  // positions (and deltas) a thread
 
-// A batch of shipped pages (the C entries' arrays and sizes).
+// A batch of pages (the C entries' arrays and sizes).  Without idx, row r
+// of a batch of n is page r of the arrays; with it, row r is page
+// clamp(idx[r], 0, n_src - 1) of arrays of n_src pages.
 struct Pages {
   const int* first;
   const int* mind;
@@ -45,6 +48,8 @@ struct Pages {
   int n_mini;
   int max_words;
   int page_size;
+  const int* idx = nullptr;
+  int n_src = 0;
 };
 
 // Deltas 8s .. 8s + 7 of a thread of width W (compile time, a power of

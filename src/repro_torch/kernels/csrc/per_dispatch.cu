@@ -1,7 +1,12 @@
-// The per-dispatch pack route (REPRO_DEVICE_RESIDENT=0): packed pages are
-// shipped with every dispatch as raw miniblock arrays and decoded here.
+// Decode of the raw miniblock arrays of pages (PackedPages): the resident
+// column's pages gathered by a row-index vector (kernel 2), and the
+// per-dispatch pack route's (REPRO_DEVICE_RESIDENT=0) pages shipped with
+// every dispatch (kernels 8-10).
 //
-// Replaces three TPU kernels:
+// Replaces four TPU kernels:
+//   gather_decode_pallas
+//     (src/repro/kernels/pac_decode/kernel.py:437, pallas_call at :453,
+//     body _decode_plan_rows at :381);
 //   delta_decode_pallas
 //     (src/repro/kernels/pac_decode/kernel.py:98, pallas_call at :110,
 //     body _unpack_and_scan at :57);
@@ -10,6 +15,15 @@
 //     bodies _unpack_and_scan_batch at :224 and _bitmap_from_gather at :256);
 //   fused_decode_filter_bitmap_batch
 //     (src/repro/kernels/label_filter/kernel.py:123, pallas_call at :147).
+//
+// The TPU's gather_decode reads the column's per-delta unpack plan
+// (PackedPages.unpack_plan: pos and mind int32[P, page_size - 1], the
+// miniblock metadata expanded to every delta, which suits its vector
+// unit).  Kernel 2 here computes the same ids from the resident column's
+// miniblock arrays instead: row r of the output decodes page
+// clamp(idx[r], 0, n_pages - 1), read through the same decode as
+// kernel 10.  At page size 2048 that is about 776 bytes of miniblock
+// headers a page against the plan's 16,380.
 //
 // Inputs of a batch of n pages: first/counts int32[n,1], min_deltas,
 // bit_widths and word_offsets int32[n,n_mini], packed uint32[n,max_words].
@@ -41,9 +55,11 @@
 // written once: per decoded page 4 * (2 + 3 * n_mini) bytes of header
 // arrays and 4 * sum(bit_widths) bytes of packed words in (a miniblock of
 // width bw packs its 32 deltas into bw words; the zero words past them up
-// to max_words are never read), and 4 * page_size out; plus
-// 4 * page_size per cached row, 4 per requested row and 4 * n_words for
-// the words.  The arithmetic is a shift, a mask and a scan step per delta.
+// to max_words are never read), and 4 * page_size out; kernel 2 reads each
+// distinct gathered page once and 4 bytes of idx a row; the fused entries
+// add 4 * page_size per cached row, 4 per requested row and 4 * n_words
+// for the words.  The arithmetic is a shift, a mask and a scan step per
+// delta.
 //
 // Design of the decode (page_decode_kernel; PERF.md has the layouts it
 // was timed against): thread s of a page owns the 8 output positions and
@@ -62,7 +78,10 @@
 // the same kernel took 2.6x as long.  A block of 256 threads decodes a
 // page of 2048 in one pass; pages of 256 positions or fewer share a
 // block, a warp or more each, and longer pages loop with a carry.  The
-// same launch zeroes the fused entries' target words.
+// same launch zeroes the fused entries' target words.  Kernel 2 is the
+// same kernel given idx: each page group's threads read their row's page
+// number once and decode that page's arrays; many pages are in flight
+// per SM, which hides the gather's latency.
 //
 // The scatter is one thread per requested row with an atomic OR.  The
 // filtered one runs the program per row; each leaf's search first finds
@@ -90,9 +109,10 @@ constexpr int kSamples = 512;           // sampled positions a leaf
 using rt::Pages;
 using rt::thread_deltas;
 
-// Decode the pages of every page group g of this block, pages
+// Decode the rows of every page group g of this block, rows
 // [g * ppb, (g + 1) * ppb) with ppb = kThreads >> tpp_log2 and 2^tpp_log2
-// threads a page; zero[0, n_zero) is set to 0 on the way.  A pass covers
+// threads a row (a row is the page p.idx names, or page r without it);
+// zero[0, n_zero) is set to 0 on the way.  A pass covers
 // kItems << tpp_log2 positions of each of the group's pages.
 __global__ void __launch_bounds__(kThreads)
 page_decode_kernel(Pages p, int tpp_log2, int* __restrict__ out,
@@ -115,13 +135,18 @@ page_decode_kernel(Pages p, int tpp_log2, int* __restrict__ out,
   for (long long g = blockIdx.x; g * ppb < p.n; g += gridDim.x) {
     const long long row = g * ppb + (threadIdx.x >> tpp_log2);
     const bool live = row < p.n;
-    unsigned carry = live ? static_cast<unsigned>(__ldg(p.first + row)) : 0u;
+    // the page this row decodes
+    long long src = live ? row : 0;
+    if (live && p.idx != nullptr) {
+      src = min(max(__ldg(p.idx + row), 0), p.n_src - 1);
+    }
+    unsigned carry = live ? static_cast<unsigned>(__ldg(p.first + src)) : 0u;
     const int last =
-        live ? min(__ldg(p.counts + row) - 1, p.page_size - 1) : 0;
+        live ? min(__ldg(p.counts + src) - 1, p.page_size - 1) : 0;
     for (int base = 0; base < p.page_size; base += span) {
       const int j0 = base + kItems * slot;
       unsigned d[kItems];
-      thread_deltas(p, live ? row : 0, j0, last, d);
+      thread_deltas(p, src, j0, last, d);
       unsigned tot = 0;
 #pragma unroll
       for (int i = 0; i < kItems; ++i) tot += d[i];
@@ -302,6 +327,22 @@ Pages pages_of(const int* first, const int* mind, const int* bw,
 
 }  // namespace
 
+// Kernel 2: the resident pages named by idx[0 .. n_rows), each clamped to
+// [0, n_pages - 1], into out[n_rows, page_size].
+extern "C" int rt_gather_decode(const int* first, const int* mind,
+                                const int* bw, const int* woff,
+                                const int* packed, const int* counts,
+                                int n_pages, int n_mini, int max_words,
+                                int page_size, const int* idx, int n_rows,
+                                int* out, void* stream) {
+  Pages p = pages_of(first, mind, bw, woff, packed, counts, n_rows, n_mini,
+                     max_words, page_size);
+  p.idx = idx;
+  p.n_src = n_pages;
+  return launch_page_decode(p, out, nullptr, 0,
+                            static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int rt_delta_decode(const int* first, const int* mind,
                                const int* bw, const int* woff,
                                const int* packed, const int* counts, int n,
@@ -336,4 +377,8 @@ extern "C" int rt_fused_decode_filter_bitmap_batch(
                page_size),
       cached, c, gidx, t, gcount, ids, words, n_words, fpos, fmeta, n_pos,
       ops, n_ops, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" const char* rt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,7 +1,6 @@
-"""Wrappers of the pac_decode CUDA kernels (``csrc/gather_decode.cu``,
-``csrc/bitmap_scatter.cu``, the per-dispatch pack route's
-``csrc/per_dispatch.cu``, and the single-range entries of
-``csrc/single_range.cu``).
+"""Wrappers of the pac_decode CUDA kernels (``csrc/per_dispatch.cu``: the
+resident gather and the per-dispatch pack route; ``csrc/bitmap_scatter.cu``;
+and the single-range entries of ``csrc/single_range.cu``).
 
 A wrapper given CUDA tensors checks them, allocates its outputs with
 ``torch.empty`` and launches the kernel on the current stream; given CPU
@@ -40,20 +39,52 @@ def _plan_args(first, pos, mind, packed):
             first.shape[0], pos.shape[1], packed.shape[1])
 
 
-def gather_decode(first, pos, mind, packed, idx: torch.Tensor
-                  ) -> torch.Tensor:
-    """Decode the plan rows named by ``idx`` (clamped to the column):
-    int32[len(idx), page_size]."""
-    note_shape("gather_decode", idx.shape[0], tuple(pos.shape))
+class ResidentPages:
+    """A resident column's raw miniblock arrays on one device: the six
+    tensors of ``PackedPages.host_arrays`` (uint32 words as int32 bit
+    patterns) and the page size, as ``PackedPages.device_pages`` places
+    them.  CUDA arrays are checked once, here, and their launch arguments
+    kept beside them, so a call of :func:`gather_decode` checks only its
+    ``idx``."""
+
+    __slots__ = ("arrays", "page_size", "device", "shape", "args")
+
+    def __init__(self, arrays, page_size: int):
+        self.arrays = tuple(arrays)
+        self.page_size = int(page_size)
+        self.device = self.arrays[0].device
+        self.shape = (self.arrays[0].shape[0], self.page_size)
+        self.args = None
+        if B.on_cuda(self.arrays[0]):
+            check_pages(*self.arrays, self.device)
+            self.args = _page_args(*self.arrays, self.page_size)
+
+    @property
+    def n_pages(self) -> int:
+        return self.shape[0]
+
+    def rows(self, lo: int, hi: int) -> "ResidentPages":
+        """Pages ``[lo, hi)`` as views of the same arrays."""
+        return ResidentPages((a[lo:hi] for a in self.arrays), self.page_size)
+
+
+def gather_decode(pages: ResidentPages, idx: torch.Tensor) -> torch.Tensor:
+    """Decode the resident pages named by ``idx`` (clamped to the column):
+    int32[len(idx), page_size]; positions past a page's count hold the
+    running last id."""
+    note_shape("gather_decode", idx.shape[0], pages.shape)
     if not B.on_cuda(idx):
-        return R.gather_decode(first, pos, mind, packed, idx)
+        return R.gather_decode(*pages.arrays, idx, pages.page_size)
     dev = idx.device
-    check_plan(first, pos, mind, packed, dev)
-    B.check(idx, "idx", dev, 1)
-    out = torch.empty((idx.shape[0], pos.shape[1] + 1), dtype=torch.int32,
-                      device=dev)
-    B.launch("rt_gather_decode", *_plan_args(first, pos, mind, packed),
-             B.ptr(idx), idx.shape[0], B.ptr(out), B.stream(dev))
+    if dev != pages.device or idx.dtype != torch.int32 or idx.dim() != 1 \
+            or not idx.is_contiguous():
+        B.check(idx, "idx", pages.device, 1)
+    if pages.n_pages == 0:
+        raise ValueError(f"no resident pages to gather on {dev} "
+                         f"(shape {pages.shape})")
+    out = idx.new_empty((idx.shape[0], pages.page_size))
+    B.launch("rt_gather_decode", *pages.args, B.ptr(idx), idx.shape[0],
+             B.ptr(out), B.stream(dev))
     gather_decode.launches += 1
     return out
 

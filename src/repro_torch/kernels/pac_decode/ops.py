@@ -18,9 +18,11 @@ page-aligned row range of a delta column, with the ids kept on the card.
 Two transfer regimes, with the same ids, PACs and IOMeter:
 
 * **device-resident** (the default): the column crosses to the card
-  once, as its unpack plan (``PackedPages.device_plan``); a dispatch
-  ships one int32 vector and the pages are gathered and decoded there
-  (``gather_decode``, the fused resident kernels);
+  once, as its unpack plan and its raw miniblock arrays
+  (``PackedPages.device_plan`` and ``device_pages``, sharing the packed
+  words); a dispatch ships one int32 vector and the pages are gathered
+  and decoded there (``gather_decode`` from the miniblock arrays, the
+  fused resident kernels from the plan);
 * **per-dispatch pack** (``REPRO_DEVICE_RESIDENT=0``, or
   ``resident=False`` on the fused entries): the miss pages are gathered
   on the host and shipped packed with every dispatch (``delta_decode``,
@@ -260,15 +262,15 @@ def _sharded_decode_matrix(col: DeltaColumn, parts, pages: Sequence[int],
     g, ppd, dev_of_page, per_dev = _shard_width(parts, owner, engine)
     if g == 1:
         device = engine_device(engine)
-        arrays, _ = parts.device_plan_single(device)
         idx = np.zeros(_page_class(len(pages_arr), parts.stack_rows),
                        np.int32)
         idx[:len(pages_arr)] = stack_idx
-        ids = K.gather_decode(*arrays, _to_device(idx, device))
+        ids = K.gather_decode(parts.device_pages_single(device),
+                              _to_device(idx, device))
         return ids[:len(pages_arr)].cpu().numpy().astype(np.int64)
     from repro_torch.kernels import shard
     mesh = parts.mesh_devices(_devices(engine))
-    blocks = parts.device_plan(mesh)
+    blocks = parts.device_pages(mesh)
     block0 = dev_of_page * (ppd * parts.pmax)  # first stacked row a block
     local_idx = (stack_idx - block0).astype(np.int32)
     p_pad = _page_class(int(per_dev.max()), ppd * parts.pmax)
@@ -325,9 +327,9 @@ def _decode_page_matrix(col: DeltaColumn, pages: Sequence[int],
         return np.where(cols < counts[:, None], ids, 0)
     if DEVICE_RESIDENT:
         packed = pack_column(col)
-        plan = packed.device_plan(device)
         idx = _page_index_vector(pages, len(col.pages))
-        ids = K.gather_decode(*plan, _to_device(idx, device))
+        ids = K.gather_decode(packed.device_pages(device),
+                              _to_device(idx, device))
         counts = packed.counts[np.asarray(pages, np.int64), 0]
     else:
         # per-dispatch pack: the pages ship packed, padded to a pow2 row

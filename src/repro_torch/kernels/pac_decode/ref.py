@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the pac_decode CUDA kernels.
 
-The same functions as ``csrc/gather_decode.cu``,
-``csrc/bitmap_scatter.cu``, ``csrc/per_dispatch.cu`` and
-``csrc/single_range.cu``, written as tensor code.  The kernel wrappers
+The same functions as ``csrc/per_dispatch.cu``,
+``csrc/bitmap_scatter.cu`` and ``csrc/single_range.cu``, written as
+tensor code.  The kernel wrappers
 run them for CPU tensors (the CPU tests), and ``chip_smoke.py`` holds the
 kernels against them on the card.  They work on any device.
 
@@ -51,11 +51,6 @@ def decode_plan_rows(first, pos, mind, packed) -> torch.Tensor:
     return wrap_int32(torch.cat([f, f + torch.cumsum(deltas, 1)], 1))
 
 
-def gather_decode(first, pos, mind, packed, idx) -> torch.Tensor:
-    """Plain version of ``gather_decode``: int32[len(idx), d + 1]."""
-    return decode_plan_rows(*gather_rows(idx, first, pos, mind, packed))
-
-
 def set_bits(ids: torch.Tensor, valid: torch.Tensor, base: int,
              n_words: int) -> torch.Tensor:
     """int32[n_words] over ``[base, base + 32 * n_words)`` with the bit of
@@ -88,7 +83,7 @@ def fused_gather_batch(first, pos, mind, packed, staged: torch.Tensor,
     ``[idx (p_pad) | gidx | total]``.  Returns ``(words, ids)``; with
     ``fwords`` the words are ANDed with the predicate plane."""
     idx, gidx, total = staged[:p_pad], staged[p_pad:-1], staged[-1]
-    ids = gather_decode(first, pos, mind, packed, idx)
+    ids = decode_plan_rows(*gather_rows(idx, first, pos, mind, packed))
     words = bitmap_scatter(ids, gidx, total, n_words)
     if fwords is not None:
         words = words & fwords
@@ -125,6 +120,16 @@ def decode_pages(first, min_deltas, bit_widths, word_offsets, packed,
                          torch.zeros_like(deltas))
     f = first.long()
     return wrap_int32(torch.cat([f, f + torch.cumsum(deltas, 1)], 1))
+
+
+def gather_decode(first, min_deltas, bit_widths, word_offsets, packed,
+                  counts, idx, page_size: int) -> torch.Tensor:
+    """Plain version of ``gather_decode``: the resident pages at ``idx``
+    (clamped to the column) decode as in :func:`decode_pages`:
+    int32[len(idx), page_size]."""
+    return decode_pages(*gather_rows(idx, first, min_deltas, bit_widths,
+                                     word_offsets, packed, counts),
+                        page_size)
 
 
 def rank_bitmap(full: torch.Tensor, gidx: torch.Tensor, gcount: torch.Tensor,

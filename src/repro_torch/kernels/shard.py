@@ -2,8 +2,9 @@
 
 A mesh is a tuple of ``torch.device``, ``g`` entries; entry ``i`` holds
 the block of the stacked partition plan placed by
-``PartitionedColumn.device_plan`` (the partitions ``[i * ppd, (i + 1) *
-ppd)``, ``ppd = n_parts / g``).  Each entry takes **one launch** of the
+``PartitionedColumn.device_plan`` and of the stacked miniblock arrays
+placed with it by ``PartitionedColumn.device_pages`` (the partitions
+``[i * ppd, (i + 1) * ppd)``, ``ppd = n_parts / g``).  Each entry takes **one launch** of the
 existing kernel over its whole block, on its device's current stream --
 never a launch per partition -- and the results merge on the mesh's
 first device:
@@ -106,11 +107,12 @@ def sharded_fused(mesh: Mesh, blocks: Sequence[Tuple[torch.Tensor, ...]],
     return host, (ids if want_ids else None)
 
 
-def sharded_decode(mesh: Mesh, blocks: Sequence[Tuple[torch.Tensor, ...]],
-                   idxmat: np.ndarray) -> np.ndarray:
-    """The page-matrix decode over a mesh: ``idxmat`` int32[g, p_pad]
-    holds entry ``i``'s block-local page indices.  Returns the int32
-    [g, p_pad, page_size] matrices on the host."""
+def sharded_decode(mesh: Mesh, blocks: Sequence, idxmat: np.ndarray
+                   ) -> np.ndarray:
+    """The page-matrix decode over a mesh: ``blocks[i]`` is entry ``i``'s
+    ``ResidentPages`` (``PartitionedColumn.device_pages``) and
+    ``idxmat`` int32[g, p_pad] holds its block-local page indices.
+    Returns the int32 [g, p_pad, page_size] matrices on the host."""
     from repro_torch.kernels.pac_decode import kernel as K
     outs: List[Optional[torch.Tensor]] = [None] * len(mesh)
     for dev, entries in _groups(mesh):
@@ -118,7 +120,7 @@ def sharded_decode(mesh: Mesh, blocks: Sequence[Tuple[torch.Tensor, ...]],
             idx = torch.from_numpy(np.ascontiguousarray(idxmat[entries])) \
                 .to(dev)
             for j, i in enumerate(entries):
-                outs[i] = K.gather_decode(*blocks[i], idx[j])
+                outs[i] = K.gather_decode(blocks[i], idx[j])
     return torch.stack([o.to(mesh[0]) for o in outs]).cpu().numpy()
 
 

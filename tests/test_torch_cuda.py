@@ -319,10 +319,36 @@ def _resident(dev, page_size, case):
 
 @pytest.mark.parametrize("page_size", PAGE_SIZES)
 def test_gather_decode_kernel_resident_cases_equal_plain(dev, page_size):
-    plan, staged, p_pad, _ = _resident(dev, page_size, "rows")
-    idx = staged[:p_pad].clone()      # with padding -7 and n_pages + 5
-    got, want = _held(PK.gather_decode, PR.gather_decode, *plan, idx)
+    """Kernel 2 on the miniblock arrays of the resident case's pages
+    (:func:`page_case`), its padding -7 and n_pages + 5 clamped."""
+    _, staged, p_pad, _ = _resident(dev, page_size, "rows")
+    idx = staged[:p_pad].clone()
+    pages = TC.packed_from_arrays(*page_case(page_size),
+                                  page_size=page_size).device_pages(dev)
+    before = PK.gather_decode.launches
+    got = PK.gather_decode(pages, idx)
+    want = PR.gather_decode(*pages.arrays, idx, page_size)
+    torch.cuda.synchronize()
+    assert PK.gather_decode.launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("page_size", [256, 2048, 8192])
+def test_gather_decode_kernel_equals_the_plan_decode(dev, page_size):
+    """Kernel 2 from the miniblock arrays gives the ids of the unpack
+    plan it was once read from, bit for bit, at one pass (256), the main
+    path's page (2048) and several passes (8192), with clamped padding."""
+    rng = np.random.default_rng(page_size)
+    vals = np.concatenate([np.sort(rng.integers(0, 1 << 24, 9 * page_size)),
+                           rng.integers(-(1 << 30), 1 << 30, 77)])
+    packed = TC.pack_column(TC.delta_encode_column(vals, page_size))
+    pages, plan = packed.device_pages(dev), packed.device_plan(dev)
+    n = packed.n_pages
+    idx = torch.from_numpy(np.r_[rng.permutation(n), [-7, n + 5] * 5]
+                           .astype(np.int32)).to(dev)
+    got = PK.gather_decode(pages, idx)
+    assert torch.equal(got, PR.decode_plan_rows(*PR.gather_rows(idx, *plan)))
+    assert torch.equal(got, PR.gather_decode(*pages.arrays, idx, page_size))
 
 
 def _fused_held(dev, page_size, case, want_ids, fwords=None):

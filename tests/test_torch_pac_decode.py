@@ -12,10 +12,11 @@ import numpy as np
 import pytest
 import torch
 import jax.numpy as jnp
-from _torch_cases import PAGE_SIZES, RESIDENT_CASES, resident_case
+from _torch_cases import PAGE_SIZES, RESIDENT_CASES, page_case, resident_case
 
 import repro.core as RC
 import repro_torch.core as TC
+from repro.core.encoding import PackedPages as RPackedPages
 from repro.kernels import _pad as RP
 from repro.kernels.pac_decode import kernel as RK
 from repro.kernels.pac_decode import ops as RO
@@ -77,9 +78,8 @@ def test_unpack_plan_decodes_like_the_oracle(column):
     col, rp, tp = column
     for a, b in zip(rp.unpack_plan(), tp.unpack_plan()):
         np.testing.assert_array_equal(a, b)
-    plan = tp.device_plan("cpu")
     idx = torch.arange(tp.n_pages, dtype=torch.int32)
-    ids = K.gather_decode(*plan, idx).numpy()
+    ids = K.gather_decode(tp.device_pages("cpu"), idx).numpy()
     for i, page in enumerate(col.pages):
         np.testing.assert_array_equal(ids[i, :page.count],
                                       RC.delta_decode_page(page))
@@ -92,7 +92,7 @@ def test_gather_decode_matches_jnp_ref(column, seed):
     n = tp.n_pages
     idx = np.concatenate([rng.integers(0, n, 11),
                           [-3, n + 2, 0, n - 1, 0]]).astype(np.int32)  # clip
-    got = K.gather_decode(*tp.device_plan("cpu"), torch.from_numpy(idx))
+    got = K.gather_decode(tp.device_pages("cpu"), torch.from_numpy(idx))
     want = RR.gather_decode_ref(*map(jnp.asarray, rp.unpack_plan()),
                                 jnp.asarray(idx), page_size=PAGE)
     assert got.dtype == torch.int32
@@ -102,7 +102,7 @@ def test_gather_decode_matches_jnp_ref(column, seed):
 def test_gather_decode_matches_pallas_interpret(column):
     _, rp, tp = column
     idx = np.array([4, 1, 6, 0], np.int32)
-    got = K.gather_decode(*tp.device_plan("cpu"), torch.from_numpy(idx))
+    got = K.gather_decode(tp.device_pages("cpu"), torch.from_numpy(idx))
     want = RK.gather_decode_pallas(*map(jnp.asarray, rp.unpack_plan()),
                                    jnp.asarray(idx), page_size=PAGE)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -167,13 +167,49 @@ def test_decode_row_ranges_engines_agree(column):
 
 def test_wrapper_uses_plain_version_only_for_cpu_tensors(column):
     _, _, tp = column
-    plan = tp.device_plan("cpu")
+    pages = tp.device_pages("cpu")
     before = K.gather_decode.launches
-    K.gather_decode(*plan, torch.zeros(8, dtype=torch.int32))
+    K.gather_decode(pages, torch.zeros(8, dtype=torch.int32))
     assert K.gather_decode.launches == before    # no kernel on the CPU
     with pytest.raises(ValueError):
-        K.gather_decode(*plan, torch.zeros(8, dtype=torch.int32,
+        K.gather_decode(pages, torch.zeros(8, dtype=torch.int32,
                                            device="meta"))
+
+
+def test_device_pages_share_first_and_packed_with_the_plan(column):
+    _, rp, _ = column
+    tp = packed_from_arrays(*rp.host_arrays(), page_size=PAGE)
+    pages = tp.device_pages("cpu")
+    plan = tp.device_plan(torch.device("cpu"))
+    assert tp.device_pages("cpu") is pages and tp.device_transfers == 1
+    first, md, bw, wo, packed, counts = pages.arrays
+    assert first.data_ptr() == plan[0].data_ptr()
+    assert packed.data_ptr() == plan[3].data_ptr()
+    for a, b in zip(pages.arrays, tp.host_arrays()):
+        np.testing.assert_array_equal(a.numpy(), b.view(np.int32))
+    assert pages.shape == (tp.n_pages, PAGE)
+    assert tp.device_stats()["engines"] == ["cpu"]
+
+
+@pytest.mark.parametrize("kind", ["sorted", "wide"])
+@pytest.mark.parametrize("page_size", [256, 2048, 8192])
+def test_gather_decode_clamps_and_short_last_page(page_size, kind):
+    """Padding -7 and n_pages + 5 clamp to the first and last page, and a
+    short last page holds its last id past its count."""
+    rng = np.random.default_rng(page_size)
+    n = 3 * page_size + 37
+    vals = np.sort(rng.integers(0, 1 << 24, n)) if kind == "sorted" \
+        else rng.integers(-(1 << 30), 1 << 30, n)
+    rp = RC.pack_column(RC.delta_encode_column(vals, page_size))
+    tp = packed_from_arrays(*rp.host_arrays(), page_size=page_size)
+    n_pages = tp.n_pages
+    idx = np.array([n_pages - 1, -7, 1, n_pages + 5, 0, n_pages - 1, 2,
+                    -7], np.int32)
+    got = K.gather_decode(tp.device_pages("cpu"), torch.from_numpy(idx))
+    want = RR.gather_decode_ref(*map(jnp.asarray, rp.unpack_plan()),
+                                jnp.asarray(idx), page_size=page_size)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got[0, 37:] == int(vals[-1])).all()
 
 
 def test_size_classes_match_the_reference():
@@ -219,9 +255,15 @@ def test_fused_bitmap_resident_cases_match_jnp_ref(page_size, case):
 
 @pytest.mark.parametrize("page_size", PAGE_SIZES)
 def test_gather_decode_resident_cases_match_jnp_ref(page_size):
-    plan, staged, p_pad, _ = resident_case(page_size)
+    """Kernel 2 reads the miniblock arrays of the resident case's pages
+    (:func:`page_case`); the reference decodes its own unpack plan of
+    them."""
+    arrays = page_case(page_size)
+    _, staged, p_pad, _ = resident_case(page_size)
     idx = staged[:p_pad]              # with padding -7 and n_pages + 5
-    got = K.gather_decode(*_plan_tensors(plan), torch.from_numpy(idx))
+    tp = packed_from_arrays(*arrays, page_size=page_size)
+    got = K.gather_decode(tp.device_pages("cpu"), torch.from_numpy(idx))
+    plan = RPackedPages(*arrays, page_size=page_size).unpack_plan()
     want = RR.gather_decode_ref(*map(jnp.asarray, plan), jnp.asarray(idx),
                                 page_size=page_size)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))

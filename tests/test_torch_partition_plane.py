@@ -797,6 +797,39 @@ def test_device_plan_placed_once_per_device_and_mesh():
         parts.device_plan((CPU,) * 3)
 
 
+@pytest.mark.parametrize("n_parts", [2, 3])
+def test_stacked_pages_decode_like_the_stacked_plan(n_parts):
+    """Kernel 2's stacked miniblock arrays (single tail and a mesh naming
+    the CPU twice or three times) decode every stacked row, the pad rows
+    of the shorter partitions included, to the ids of the stacked plan
+    that kernels 1 and 4 read; they share its first and packed."""
+    from repro_torch.kernels.pac_decode import kernel as PK
+    from repro_torch.kernels.pac_decode import ref as PR
+    rng = np.random.default_rng(43)
+    vals = np.concatenate([np.sort(rng.integers(0, 1 << 20, 5 * PAGE)),
+                           rng.integers(-(1 << 30), 1 << 30, PAGE + 9)])
+    col = T.delta_encode_column(vals, PAGE)
+    parts = T.partition_column(col, n_parts)
+    assert parts.stack_rows > len(col.pages)       # pad rows
+    pages = parts.device_pages_single(CPU)
+    arrays, _ = parts.device_plan_single(CPU)
+    assert pages.arrays[0] is arrays[0] and pages.arrays[4] is arrays[3]
+    rows = parts.stack_rows
+    idx = torch.arange(-2, rows + 2, dtype=torch.int32)
+    want = PR.decode_plan_rows(*PR.gather_rows(idx, *arrays))
+    np.testing.assert_array_equal(PK.gather_decode(pages, idx).numpy(),
+                                  want.numpy())
+    blocks = parts.device_pages((CPU,) * n_parts)
+    plans = parts.device_plan((CPU,) * n_parts)
+    assert parts.device_transfers == 1
+    for block, plan in zip(blocks, plans):
+        assert block.arrays[0].data_ptr() == plan[0].data_ptr()
+        local = torch.arange(block.n_pages, dtype=torch.int32)
+        np.testing.assert_array_equal(
+            PK.gather_decode(block, local).numpy(),
+            PR.decode_plan_rows(*plan).numpy())
+
+
 def test_filter_plane_placed_once_per_mesh():
     plan = T.LabelFilter(_vt(T), T.L("A")).plan()
     planes = plan.device_bitmap_sharded((CPU,) * 4, plan.n_words)
